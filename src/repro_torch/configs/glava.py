@@ -1,0 +1,15 @@
+"""The paper's own configs: production gLava sketch sizes.
+
+Port of ``src/repro/configs/glava.py`` (the four ``SketchConfig`` presets;
+the ``ArchSpec`` registry is not ported).  Sized from Thm 1 / Lemma 5.2
+(w = e/sqrt(eps) resp. e/eps, d = ln(1/delta)) for network monitoring."""
+from repro_torch.core.sketch import SketchConfig
+
+# d=4 ≈ ln(1/δ) for δ=2%, w=65536 → ε ≈ (e/w)² ≈ 1.7e-9 for edge queries.
+WEB = SketchConfig(depth=4, width_rows=65536, width_cols=65536)
+BASE = SketchConfig(depth=5, width_rows=8192, width_cols=8192)
+NONSQUARE = SketchConfig(depth=5, width_rows=16384, width_cols=4096)
+SMOKE = SketchConfig(depth=3, width_rows=256, width_cols=256)
+
+# The reference's ``query_64k`` stream shape: one batch of 2^16 edge queries.
+QUERY_64K = 65_536

@@ -1,0 +1,1 @@
+"""Host-side data generators (port of ``src/repro/data``; so far the edge stream)."""

@@ -1,0 +1,117 @@
+"""Serving entry point: ``python -m repro_torch.launch.serve`` runs a gLava
+:class:`repro_torch.api.GraphStream` session against a synthetic
+network-traffic stream, with a mixed query workload served as ONE standing
+subscription, re-evaluated every ``--every`` ingest batches, and prints
+throughput stats.
+
+Port of ``src/repro/launch/serve.py`` (single-session mode, same flags plus
+``--device``).  The session runs on the CUDA device unless ``--device cpu``
+is given.  ``--tenants`` (ROADMAP A8), ``--window-slices`` (A4),
+``--wal-dir`` and ``--slice-width``/``--max-lateness`` (A7) raise
+``NotImplementedError`` until their slices are ported."""
+from __future__ import annotations
+
+import argparse
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.api import GraphStream, Query, QueryBatch, SketchConfig
+from repro_torch.api.subscription import Subscription, SubscriptionEvent
+from repro_torch.core.ingest import BACKENDS
+from repro_torch.core.query_engine import QUERY_BACKENDS
+from repro_torch.data.graphs import edge_stream
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--width", type=int, default=1024)
+    ap.add_argument("--depth", type=int, default=4)
+    ap.add_argument("--nodes", type=int, default=100_000)
+    ap.add_argument("--edges", type=int, default=500_000)
+    ap.add_argument("--batch", type=int, default=50_000)
+    ap.add_argument("--window-slices", type=int, default=0)
+    ap.add_argument(
+        "--every",
+        type=int,
+        default=1,
+        help="re-evaluate the standing workload every k ingest batches",
+    )
+    ap.add_argument(
+        "--ingest-backend",
+        default="auto",
+        choices=["auto", *BACKENDS],
+        help="auto = the CUDA scatter kernel on a CUDA device, scatter on the CPU",
+    )
+    ap.add_argument(
+        "--query-backend",
+        default="auto",
+        choices=["auto", *QUERY_BACKENDS],
+        help="auto = the CUDA multi-query and closure kernels on a CUDA device, "
+        "plain torch on the CPU",
+    )
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--tenants", type=int, default=0, help="not ported yet")
+    ap.add_argument("--wal-dir", default=None, help="not ported yet")
+    ap.add_argument("--slice-width", type=float, default=0.0, help="not ported yet")
+    ap.add_argument("--max-lateness", type=float, default=0.0, help="not ported yet")
+    return ap
+
+
+def run(args: argparse.Namespace) -> Tuple[GraphStream, Subscription, List[SubscriptionEvent]]:
+    """Drive one session: open, subscribe the standing workload, ingest the
+    stream batch by batch.  Returns the session, the subscription and the
+    events it emitted (in tick order)."""
+    if args.tenants:
+        raise NotImplementedError("--tenants (fleet mode) is not ported yet (ROADMAP A8)")
+    cfg = SketchConfig(depth=args.depth, width_rows=args.width, width_cols=args.width)
+    stream = GraphStream.open(
+        cfg,
+        device=args.device,
+        window_slices=args.window_slices or None,
+        ingest_backend=args.ingest_backend,
+        query_backend=args.query_backend,
+        wal_dir=args.wal_dir,
+        slice_width=args.slice_width or None,
+        max_lateness=args.max_lateness if args.slice_width else None,
+    )
+    rng = np.random.default_rng(0)
+    data = edge_stream(args.nodes, args.edges, rng, zipf_a=1.2)
+
+    # The monitoring workload is STANDING: the same mixed batch re-asked
+    # after every ingest batch, compiled once by the planner.
+    qs = rng.integers(0, args.nodes, 1024).astype(np.uint32)
+    qd = rng.integers(0, args.nodes, 1024).astype(np.uint32)
+    workload = QueryBatch(
+        [
+            Query.edge(qs, qd),
+            Query.in_flow(qs[:256]),
+            Query.heavy(qs[:64], theta=0.01),
+            Query.reach(qs[:64], qd[:64]),
+        ]
+    )
+    sub = stream.subscribe(workload, every=args.every, name="mixed-workload")
+
+    for lo in range(0, args.edges, args.batch):
+        hi = min(args.edges, lo + args.batch)
+        stream.ingest(data["src"][lo:hi], data["dst"][lo:hi], data["weight"][lo:hi])
+    return stream, sub, sub.poll()
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    args = build_parser().parse_args(argv)
+    stream, sub, ticks = run(args)
+    stats = stream.summary()
+    print("[serve] " + " ".join(f"{k}={v:,.1f}" for k, v in stats.items()))
+    print(
+        f"[serve] subscription {sub.name!r}: {sub.ticks} ticks "
+        f"({len(ticks)} events pending), last epoch {ticks[-1].epoch if ticks else '-'}, "
+        f"closure full={stream.engine.closure_refreshes} "
+        f"incremental={stream.engine.closure_incremental_refreshes} "
+        f"device={stream.device}"
+    )
+    return stream, sub, ticks
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,103 @@
+"""Card-only tests: each CUDA kernel against its plain PyTorch version on the
+card, the wrappers' checks, and a small session on the card against the
+same session on the CPU.  Marked ``gpu``; they skip where no CUDA card is
+present (decided in the fixture, never at import).  Run them on the card
+with ``python -m pytest -m gpu tests/test_torch_gpu.py``."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import reach
+from repro_torch.kernels.closure import ops as closure_ops
+from repro_torch.kernels.closure.ref import closure_step_ref
+from repro_torch.kernels.ingest import ops as ingest_ops
+from repro_torch.kernels.ingest.ref import ingest_scatter_ref
+from repro_torch.kernels.query import ops as query_ops
+from repro_torch.kernels.query.ref import edge_query_min_ref
+from repro_torch.launch import serve
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("d,wr,wc,b,offset", [(1, 64, 64, 33, 0), (3, 1000, 700, 5000, 0), (2, 256, 128, 4096, 256)])
+def test_ingest_kernel_bit_equals_plain_version(cuda, d, wr, wc, b, offset):
+    base = torch.randint(0, 1000, (d, wr, wc), generator=cuda, device="cuda").float()
+    rows = torch.randint(0, wr + offset * 2, (d, b), generator=cuda, device="cuda", dtype=torch.int32)
+    rows[torch.rand((d, b), generator=cuda, device="cuda") < 0.1] = -1
+    cols = torch.randint(0, wc, (d, b), generator=cuda, device="cuda", dtype=torch.int32)
+    w = torch.randint(0, 9, (b,), generator=cuda, device="cuda").float()
+    before = ingest_ops.ingest_scatter.launches
+    got = ingest_ops.ingest_scatter(base.clone(), rows, cols, w, row_offset=offset)
+    assert ingest_ops.ingest_scatter.launches == before + 1
+    want = ingest_scatter_ref(base.clone(), rows, cols, w, row_offset=offset)
+    assert torch.equal(got, want)
+
+
+def test_ingest_kernel_float_weights_close(cuda):
+    rows = torch.randint(0, 128, (2, 7000), generator=cuda, device="cuda")
+    cols = torch.randint(0, 128, (2, 7000), generator=cuda, device="cuda")
+    w = torch.randn(7000, generator=cuda, device="cuda")
+    got = ingest_ops.ingest_scatter(torch.zeros(2, 128, 128, device="cuda"), rows, cols, w)
+    want = ingest_scatter_ref(torch.zeros(2, 128, 128, device="cuda"), rows, cols, w)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("d,wr,wc,q", [(1, 64, 64, 17), (3, 256, 512, 300), (5, 1024, 1024, 65536)])
+def test_query_kernel_bit_equals_plain_version(cuda, d, wr, wc, q):
+    counters = torch.randint(0, 100, (d, wr, wc), generator=cuda, device="cuda").float()
+    rows = torch.randint(0, wr, (d, q), generator=cuda, device="cuda")
+    cols = torch.randint(0, wc, (d, q), generator=cuda, device="cuda")
+    got = query_ops.edge_query_min(counters, rows, cols)
+    assert got.shape == (q,) and got.dtype == torch.float32
+    assert torch.equal(got, edge_query_min_ref(counters, rows, cols))
+
+
+@pytest.mark.parametrize("n,w,density", [(1, 128, 0.02), (3, 384, 0.005), (2, 1024, 0.002)])
+def test_closure_step_bit_equals_plain_version(cuda, n, w, density):
+    a = (torch.rand((n, w, w), generator=cuda, device="cuda") < density).float()
+    got = closure_ops.closure_step(a)
+    assert torch.equal(got, closure_step_ref(a))
+    assert got.data_ptr() != a.data_ptr()
+
+
+@pytest.mark.parametrize("w", [200, 256])
+def test_closure_loop_matches_plain_closure(cuda, w):
+    adj = (torch.rand((3, w, w), generator=cuda, device="cuda") < 2.0 / w).float() * 5
+    before = closure_ops.closure_step.launches
+    got = closure_ops.transitive_closure(adj)
+    assert closure_ops.closure_step.launches - before == closure_ops.closure_steps(w)
+    assert torch.equal(got, reach.transitive_closure(adj))
+
+
+def test_wrappers_refuse_bad_operands(cuda):
+    a = torch.zeros(1, 128, 128, device="cuda")
+    with pytest.raises(ValueError):
+        closure_ops.closure_step(a, out=a)  # must not alias
+    with pytest.raises(ValueError):
+        closure_ops.closure_step(torch.zeros(1, 100, 100, device="cuda"))
+    with pytest.raises(ValueError):
+        query_ops.edge_query_min(a.double(), torch.zeros(1, 4, device="cuda"), torch.zeros(1, 4, device="cuda"))
+    with pytest.raises(ValueError):
+        ingest_ops.ingest_scatter(a.transpose(1, 2), torch.zeros(1, 4, device="cuda"),
+                                  torch.zeros(1, 4, device="cuda"), torch.ones(4, device="cuda"))
+
+
+def test_small_session_on_card_equals_cpu(cuda):
+    argv = ["--nodes", "2000", "--edges", "20000", "--batch", "5000", "--width", "256", "--depth", "3"]
+    gpu, _, gpu_events = serve.main(argv)
+    cpu, _, cpu_events = serve.main(argv + ["--device", "cpu"])
+    assert torch.equal(gpu._live().counters.cpu(), cpu._live().counters)
+    assert torch.equal(gpu._live().row_flows.cpu(), cpu._live().row_flows)
+    for a, b in zip(gpu_events, cpu_events, strict=True):
+        assert (a.tick, a.epoch) == (b.tick, b.epoch)
+        for ra, rb in zip(a.results, b.results):
+            va = ra.value if isinstance(ra.value, tuple) else (ra.value,)
+            vb = rb.value if isinstance(rb.value, tuple) else (rb.value,)
+            assert all(np.array_equal(x, y) for x, y in zip(va, vb))
