@@ -18,12 +18,16 @@ The summary is updated IN PLACE on the device (the counterpart of the
 reference's buffer donation); ``sketch`` hands out a copy, so nothing given
 to a caller aliases the live counters.  Query answers come back as numpy.
 
+``ingest_backend="fused"`` opens a fused session: each batch goes through
+the one-pass fused ingest (``GLavaSketch.update_fused_``), which updates the
+counters, both registers and a (d, w_r) touched-row bitmap on the device, so
+the incremental closure refresh needs no host pass over the keys.
+
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
 item: sliding windows (``window_slices``, A4), the WAL and event time
 (``wal_dir``, ``slice_width``, ``max_lateness``), checkpoints
-(``checkpoint_dir``, ``checkpoint``, ``restore``, ``recover``; all A7), the
-distributed plane (``mesh``, A9) and the one-pass fused ingest
-(``ingest_backend="fused"``, queue B4).
+(``checkpoint_dir``, ``checkpoint``, ``restore``, ``recover``; all A7) and
+the distributed plane (``mesh``, A9).
 """
 from __future__ import annotations
 
@@ -94,11 +98,17 @@ class IngestReceipt:
     and the batch's touched-key set — the unique uint32 node keys whose
     sketch ROWS the batch wrote.  ``None`` means "no usable delta" (negative
     weights, the row-width cap overflowed, or tracking already stopped),
-    which forces the next closure sync to rebuild from scratch."""
+    which forces the next closure sync to rebuild from scratch.
+
+    Fused sessions (``ingest_backend="fused"``) report the delta as
+    ``touched_rows`` instead: the (d, w_r) bool row-bucket bitmap the
+    one-pass kernel wrote, on the session device (``None`` for a batch with
+    negative weights).  ``touched_keys`` is ``None`` for those receipts."""
 
     epoch: int
     n_edges: int
     touched_keys: Optional[np.ndarray]
+    touched_rows: Optional[torch.Tensor] = None
 
 
 def _preset(name: str) -> SketchConfig:
@@ -155,8 +165,6 @@ class GraphStream:
             raise _not_ported("checkpoint_dir (checkpoints)", "A7")
         if mesh is not None:
             raise _not_ported("mesh (distributed sessions)", "A9")
-        if ingest_backend == "fused":
-            raise _not_ported('ingest_backend="fused" (one-pass fused ingest)', "queue B4")
         if device is None and sketch is not None:
             device = sketch.device
         self.device = resolve_device(device)
@@ -168,7 +176,13 @@ class GraphStream:
         else:
             self._sketch = GLavaSketch.empty(config, seed, self.device)
         self.config = config
-        self.ingest_backend = resolve_backend(ingest_backend, self.device)
+        # "fused" is a session-level mode, not an IngestEngine backend: the
+        # one-pass kernel updates counters, registers and the touched-row
+        # bitmap together.
+        self._fused = ingest_backend == "fused"
+        self.ingest_backend = (
+            "fused" if self._fused else resolve_backend(ingest_backend, self.device)
+        )
         self._preagg = preagg
         self.engine = QueryEngine(query_backend)
         self.stats = StreamStats()
@@ -176,11 +190,12 @@ class GraphStream:
         # Standing-query plane: registered subscriptions, the session-wide
         # event feed, and the touched-key accumulator feeding the
         # incremental closure refresh (None = "not additions-only since the
-        # last closure sync; full rebuild required").
+        # last closure sync; full rebuild required"): key arrays, or for a
+        # fused session one device bitmap, the OR of its batches' bitmaps.
         self._subs: Dict[int, Subscription] = {}
         self._next_sub_id = 0
         self._event_log = EventFeed(EVENT_LOG_MAXLEN, events_policy)
-        self._touched: Optional[List[np.ndarray]] = []
+        self._touched: Optional[List[Union[np.ndarray, torch.Tensor]]] = []
         self._touched_count = 0
         self._monitor_subs: Dict[Tuple[int, float], Subscription] = {}
         # Bounded in-flight ingest: kernel launches are asynchronous, so the
@@ -290,9 +305,10 @@ class GraphStream:
             pre = preaggregate_host(s_np, d_np, w_np)
         # Only pay the host-side unique scan while a touched-key delta can
         # still be consumed; the collapsed batch gives the unique sources
-        # for free.
+        # for free.  Fused sessions skip all of this: their delta is the
+        # kernel's device bitmap.
         touched = None
-        if self._touched is not None and additive:
+        if self._touched is not None and additive and not self._fused:
             if pre is not None:
                 if self.config.directed:
                     touched = pre.src_unique
@@ -304,7 +320,19 @@ class GraphStream:
                 touched = touched_row_keys(
                     s_np, None if self.config.directed else d_np, cap=self.config.width_rows
                 )
-        if pre is not None:
+        touched_rows = None
+        if self._fused:
+            if pre is not None:
+                # Collapsed pairs through the kernel.  The padding slots
+                # (key 0, weight 0) are valid slots: they add nothing but
+                # mark row_hash(0), as in the reference.
+                s, d, w = (self._tensor(pad_bucket(x)) for x in (pre.src, pre.dst, pre.weights))
+            else:
+                s, d, w = self._tensor(s_np), self._tensor(d_np), self._tensor(w_np)
+            _, touched_rows = self._sketch.update_fused_(s, d, w)
+            if not additive:
+                touched_rows = None
+        elif pre is not None:
             # Arrays are padded to power-of-two buckets (zero weights are the
             # identity), so batch shapes stay on a short ladder.
             self._sketch.update_preaggregated_(
@@ -323,8 +351,10 @@ class GraphStream:
         self.stats.edges_ingested += n_edges
         self.stats.ingest_s += time.time() - t0
         self._epoch += 1
-        self._note_touched(touched)
-        receipt = IngestReceipt(epoch=self._epoch, n_edges=n_edges, touched_keys=touched)
+        self._note_touched(touched_rows if self._fused else touched)
+        receipt = IngestReceipt(
+            epoch=self._epoch, n_edges=n_edges, touched_keys=touched, touched_rows=touched_rows
+        )
         self._after_mutation()
         return receipt
 
@@ -430,15 +460,25 @@ class GraphStream:
             # cache so no later epoch tag can collide with a stale closure.
             self.engine.invalidate()
 
-    def _note_touched(self, batch_delta: Optional[np.ndarray]) -> None:
-        """Accumulate one batch's touched-key delta for the next closure
-        sync; ``None`` (non-additive batch) or overflowing the row width
-        forces the next sync to rebuild from scratch."""
+    def _note_touched(self, batch_delta) -> None:
+        """Accumulate one batch's touched-row delta for the next closure
+        sync: a unique key array (plain sessions) or a (d, w_r) bool device
+        bitmap (fused sessions).  ``None`` (non-additive batch) or
+        overflowing the row width forces the next sync to rebuild from
+        scratch."""
         if self._touched is None:
             return
         if batch_delta is None:
             self._touched = None
             self._touched_count = 0
+            return
+        if isinstance(batch_delta, torch.Tensor):
+            # Bitmap: OR into one device accumulator (no sync, no overflow
+            # cap), so the delta stays (d, w_r) between closure syncs.
+            if self._touched:
+                self._touched[0] |= batch_delta
+            else:
+                self._touched.append(batch_delta.clone())
             return
         self._touched.append(batch_delta)
         self._touched_count += int(batch_delta.size)
@@ -454,6 +494,10 @@ class GraphStream:
         if self._touched is not None:
             if not self._touched:
                 delta = np.zeros(0, np.uint32)
+            elif isinstance(self._touched[0], torch.Tensor):
+                # The accumulated device bitmap; refresh_closure makes its
+                # one host copy, and only when it refreshes incrementally.
+                delta = self._touched[0]
             else:
                 delta = np.unique(np.concatenate(self._touched)).astype(np.uint32)
         self.engine.refresh_closure(self._live(), delta, self._epoch)

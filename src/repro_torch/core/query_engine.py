@@ -11,7 +11,8 @@ family (edge, point/flow, heavy-hitter, subgraph, reachability) and owns
   closure of the counters, O(w³ log w) to build and O(d·Q) to query.  The
   engine caches one closure tagged with the caller's epoch and the hash
   family's VALUE (read from the family's host copy, so the key costs no
-  device sync), and refreshes it incrementally from touched rows;
+  device sync), and refreshes it incrementally from touched rows (given as
+  node keys or as the fused ingest's touched-row bitmap);
 - the **backend convention**: ``torch`` (plain PyTorch) or ``cuda`` (the
   hand-written multi-query kernel, ``repro_torch.kernels.query``, and the
   closure squaring kernel, ``repro_torch.kernels.closure``).  ``auto``
@@ -214,13 +215,17 @@ class QueryEngine:
         self, sketch: GLavaSketch, touched_keys, epoch: Optional[int] = None
     ) -> torch.Tensor:
         """Bring the cached closure up to ``epoch`` INCREMENTALLY from the
-        unique (U,) uint32 node keys whose rows the mutations since the
-        cached epoch touched (``reach.closure_refresh``, exact for
-        additions-only histories).  ``touched_keys=None`` means unknown or
-        not additions-only (deletes, merges) and — like a missing or foreign
-        cached closure, a refresh past the staleness budget, or more than
-        ``closure_refresh_frac`` of the rows touched — falls back to a full
-        :meth:`closure_for` build."""
+        rows the mutations since the cached epoch touched
+        (``reach.closure_refresh``, exact for additions-only histories).
+
+        ``touched_keys`` is a unique (U,) uint32 node-key array, OR a
+        (d, w_r) bool BITMAP of touched row buckets (numpy or a torch
+        tensor: the fused ingest kernel's form, ``GLavaSketch.update_fused_``),
+        or ``None`` meaning unknown or not additions-only (deletes, merges),
+        which — like a missing or foreign cached closure, a refresh past the
+        staleness budget, or more than ``closure_refresh_frac`` of the rows
+        touched (for a bitmap: in the most-touched depth) — falls back to a
+        full :meth:`closure_for` build."""
         if self._closure_fresh(sketch, epoch):
             return self._closure
         can_incremental = (
@@ -231,21 +236,36 @@ class QueryEngine:
             and self._incremental_since_full < self.closure_staleness_budget
         )
         if can_incremental:
+            if isinstance(touched_keys, torch.Tensor):
+                touched_keys = touched_keys.cpu().numpy()  # a bitmap's one host copy
             touched_keys = np.atleast_1d(np.asarray(touched_keys))
-            if touched_keys.size > self.closure_refresh_frac * sketch.counters.shape[1]:
+            is_bitmap = touched_keys.ndim == 2
+            # A bitmap is judged by its most-touched depth.
+            touched_size = int(touched_keys.sum(axis=1).max()) if is_bitmap else touched_keys.size
+            if touched_size > self.closure_refresh_frac * sketch.counters.shape[1]:
                 can_incremental = False
         if not can_incremental:
             return self.closure_for(sketch, epoch)
-        if touched_keys.size == 0:
+        if touched_size == 0:
             # Nothing touched: the counters are unchanged, only retag.
             self._closure_epoch = epoch
             return self._closure
-        rows = sketch.row_hash(keys_to_tensor(touched_keys, sketch.device))  # (d, U)
-        pad = (-rows.shape[1]) % CLOSURE_REFRESH_PAD_T
-        if pad:
-            # Padding with row 0 is exact: an untouched row only restates
-            # paths the cached closure already contains.
-            rows = F.pad(rows, (0, pad))
+        if is_bitmap:
+            # Per-depth touched row indices, right-padded with row 0 to a
+            # shared T (idempotent under the union).
+            t_pad = touched_size + (-touched_size) % CLOSURE_REFRESH_PAD_T
+            rows_np = np.zeros((touched_keys.shape[0], t_pad), np.int64)
+            for i, row_bits in enumerate(touched_keys):
+                idx = np.flatnonzero(row_bits)
+                rows_np[i, : idx.size] = idx
+            rows = torch.from_numpy(rows_np).to(sketch.device)
+        else:
+            rows = sketch.row_hash(keys_to_tensor(touched_keys, sketch.device))  # (d, U)
+            pad = (-rows.shape[1]) % CLOSURE_REFRESH_PAD_T
+            if pad:
+                # Padding with row 0 is exact: an untouched row only restates
+                # paths the cached closure already contains.
+                rows = F.pad(rows, (0, pad))
         self._closure = self._fn("closure_refresh", sketch.device)(
             self._closure, sketch.counters, rows
         )

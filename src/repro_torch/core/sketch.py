@@ -1,8 +1,8 @@
 """gLava graph sketches.
 
-Port of ``src/repro/core/sketch.py`` (the :class:`GLavaSketch` core; the
-baselines CountMin, NodeCountMin, CountSketch and gSketch, and the
-conservative, sequential and fused updates, are not ported yet).
+Port of ``src/repro/core/sketch.py`` (the :class:`GLavaSketch` core and its
+one-pass fused update; the baselines CountMin, NodeCountMin, CountSketch and
+gSketch, and the conservative and sequential updates, are not ported yet).
 
 :class:`GLavaSketch` holds ``d`` independent graph sketches, each a
 ``w_r × w_c`` weighted adjacency matrix over hashed node buckets (paper
@@ -11,9 +11,9 @@ sums of the counters) that point, flow and heavy-hitter queries read.
 
 The reference is functional: every update returns a new sketch.  The port
 updates IN PLACE through the trailing-underscore methods (``update_``,
-``update_preaggregated_``, ``delete_``), which is its counterpart of the
-reference's buffer donation; the plain-named methods keep the reference's
-functional meaning by updating a clone.  ``merge`` and ``scale`` return new
+``update_preaggregated_``, ``update_fused_``, ``delete_``), which is its
+counterpart of the reference's buffer donation; the plain-named methods keep
+the reference's functional meaning by updating a clone.  ``merge`` and ``scale`` return new
 tensors, so no result aliases an operand.
 """
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.core.hashing import HashFamily, make_hash_family
 from repro_torch.core.ingest import IngestEngine
+from repro_torch.kernels.ingest_fused.ops import fused_ingest
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,6 +220,35 @@ class GLavaSketch:
             scatter_register(self.col_flows, self.col_hash(src_unique), src_totals)
         return self
 
+    def update_fused_(
+        self,
+        src: torch.Tensor,
+        dst: torch.Tensor,
+        weights: Optional[torch.Tensor] = None,
+    ):
+        """One-pass fused ingest in place: counters, both flow registers AND
+        the touched-row bitmap in one sweep over the batch
+        (``repro_torch.kernels.ingest_fused``: the CUDA kernel for a sketch
+        on the card, its plain version on the CPU).
+
+        Returns ``(self, touched)`` with ``touched`` a (d, w_r) bool bitmap
+        of the row buckets this batch wrote, on the sketch's device: the
+        replacement for the host-side ``touched_row_keys`` pass, consumed by
+        ``QueryEngine.refresh_closure``.  Undirected sketches make a second
+        launch for the mirrored edges and OR the two bitmaps."""
+        if weights is None:
+            weights = torch.ones(src.shape, dtype=torch.float32, device=src.device)
+        weights = weights.to(torch.float32)
+        r, c = self.hash_edges(src, dst)
+        *_, touched = fused_ingest(self.counters, self.row_flows, self.col_flows, r, c, weights)
+        if not self.config.directed:
+            r2, c2 = self.hash_edges(dst, src)
+            *_, touched2 = fused_ingest(
+                self.counters, self.row_flows, self.col_flows, r2, c2, weights
+            )
+            touched |= touched2
+        return self, touched
+
     def delete_(self, src, dst, weights=None, backend: str = "auto") -> "GLavaSketch":
         """Turnstile deletion (paper Section 6.1.1) in place: a
         negative-weight update."""
@@ -233,6 +263,10 @@ class GLavaSketch:
 
     def update_preaggregated(self, *args, backend: str = "auto") -> "GLavaSketch":
         return self.clone().update_preaggregated_(*args, backend=backend)
+
+    def update_fused(self, src, dst, weights=None):
+        """``(new_sketch, touched)``; this sketch is left as it was."""
+        return self.clone().update_fused_(src, dst, weights)
 
     def delete(self, src, dst, weights=None, backend: str = "auto") -> "GLavaSketch":
         return self.clone().delete_(src, dst, weights, backend=backend)

@@ -1,6 +1,9 @@
 """Shared helpers of the port's parity tests: carry a reference sketch across
-to the port through numpy, and compare the two sides' state."""
+to the port through numpy, open a reference session and a port session on
+the same sketch, draw hashed batches from a numpy seed, and compare the two
+sides' state."""
 import numpy as np
+import torch
 
 from repro_torch.convert import sketch_from_arrays
 from repro_torch.core.sketch import SketchConfig
@@ -27,6 +30,38 @@ def to_port(sk, device="cpu"):
         None if square else np.asarray(sk.col_hash.b),
         device=device,
     )
+
+
+def open_pair(cfg, seed=0, **kwargs):
+    """A reference session and a port session (on the CPU) holding the same
+    sketch; ``kwargs`` (e.g. ``ingest_backend``) go to both."""
+    from repro.api import GraphStream as RefStream
+    from repro_torch.api import GraphStream
+
+    ref = RefStream.open(cfg, seed=seed, query_backend="jnp", **kwargs)
+    port = GraphStream.open(sketch=to_port(ref.sketch), device="cpu", **kwargs)
+    assert port.config == port_config(cfg) and port.device.type == "cpu"
+    return ref, port
+
+
+def hashed_batch(rng, d, wr, wc, b, inert_frac=0.1, zero_frac=0.0):
+    """Numpy counters (d, wr, wc), registers (d, wr) and (d, wc) holding
+    integers, and a hashed batch: rows (d, b) with ``inert_frac`` of them
+    -1, cols (d, b), integer weights (b,) with ``zero_frac`` of them 0."""
+    counters = rng.integers(0, 1000, (d, wr, wc)).astype(np.float32)
+    rf = rng.integers(0, 1000, (d, wr)).astype(np.float32)
+    cf = rng.integers(0, 1000, (d, wc)).astype(np.float32)
+    rows = rng.integers(0, wr, (d, b)).astype(np.int32)
+    rows[rng.random((d, b)) < inert_frac] = -1
+    cols = rng.integers(0, wc, (d, b)).astype(np.int32)
+    w = rng.integers(1, 9, b).astype(np.float32)
+    w[rng.random(b) < zero_frac] = 0.0
+    return counters, rf, cf, rows, cols, w
+
+
+def torch_copies(*arrays):
+    """Fresh CPU tensors of numpy arrays (the port updates in place)."""
+    return tuple(torch.from_numpy(np.array(a, copy=True)) for a in arrays)
 
 
 def assert_same_sketch(port, ref, exact=True, err=""):

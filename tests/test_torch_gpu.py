@@ -1,6 +1,6 @@
 """Card-only tests: each CUDA kernel against its plain PyTorch version on the
-card, the wrappers' checks, and a small session on the card against the
-same session on the CPU.  Marked ``gpu``; they skip where no CUDA card is
+card, the wrappers' checks, and small sessions (plain and fused) on the card
+against the same sessions on the CPU.  Marked ``gpu``; they skip where no CUDA card is
 present (decided in the fixture, never at import).  Run them on the card
 with ``python -m pytest -m gpu tests/test_torch_gpu.py``."""
 import numpy as np
@@ -10,10 +10,14 @@ import torch
 from repro_torch.core import reach
 from repro_torch.kernels.closure import ops as closure_ops
 from repro_torch.kernels.closure.ref import closure_step_ref
+from repro_torch.kernels.flow import ops as flow_ops
+from repro_torch.kernels.flow.ref import flows_ref
 from repro_torch.kernels.ingest import ops as ingest_ops
 from repro_torch.kernels.ingest.ref import ingest_scatter_ref
+from repro_torch.kernels.ingest_fused import ops as fused_ops
+from repro_torch.kernels.ingest_fused.ref import fused_ingest_ref
 from repro_torch.kernels.query import ops as query_ops
-from repro_torch.kernels.query.ref import edge_query_min_ref
+from repro_torch.kernels.query.ref import edge_query_cells_ref, edge_query_min_ref
 from repro_torch.launch import serve
 
 pytestmark = pytest.mark.gpu
@@ -59,6 +63,67 @@ def test_query_kernel_bit_equals_plain_version(cuda, d, wr, wc, q):
     assert torch.equal(got, edge_query_min_ref(counters, rows, cols))
 
 
+# Widths past the reference's 2,048 cap (MAX_FUSED_WC) launch the kernel too.
+@pytest.mark.parametrize("d,wr,wc,b", [(1, 64, 64, 33), (3, 300, 200, 1000), (2, 512, 3000, 20000)])
+def test_fused_ingest_kernel_bit_equals_plain_version(cuda, d, wr, wc, b):
+    def state():
+        g = torch.Generator(device="cuda").manual_seed(d * b)
+        return (
+            torch.randint(0, 1000, (d, wr, wc), generator=g, device="cuda").float(),
+            torch.randint(0, 1000, (d, wr), generator=g, device="cuda").float(),
+            torch.randint(0, 1000, (d, wc), generator=g, device="cuda").float(),
+        )
+
+    rows = torch.randint(0, wr, (d, b), generator=cuda, device="cuda", dtype=torch.int32)
+    rows[torch.rand((d, b), generator=cuda, device="cuda") < 0.1] = -1
+    cols = torch.randint(0, wc, (d, b), generator=cuda, device="cuda", dtype=torch.int32)
+    w = torch.randint(0, 9, (b,), generator=cuda, device="cuda").float()  # some weight 0
+    before = fused_ops.fused_ingest.launches
+    got = fused_ops.fused_ingest(*state(), rows, cols, w)
+    assert fused_ops.fused_ingest.launches == before + 1
+    want = fused_ingest_ref(*state(), rows, cols, w)
+    assert got[3].dtype == torch.bool
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
+def test_fused_ingest_kernel_float_weights_close(cuda):
+    rows = torch.randint(0, 128, (2, 7000), generator=cuda, device="cuda")
+    cols = torch.randint(0, 128, (2, 7000), generator=cuda, device="cuda")
+    w = torch.randn(7000, generator=cuda, device="cuda")
+
+    def state():
+        return torch.zeros(2, 128, 128, device="cuda"), torch.zeros(2, 128, device="cuda"), torch.zeros(2, 128, device="cuda")
+
+    got = fused_ops.fused_ingest(*state(), rows, cols, w)
+    want = fused_ingest_ref(*state(), rows, cols, w)
+    for g, x in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g, x, rtol=1e-6, atol=1e-5)
+    assert torch.equal(got[3], want[3])
+
+
+@pytest.mark.parametrize("d,wr,wc", [(1, 64, 64), (4, 300, 200), (2, 1000, 70), (5, 1024, 8192)])
+def test_flows_kernel_bit_equals_plain_version(cuda, d, wr, wc):
+    counters = torch.randint(0, 1000, (d, wr, wc), generator=cuda, device="cuda").float()
+    before = flow_ops.flows.launches
+    rs, cs = flow_ops.flows(counters)
+    assert flow_ops.flows.launches == before + 1
+    want_rs, want_cs = flows_ref(counters)
+    assert torch.equal(rs, want_rs) and torch.equal(cs, want_cs)
+
+
+@pytest.mark.parametrize("d,wr,wc,q", [(1, 64, 64, 17), (3, 256, 512, 300), (5, 1024, 1024, 65536)])
+def test_query_cells_kernel_bit_equals_plain_version(cuda, d, wr, wc, q):
+    counters = torch.randint(0, 100, (d, wr, wc), generator=cuda, device="cuda").float()
+    rows = torch.randint(0, wr, (d, q), generator=cuda, device="cuda")
+    cols = torch.randint(0, wc, (d, q), generator=cuda, device="cuda")
+    before = query_ops.edge_query_cells.launches
+    got = query_ops.edge_query_cells(counters, rows, cols)
+    assert query_ops.edge_query_cells.launches == before + 1
+    assert got.shape == (d, q) and got.dtype == torch.float32
+    assert torch.equal(got, edge_query_cells_ref(counters, rows, cols))
+
+
 @pytest.mark.parametrize("n,w,density", [(1, 128, 0.02), (3, 384, 0.005), (2, 1024, 0.002)])
 def test_closure_step_bit_equals_plain_version(cuda, n, w, density):
     a = (torch.rand((n, w, w), generator=cuda, device="cuda") < density).float()
@@ -87,6 +152,14 @@ def test_wrappers_refuse_bad_operands(cuda):
     with pytest.raises(ValueError):
         ingest_ops.ingest_scatter(a.transpose(1, 2), torch.zeros(1, 4, device="cuda"),
                                   torch.zeros(1, 4, device="cuda"), torch.ones(4, device="cuda"))
+    idx = torch.zeros(1, 4, device="cuda")
+    with pytest.raises(ValueError):
+        query_ops.edge_query_cells(a, idx, torch.zeros(1, 5, device="cuda"))
+    with pytest.raises(ValueError):
+        flow_ops.flows(a.transpose(1, 2))
+    with pytest.raises(ValueError):  # the registers must be float32
+        fused_ops.fused_ingest(a, torch.zeros(1, 128, device="cuda").double(), torch.zeros(1, 128, device="cuda"),
+                               idx, idx, torch.ones(4, device="cuda"))
 
 
 def test_small_session_on_card_equals_cpu(cuda):
@@ -95,6 +168,29 @@ def test_small_session_on_card_equals_cpu(cuda):
     cpu, _, cpu_events = serve.main(argv + ["--device", "cpu"])
     assert torch.equal(gpu._live().counters.cpu(), cpu._live().counters)
     assert torch.equal(gpu._live().row_flows.cpu(), cpu._live().row_flows)
+    for a, b in zip(gpu_events, cpu_events, strict=True):
+        assert (a.tick, a.epoch) == (b.tick, b.epoch)
+        for ra, rb in zip(a.results, b.results):
+            va = ra.value if isinstance(ra.value, tuple) else (ra.value,)
+            vb = rb.value if isinstance(rb.value, tuple) else (rb.value,)
+            assert all(np.array_equal(x, y) for x, y in zip(va, vb))
+
+
+def test_fused_session_on_card_equals_cpu(cuda):
+    argv = ["--nodes", "2000", "--edges", "20000", "--batch", "5000", "--width", "256", "--depth", "3"]
+
+    def run(device):
+        args = serve.build_parser().parse_args(argv + ["--device", device])
+        args.ingest_backend = "fused"
+        return serve.run(args)
+
+    before = fused_ops.fused_ingest.launches
+    gpu, _, gpu_events = run("cuda")
+    assert fused_ops.fused_ingest.launches - before == 4  # one per batch
+    cpu, _, cpu_events = run("cpu")
+    for name in ("counters", "row_flows", "col_flows"):
+        assert torch.equal(getattr(gpu._live(), name).cpu(), getattr(cpu._live(), name))
+    assert gpu.engine.closure_refreshes == cpu.engine.closure_refreshes
     for a, b in zip(gpu_events, cpu_events, strict=True):
         assert (a.tick, a.epoch) == (b.tick, b.epoch)
         for ra, rb in zip(a.results, b.results):

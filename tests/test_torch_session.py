@@ -13,20 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro.api import GraphStream as RefStream, Query as RefQuery, SketchConfig as RefConfig
+from repro.api import Query as RefQuery, SketchConfig as RefConfig
 from repro_torch.api import GraphStream, Query, QueryBatch
 from repro_torch.launch import serve
 
-from _torch_parity import assert_same_sketch, assert_same_value, port_config, to_port
+from _torch_parity import assert_same_sketch, assert_same_value, open_pair, port_config, to_port
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-
-
-def _open_pair(cfg, seed=0):
-    ref = RefStream.open(cfg, seed=seed, query_backend="jnp")
-    port = GraphStream.open(sketch=to_port(ref.sketch), device="cpu")
-    assert port.config == port_config(cfg) and port.device.type == "cpu"
-    return ref, port
 
 
 def _workload(mod, rng, n_nodes):
@@ -79,7 +72,7 @@ def _assert_same_events(got, want, exact=True):
     ids=["smoke", "smoke-undirected", "w1024"],
 )
 def test_session_transcript_and_results_match_reference(cfg, n_nodes):
-    ref, port = _open_pair(cfg, seed=3)
+    ref, port = open_pair(cfg, seed=3)
     rng = np.random.default_rng(cfg.width_rows)
     wl_rng = np.random.default_rng(7)
     ref_sub = ref.subscribe(*_workload(_RefMod, wl_rng, n_nodes), every=2, name="w",
@@ -147,8 +140,8 @@ def test_ddos_monitor_alarms_on_the_same_tick():
 
 def test_merge_string_labels_and_monitor_match_reference():
     cfg = RefConfig(depth=3, width_rows=64, width_cols=64)
-    ra, pa = _open_pair(cfg, seed=5)
-    rb, pb = _open_pair(cfg, seed=5)
+    ra, pa = open_pair(cfg, seed=5)
+    rb, pb = open_pair(cfg, seed=5)
     src = ["alice", "bob", "carol", "alice", "dave"]
     dst = ["bob", "carol", "alice", "bob", "alice"]
     for gs in (ra, pa):
@@ -199,10 +192,11 @@ def test_open_presets_and_unported_options_raise():
         (dict(slice_width=1.0), "A7"),
         (dict(checkpoint_dir="c"), "A7"),
         (dict(mesh=object()), "A9"),
-        (dict(ingest_backend="fused"), "B4"),
     ]:
         with pytest.raises(NotImplementedError, match=item):
             GraphStream.open("smoke", device="cpu", **kwargs)
+    # The fused session mode is ported: it opens and keeps its mode name.
+    assert GraphStream.open("smoke", device="cpu", ingest_backend="fused").ingest_backend == "fused"
     for method in ("checkpoint", "restore", "recover"):
         with pytest.raises(NotImplementedError, match="A7"):
             getattr(gs, method)()
