@@ -11,9 +11,11 @@ version on the card at the BASE shapes (``configs/glava.py``: d=5,
 8192 x 8192 counters): the ingest scatter, the fused multi-query, the closure
 step, the one-pass fused ingest (B=50,000 with inert and weight-0 slots; also
 timed on serve BASE's zipf-skewed first batch), the
-per-sketch edge-query gather (Q=1,024 and 65,536) and the flow reductions.
-Each is timed with CUDA events and the profiler beside its plain version and
-one PyTorch library call where there is one.
+per-sketch edge-query gather (Q=1,024 and 65,536), the flow reductions, and
+the CountSketch of a gradient at the 100m preset's length (65,020,416
+elements into a 5 x 16,384 table; also at width 2^17, past the shared-memory
+limit).  Each is timed with CUDA events and the profiler beside its plain
+version and one PyTorch library call where there is one.
 
 Then it drives the main paths, each with the launch counts set to 0 just
 before and read just after:
@@ -30,7 +32,15 @@ before and read just after:
   edge_query_cells`` against the fused multi-query;
 - serve incremental, plain and fused: small batches, so the closure refreshes
   incrementally (from touched keys, and from the fused kernel's bitmap);
-  each must equal the plain-backend run.
+  each must equal the plain-backend run;
+- train 100m: ``repro_torch.launch.train_lm --preset 100m --compress`` for
+  10 steps at the example's batch 8 and sequence 64 (full width, random
+  weights from a seed): countsketch launched twice a step, every loss finite,
+  the mean loss over the run's batches lower at its final parameters than at
+  its initial ones; the median step time and one profiled step; one round
+  trip of the state it leaves, on the card against the CPU;
+- train tiny: the tiny preset, compressed, 5 steps on the card and on the
+  CPU, whose losses must agree.
 
 Output: the card's name and power limit as ``nvidia-smi`` reports them, the
 build log, one line per phase, one JSON line listing every kernel (launches
@@ -67,6 +77,12 @@ SERVE_INCREMENTAL = [
     "--edges", "2000", "--batch", "200", "--every", "1",
 ]
 PLAIN_BACKENDS = ["--ingest-backend", "scatter", "--query-backend", "torch"]
+# Sketched-gradient training of the 100m preset (examples/train_lm.py's
+# batch 8 and sequence 64): its flat gradient and the compressor's sketch.
+TRAIN_100M = ["--preset", "100m", "--compress", "--steps", "10", "--batch", "8", "--seq", "64"]
+TRAIN_TINY = ["--preset", "tiny", "--compress", "--steps", "5", "--batch", "8", "--seq", "64"]
+GRAD_100M = 65_020_416
+CS_DEPTH, CS_WIDTH = 5, 16_384
 
 
 class SmokeFailure(RuntimeError):
@@ -76,6 +92,11 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def flag(argv, name: str) -> int:
+    """The integer value of ``name`` in an argument list."""
+    return int(argv[argv.index(name) + 1])
 
 
 def time_ms(fn, reps: int) -> float:
@@ -389,19 +410,259 @@ def phase_flows(torch, gen):
     )
 
 
-def countsketch_bound(depth: int = 5, width: int = 16_384) -> None:
-    """Print the bound of the one TPU kernel still to port,
-    ``src/repro/kernels/countsketch/kernel.py:47`` ``countsketch_pallas``, at
-    ``train/compression.py``'s defaults: per gradient element it reads the
-    value (4 bytes) and its d bucket and d sign indices (int32), and it
-    writes the (d, width) float32 table once."""
-    per_element = 4 + 2 * 4 * depth
-    table = depth * width * 4
-    per_million_ms = (1_000_000 * per_element + table) / PEAK_BYTES_PER_S * 1e3
+def phase_countsketch(torch, gen):
+    """The CountSketch kernel against its plain version at the 100m preset's
+    gradient length, on buckets and signs hashed as a training step hashes
+    them; and at a width past the shared-memory limit."""
+    from repro_torch.core.hashing import make_hash_family
+    from repro_torch.kernels.countsketch.ops import countsketch, hash_indices
+    from repro_torch.kernels.countsketch.ref import countsketch_ref
+
+    d, w, n = CS_DEPTH, CS_WIDTH, GRAD_100M
+    h, s = hash_indices(make_hash_family(torch.Generator().manual_seed(1), d, w, "cuda"), n)
+    # Integer values in [-8, 8]: every partial sum of a cell (about n/w = 4,000
+    # terms) stays far below 2^24, so any order of the atomics is exact.
+    ivec = torch.randint(-8, 9, (n,), generator=gen, device="cuda").float()
+    got = countsketch(ivec, h, s, w)
+    want = countsketch_ref(ivec, h, s, w)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"countsketch differs from its plain version on integer values "
+          f"(max err {float((got - want).abs().max())})")
+    # A top-k update: 4,096 nonzero coordinates, the rest zero (skipped).
+    sparse = torch.zeros(n, device="cuda")
+    sparse[torch.randperm(n, generator=gen, device="cuda")[:4096]] = ivec[:4096]
+    check(torch.equal(countsketch(sparse, h, s, w), countsketch_ref(sparse, h, s, w)),
+          "countsketch differs from its plain version on a sparse vector")
+    # Gaussian values: each cell sums about 4,000 terms in another order than
+    # the plain version's atomics; both must lie within the worst-case
+    # rounding bound of a float32 sum of the float64 sum (rounding_bound).
+    gvec = torch.randn(n, generator=gen, device="cuda")
+    got = countsketch(gvec, h, s, w)
+    plain = countsketch_ref(gvec, h, s, w)
+    exact = countsketch_ref(gvec.double(), h, s, w, dtype=torch.float64)
+    bound = rounding_bound(torch, countsketch_ref, gvec, h, w)
+    err = float((got.double() - exact).abs().max())
+    plain_err = float((plain.double() - exact).abs().max())
+    diff = float((got - plain).abs().max())
+    check(bool(((got.double() - exact).abs() <= bound).all()), f"countsketch off the float64 sum by {err}")
+    check(bool(((plain.double() - exact).abs() <= bound).all()), f"plain countsketch off by {plain_err}")
+    del plain, exact, bound
+
+    ms = time_ms(lambda: countsketch(gvec, h, s, w), 20)
+    dev_ms = device_ms(lambda: countsketch(gvec, h, s, w), 20, "countsketch_smem_kernel")
+    plain_ms = time_ms(lambda: countsketch_ref(gvec, h, s, w), 10)
+    flat = (torch.arange(d, device="cuda")[:, None] * w + h.long()).reshape(-1)
+    vals = (s.float() * gvec[None, :]).reshape(-1)
+    library_ms = time_ms(lambda: torch.zeros(d * w, device="cuda").index_add_(0, flat, vals), 10)
+    del flat, vals
+    # Each element's value, its d int32 buckets and d int8 signs read once;
+    # the float32 table written once.
+    bound_bytes = n * (4 + 4 * d + 1 * d) + d * w * 4
+
+    # Past the shared-memory limit the same launch code takes global atomics.
+    wide, n_wide = 1 << 17, 1 << 22
+    hw, sw = hash_indices(make_hash_family(torch.Generator().manual_seed(2), d, wide, "cuda"), n_wide)
+    check(torch.equal(countsketch(ivec[:n_wide], hw, sw, wide), countsketch_ref(ivec[:n_wide], hw, sw, wide)),
+          f"countsketch differs from its plain version at width {wide}")
+    wide_ms = device_ms(lambda: countsketch(gvec[:n_wide], hw, sw, wide), 10, "countsketch_global_kernel")
     print(
-        f"[chip_smoke] still to port: countsketch_pallas at d={depth}, width={width}: bound "
-        f"{per_element} bytes per gradient element + {table} bytes of table, "
-        f"{per_million_ms:.6f} ms per million elements (bytes, at {PEAK_BYTES_PER_S:.3g} B/s)"
+        f"[chip_smoke] countsketch d={d} w={w} n={n:,}: integer and sparse vectors bit-equal; Gaussian "
+        f"within the float32 rounding bound (kernel off the float64 sum by {err:.3g}, plain by {plain_err:.3g}, "
+        f"kernel off plain by {diff:.3g}); "
+        f"kernel {ms:.4f} ms (device {_fmt(dev_ms)}), plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms; "
+        f"width {wide}, n={n_wide:,}: bit-equal, device {_fmt(wide_ms)} (global atomics)"
+    )
+    return dict(
+        name="countsketch", route="cuda", source="src/repro_torch/csrc/countsketch.cu",
+        replaces="src/repro/kernels/countsketch/kernel.py:47", max_abs_err=diff, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_bytes / PEAK_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=library_ms,
+    )
+
+
+def rounding_bound(torch, countsketch_ref, vec, h, w):
+    """Per cell, gamma_(m-1) * sum|x| with gamma_k = k*u / (1 - k*u) and
+    u = 2^-24: how far a float32 sum of the cell's m terms may lie from the
+    exact sum, in any order of summation."""
+    ones = torch.ones_like(h, dtype=torch.int8)
+    mass = countsketch_ref(vec.abs().double(), h, ones, w, dtype=torch.float64)
+    terms = countsketch_ref(torch.ones_like(vec, dtype=torch.float64), h, ones, w, dtype=torch.float64)
+    ku = (terms - 1).clamp(min=0) * 2.0**-24
+    return ku / (1 - ku) * mass
+
+
+def phase_train(torch, drive):
+    """The training path: the 100m preset, compressed, at full width on the
+    card (countsketch launched twice a step), one profiled step, one round
+    trip of the state it leaves on the card against the CPU, and the tiny
+    preset on the card against the CPU."""
+    import numpy as np
+
+    from repro_torch.launch import train_lm
+
+    t0 = time.time()
+    run = drive(("countsketch",), lambda: train_lm.main(TRAIN_100M))
+    train_s = time.time() - t0
+    hist = run.result.history
+    losses = [h["loss"] for h in hist]
+    steps = len(hist)
+    check(steps == flag(TRAIN_100M, "--steps"), f"100m: {steps} steps")
+    check(all(np.isfinite(losses)), f"100m: non-finite loss in {losses}")
+    state = run.result.state
+    seen_before, seen_after = replay_losses(torch, state["params"], steps, losses[0])
+    check(seen_after < seen_before,
+          f"100m: mean loss over the run's {steps} batches {seen_after} at the final parameters, "
+          f"not below {seen_before} at the initial ones")
+    n = state["comp"].error.shape[0]
+    check(n == GRAD_100M, f"100m: flat gradient of {n} elements, expected {GRAD_100M}")
+    step_ms = [1e3 * h["duration_s"] for h in hist]
+    print(
+        f"[chip_smoke] train 100m compressed: {steps} steps in {train_s:.1f} s (set-up included); step loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; mean loss over the run's batches {seen_before:.6f} at the initial "
+        f"parameters -> {seen_after:.6f} at the final ones; step median {float(np.median(step_ms)):.1f} ms "
+        f"(host wall clock; steps {', '.join(f'{t:.1f}' for t in step_ms)} ms); n={n:,}"
+    )
+    profile_step(torch, run)
+    check_roundtrip_cpu(torch, run)
+    del run, state
+    torch.cuda.empty_cache()
+
+    # The tiny preset (float32) on the card and on the CPU: the same batches
+    # from the same initial state.  Gradients agree to ~1e-6 relative (float32
+    # products summed in other orders, TF32 off), and a top-k selection can
+    # flip a coordinate within rounding of the threshold, which moves one
+    # parameter by about the learning rate: the losses agree to rtol 1e-4.
+    cuda_losses = [h["loss"] for h in train_lm.main(TRAIN_TINY).result.history]
+    cpu_losses = [h["loss"] for h in train_lm.main(TRAIN_TINY + ["--device", "cpu"]).result.history]
+    check(np.allclose(cuda_losses, cpu_losses, rtol=1e-4, atol=0),
+          f"tiny: card losses {cuda_losses} vs CPU {cpu_losses}")
+    print(f"[chip_smoke] train tiny compressed, 5 steps: card and CPU losses agree to rtol 1e-4 "
+          f"(max rel diff {max(abs(a - b) / abs(b) for a, b in zip(cuda_losses, cpu_losses)):.3g})")
+
+
+def replay_losses(torch, params, steps, first_loss):
+    """Mean loss over the ``steps`` batches of the 100m run at its initial
+    parameters and at ``params``.  Per-step losses are each taken on another
+    batch, and over ten warm-up steps (learning rate at most 5e-4) their
+    batch-to-batch spread (about 0.06) hides the progress; the same batches
+    before and after show it.  The batches and the initial parameters are
+    drawn again as ``launch/train_lm.py`` and ``train_loop`` draw them; the
+    first batch's loss at the initial parameters must equal the run's first
+    step loss, which shows the replay is faithful."""
+    import numpy as np
+
+    from repro_torch.data.lm import MarkovTokens
+    from repro_torch.launch.train_lm import PRESETS
+    from repro_torch.models import transformer as tfm
+
+    cfg = PRESETS["100m"]
+    batch, seq = flag(TRAIN_100M, "--batch"), flag(TRAIN_100M, "--seq")
+    gen, rng = MarkovTokens(cfg.vocab, seed=0), np.random.default_rng(0)
+    seen = [torch.as_tensor(gen.batch(batch, seq + 1, rng)).cuda() for _ in range(steps)]
+    init = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    with torch.no_grad():
+        before = [float(tfm.loss_fn(cfg, init, t)[0]) for t in seen]
+        after = [float(tfm.loss_fn(cfg, params, t)[0]) for t in seen]
+    check(abs(before[0] - first_loss) <= 1e-5 * abs(first_loss),
+          f"100m replay: first batch's loss {before[0]} at the initial parameters, the run's was {first_loss}")
+    return float(np.mean(before)), float(np.mean(after))
+
+
+def profile_step(torch, run):
+    """One more compressed 100m step under the profiler (CUDA activity
+    only): device time by kernel and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = {k: torch.as_tensor(v).cuda() for k, v in next(run.batches).items()}
+    state = run.result.state
+    run.step(state, batch)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        _, metrics = run.step(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    by_kernel = sorted(
+        ((getattr(e, "device_time_total", 0.0) / 1e3, e.count, e.key) for e in prof.key_averages()),
+        reverse=True,
+    )
+    busy_ms = sum(t for t, _, _ in by_kernel)
+    print(
+        f"[chip_smoke] train 100m one profiled step: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%, profiler on)"
+    )
+    for t, k, key in by_kernel[:12]:
+        print(f"[chip_smoke]   {t:10.3f} ms  x{k:<5d} {key[:100]}")
+
+
+def check_roundtrip_cpu(torch, run):
+    """One round trip of the 100m run's compressor state on the card (the
+    CountSketch kernel) and on the CPU (the plain versions), on the gradient
+    of the next batch."""
+    import dataclasses
+
+    from repro_torch.kernels.countsketch.ops import hash_indices
+    from repro_torch.kernels.countsketch.ref import countsketch_ref
+    from repro_torch.train import compression as comp
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.models import transformer as tfm
+    from repro_torch.launch.train_lm import PRESETS
+
+    state = run.result.state
+    cfg = PRESETS["100m"]
+    tokens = torch.as_tensor(next(run.batches)["tokens"]).cuda()
+    _, grads = value_and_grad(lambda p, t: tfm.loss_fn(cfg, p, t), state["params"], tokens)
+    flat, _ = comp.flatten_grads(grads)
+    del grads
+    card = state["comp"]
+    host = dataclasses.replace(card, error=card.error.cpu(), momentum=card.momentum.cpu(), hash=card.hash.to("cpu"))
+    t0 = time.time()
+    up_card, new_card = comp.roundtrip(card, flat)
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    t0 = time.time()
+    up_host, new_host = comp.roundtrip(host, flat.cpu())
+    host_s = time.time() - t0
+
+    # The first sketch of the round trip on both sides, and the float32
+    # rounding bound of its cells (the CPU sums in index order, the card in
+    # any order).
+    corrected = flat + card.error
+    h, s = hash_indices(card.hash, flat.shape[0])
+    w = card.config.width
+    t_card = comp._sketch(card, corrected, (h, s))
+    t_host = comp._sketch(host, corrected.cpu())
+    bound = 2 * rounding_bound(torch, countsketch_ref, corrected, h, w)
+    tab_err = (t_card.double() - t_host.cuda().double()).abs()
+    check(bool((tab_err <= bound).all()), f"round trip: tables differ by {float(tab_err.max())}")
+    # An estimate is a median of d cells, so it moves by at most the table's
+    # largest difference; error and momentum move by at most twice that.
+    tol = 2 * float(bound.max()) + 1e-12
+    up_card = up_card.cpu()
+    sel_card, sel_host = up_card != 0, up_host != 0
+    flips = (sel_card != sel_host).nonzero().flatten()
+    flip_mass = float(torch.maximum(up_card[flips].abs(), up_host[flips].abs()).max()) if flips.numel() else 0.0
+    for upd, sel, other in ((up_card, sel_card, sel_host), (up_host, sel_host, sel_card)):
+        thresh = float(upd[sel].abs().min())
+        only = sel & ~other
+        check(bool((upd[only].abs() <= thresh + 2 * tol).all()),
+              "round trip: a coordinate selected on one side only lies away from the threshold")
+    same = sel_card & sel_host
+    check(torch.allclose(up_card[same], up_host[same], rtol=1e-6, atol=2 * tol), "round trip: updates differ")
+    agree = sel_card == sel_host
+    check(torch.allclose(new_card.error.cpu()[agree], new_host.error[agree], rtol=1e-6, atol=2 * tol),
+          "round trip: error feedback differs")
+    # A flipped coordinate enters d momentum cells on one side only.
+    check(torch.allclose(new_card.momentum.cpu(), new_host.momentum, rtol=1e-6, atol=4 * tol + flip_mass),
+          "round trip: sketch momentum differs")
+    err_diff = float((new_card.error.cpu()[agree] - new_host.error[agree]).abs().max())
+    mom_diff = float((new_card.momentum.cpu() - new_host.momentum).abs().max())
+    print(
+        f"[chip_smoke] round trip of the 100m state: card {1e3 * card_s:.1f} ms, CPU {host_s:.1f} s; tables "
+        f"within the float32 bound (max diff {float(tab_err.max()):.3g}, bound up to {float(bound.max()):.3g}); "
+        f"{int(sel_card.sum())} vs {int(sel_host.sum())} selected, {flips.numel()} near-threshold flips; "
+        f"error max diff {err_diff:.3g}, momentum max diff {mom_diff:.3g} (tolerance {2 * tol:.3g})"
     )
 
 
@@ -485,6 +746,7 @@ def main() -> int:
     from repro_torch.core.hashing import keys_to_tensor
     from repro_torch.kernels import build
     from repro_torch.kernels.closure import ops as closure_ops
+    from repro_torch.kernels.countsketch import ops as countsketch_ops
     from repro_torch.kernels.flow import ops as flow_ops
     from repro_torch.kernels.ingest import ops as ingest_ops
     from repro_torch.kernels.ingest_fused import ops as fused_ops
@@ -499,7 +761,7 @@ def main() -> int:
     print(f"[chip_smoke] torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
 
     t0 = time.time()
-    names = ("ingest", "query", "closure", "ingest_fused", "flow")
+    names = build.SOURCES
     build.build(names)
     print(f"[chip_smoke] built {', '.join(names)} in {time.time() - t0:.1f} s (nvcc, sm_90a, in parallel)")
     for name in names:
@@ -509,7 +771,8 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for phase in (phase_ingest, phase_query, phase_closure, phase_fused_ingest, phase_query_cells, phase_flows):
+    for phase in (phase_ingest, phase_query, phase_closure, phase_fused_ingest, phase_query_cells, phase_flows,
+                  phase_countsketch):
         row = phase(torch, gen)
         rows[row["name"]] = row
         torch.cuda.empty_cache()
@@ -530,6 +793,7 @@ def main() -> int:
         "fused_ingest": fused_ops.fused_ingest,
         "edge_query_cells": query_ops.edge_query_cells,
         "flows": flow_ops.flows,
+        "countsketch": countsketch_ops.countsketch,
     }
 
     def drive(kernel_names, fn):
@@ -615,7 +879,12 @@ def main() -> int:
         f"identical to the plain run"
     )
 
-    countsketch_bound()
+    # The training path: countsketch twice per compressed step.
+    phase_train(torch, drive)
+    n_steps = flag(TRAIN_100M, "--steps")
+    check(rows["countsketch"]["launches"] == 2 * n_steps,
+          f"train 100m: {rows['countsketch']['launches']} countsketch launches for {n_steps} steps")
+
     print(f"[chip_smoke] total {time.time() - t_start:.1f} s, build included")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,4 +1,4 @@
-"""Carry a reference sketch's state across to the port.
+"""Carry a reference's state across to the port.
 
 The JAX package's ``GLavaSketch`` is a pytree whose leaves, read out as
 numpy arrays, are ``counters``, ``row_flows``, ``col_flows`` and the hash
@@ -6,18 +6,28 @@ coefficients ``row_hash.a``/``row_hash.b`` (plus ``col_hash.a``/``.b`` when
 the sketch is non-square).  :func:`sketch_from_arrays` builds the port's
 :class:`~repro_torch.core.sketch.GLavaSketch` from exactly those arrays, so
 both sides hash identically; ``GraphStream.open(sketch=...)`` opens a
-session on it.  This module takes numpy only and never imports the
-reference.
+session on it.
+
+The training side converts the same way: a transformer's parameter tree
+(:func:`transformer_params_from_arrays`), an AdamW state
+(:func:`adamw_state_from_arrays`) and a gradient compressor's state
+(:func:`compressor_state_from_arrays`), each from the reference's leaves
+read out as numpy arrays (bfloat16 leaves as float32: the widening is
+exact).  This module takes numpy only and never imports the reference.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.hashing import HashFamily
 from repro_torch.core.sketch import GLavaSketch, SketchConfig
+from repro_torch.models.transformer import TransformerConfig, param_shapes
+from repro_torch.train.compression import CompressorConfig, CompressorState
+from repro_torch.train.optimizer import AdamWConfig, AdamWState
+from repro_torch.tree import tree_map
 
 
 def sketch_from_arrays(
@@ -52,3 +62,56 @@ def sketch_from_arrays(
         return torch.from_numpy(np.array(x, np.float32, copy=True)).to(device)
 
     return GLavaSketch(f32(counters), row_hash, col_hash, config, f32(row_flows), f32(col_flows))
+
+
+def _tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
+    arr = np.array(np.asarray(x, np.float32), copy=True)
+    return torch.from_numpy(arr).to(device=device, dtype=dtype)
+
+
+def transformer_params_from_arrays(
+    cfg: TransformerConfig, tree: Any, device: Optional[torch.device] = None
+) -> dict:
+    """The port's parameter tree from the reference's (the same names,
+    stacked layers and ``(in, out)`` layout), in ``cfg.param_dtype``."""
+    shapes = param_shapes(cfg)
+    if tree.keys() != shapes.keys() or tree["layers"].keys() != shapes["layers"].keys():
+        raise ValueError(f"parameter names differ from {cfg.name}'s")
+    for group, names in (("", shapes), ("layers.", shapes["layers"])):
+        for name, shape in names.items():
+            leaf = tree["layers"][name] if group else tree[name]
+            if name != "layers" and tuple(np.shape(leaf)) != shape:
+                raise ValueError(f"{group}{name} has shape {np.shape(leaf)}, {cfg.name} needs {shape}")
+    return tree_map(lambda x: _tensor(x, cfg.param_dtype, device), tree)
+
+
+def adamw_state_from_arrays(
+    cfg: AdamWConfig, step, m: Any, v: Any, device: Optional[torch.device] = None
+) -> AdamWState:
+    """An AdamW state from the reference's step counter and moment trees,
+    the moments in ``cfg.m_dtype``/``cfg.v_dtype``."""
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+        m=tree_map(lambda x: _tensor(x, cfg.m_dtype, device), m),
+        v=tree_map(lambda x: _tensor(x, cfg.v_dtype, device), v),
+    )
+
+
+def compressor_state_from_arrays(
+    cfg: CompressorConfig,
+    error,
+    momentum,
+    hash_a,
+    hash_b,
+    device: Optional[torch.device] = None,
+) -> CompressorState:
+    """A compressor state from the reference's error-feedback vector (n,),
+    sketch momentum (d, w) and hash coefficients (d,)."""
+    if np.shape(momentum) != (cfg.depth, cfg.width):
+        raise ValueError(f"momentum shape {np.shape(momentum)} != {(cfg.depth, cfg.width)}")
+    return CompressorState(
+        error=_tensor(error, torch.float32, device),
+        momentum=_tensor(momentum, torch.float32, device),
+        hash=HashFamily.from_host(hash_a, hash_b, cfg.width, device),
+        config=cfg,
+    )

@@ -24,6 +24,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# Every CUDA source of the port (``csrc/<name>.cu``).
+SOURCES = ("ingest", "query", "closure", "ingest_fused", "flow", "countsketch")
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 

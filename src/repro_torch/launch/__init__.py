@@ -1,1 +1,2 @@
-"""Entry points (port of ``src/repro/launch``; so far ``serve``)."""
+"""Entry points (port of ``src/repro/launch``; so far ``serve``, and
+``train_lm``, the counterpart of ``examples/train_lm.py``)."""

@@ -1,0 +1,149 @@
+"""Train loop: microbatch accumulation, straggler watchdog, optional
+sketched gradient compression, and failure injection for FT tests.
+
+Port of ``src/repro/train/trainer.py``.  A step is a plain function
+``step(state, batch) -> (state, metrics)`` over trees of tensors; gradients
+come from ``torch.autograd.grad`` on detached copies of the parameter leaves
+(the counterpart of ``jax.value_and_grad``), and microbatches run in a
+Python loop in place of ``lax.scan``.  ``train_loop`` puts each batch on
+the device of the state's tensors.
+
+Not ported yet: checkpointing and resume (``checkpoint_dir``, ROADMAP A7)
+and the all-reduce across workers (``axis_name``, ROADMAP A9); both raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.train import compression as comp_mod
+from repro_torch.train import optimizer as opt_mod
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    total_steps: int = 100
+    checkpoint_every: int = 25
+    checkpoint_dir: Optional[str] = None
+    keep_checkpoints: int = 3
+    log_every: int = 10
+    # microbatch gradient accumulation (1 = off)
+    grad_accum: int = 1
+    # straggler mitigation: flag steps slower than watchdog_factor × the
+    # running median (recorded and surfaced to the caller)
+    watchdog_factor: float = 3.0
+    # sketched gradient compression (None = off)
+    compressor: Optional[comp_mod.CompressorConfig] = None
+    # failure injection for FT tests: raise at this step (simulates preempt)
+    fail_at_step: Optional[int] = None
+
+
+@dataclasses.dataclass
+class TrainResult:
+    state: Any
+    history: list
+    straggler_steps: list
+    resumed_from: Optional[int]
+
+
+def value_and_grad(loss_fn: Callable, params: Any, batch: Any):
+    """``((loss, aux), grads)`` of ``loss_fn(params, batch)``, grads shaped
+    like ``params``; the parameters themselves are not marked, and loss and
+    aux come back detached from the graph."""
+    live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, aux = loss_fn(tree_unflatten(params, live), batch)
+        grads = torch.autograd.grad(loss, live)
+    aux = tree_map(lambda t: t.detach() if isinstance(t, torch.Tensor) else t, aux)
+    return (loss.detach(), aux), tree_unflatten(params, grads)
+
+
+def make_accum_step(loss_fn: Callable, opt_cfg: opt_mod.AdamWConfig, n_accum: int):
+    """Turn loss_fn(params, microbatch) into an accumulated train step over a
+    batch with a leading microbatch axis (n_accum, ...)."""
+
+    def step(state, batch):
+        params, opt = state["params"], state["opt"]
+        if n_accum > 1:
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+            losses = []
+            for i in range(n_accum):
+                (loss, _), g = value_and_grad(loss_fn, params, tree_map(lambda x: x[i], batch))
+                grads = tree_map(torch.add, grads, g)
+                losses.append(loss)
+            grads = tree_map(lambda g: g / n_accum, grads)
+            loss = torch.mean(torch.stack(losses))
+        else:
+            (loss, _), grads = value_and_grad(loss_fn, params, tree_map(lambda x: x[0], batch))
+        new_params, new_opt, om = opt_mod.apply_adamw(opt_cfg, opt, params, grads)
+        return {"params": new_params, "opt": new_opt}, {"loss": loss, **om}
+
+    return step
+
+
+def train_loop(
+    init_state: Callable[[torch.Generator], Any],
+    step_fn: Callable,
+    batches: Iterator[Dict[str, np.ndarray]],
+    cfg: TrainerConfig,
+    seed: int = 0,
+) -> TrainResult:
+    """Run to total_steps.  ``init_state`` receives a CPU
+    ``torch.Generator`` seeded with ``seed``."""
+    if cfg.checkpoint_dir:
+        raise NotImplementedError("checkpoint_dir (checkpoint and resume) is not ported yet (ROADMAP A7)")
+    state = init_state(torch.Generator().manual_seed(seed))
+    device = next(x for x in tree_leaves(state) if isinstance(x, torch.Tensor)).device
+    history = []
+    stragglers = []
+    durations = []
+    for step in range(cfg.total_steps):
+        batch = next(batches)
+        if cfg.fail_at_step is not None and step == cfg.fail_at_step:
+            raise RuntimeError(f"injected failure at step {step}")
+        t0 = time.time()
+        batch = tree_map(lambda x: torch.as_tensor(x).to(device, non_blocking=True), batch)
+        state, metrics = step_fn(state, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        dt = time.time() - t0
+        durations.append(dt)
+        med = float(np.median(durations[-50:]))
+        if len(durations) > 5 and dt > cfg.watchdog_factor * med:
+            stragglers.append({"step": step, "duration": dt, "median": med})
+        history.append({"step": step, "duration_s": dt, **metrics})
+        if cfg.log_every and step % cfg.log_every == 0:
+            print(f"[train] step {step}: loss={metrics.get('loss', float('nan')):.4f} {dt*1e3:.0f}ms")
+    return TrainResult(state, history, stragglers, None)
+
+
+def compressed_data_parallel_step(
+    loss_fn: Callable,
+    opt_cfg: opt_mod.AdamWConfig,
+    comp_cfg: comp_mod.CompressorConfig,
+    axis_name: Optional[str] = None,
+):
+    """Train step whose gradient exchange is the SKETCHED all-reduce: grads
+    are CountSketch'd, top-k-decoded with error feedback, and applied with
+    AdamW.  ``axis_name=None`` is the single-worker semantics; the
+    all-reduce across workers is not ported yet."""
+    if axis_name is not None:
+        raise NotImplementedError("the sketch all-reduce across workers is not ported yet (ROADMAP A9)")
+
+    def step(state, batch):
+        params, opt, cstate = state["params"], state["opt"], state["comp"]
+        (loss, _), grads = value_and_grad(loss_fn, params, batch)
+        with torch.no_grad():
+            flat, spec = comp_mod.flatten_grads(grads)
+            del grads
+            update_flat, cstate = comp_mod.roundtrip(cstate, flat)
+            grads_hat = comp_mod.unflatten_grads(update_flat, spec)
+        new_params, new_opt, om = opt_mod.apply_adamw(opt_cfg, opt, params, grads_hat)
+        return {"params": new_params, "opt": new_opt, "comp": cstate}, {"loss": loss, **om}
+
+    return step

@@ -87,3 +87,42 @@ def assert_same_value(got, want, exact=True):
         np.testing.assert_array_equal(g, w)
     else:
         np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-5)
+
+
+# -- training side -------------------------------------------------------------
+
+
+def ref_transformer_config(cfg):
+    """The reference's TransformerConfig with the port config ``cfg``'s
+    fields (dtypes mapped to jnp)."""
+    import jax.numpy as jnp
+    from repro.models.transformer import TransformerConfig as RefConfig
+
+    dtypes = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+    return RefConfig(
+        name=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff, vocab=cfg.vocab, d_head=cfg.d_head,
+        norm=cfg.norm, qk_norm=cfg.qk_norm, sliding_window=cfg.sliding_window,
+        rope_theta=cfg.rope_theta, tie_embeddings=cfg.tie_embeddings,
+        param_dtype=dtypes[cfg.param_dtype], compute_dtype=dtypes[cfg.compute_dtype],
+    )
+
+
+def numpy_tree(tree):
+    """A reference pytree of arrays as nested dicts of float32 numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: numpy_tree(v) for k, v in tree.items()}
+    return np.asarray(tree, np.float32)
+
+
+def compressor_to_port(state, device="cpu"):
+    """The port's CompressorState holding the reference state's leaves."""
+    from repro_torch.convert import compressor_state_from_arrays
+    from repro_torch.train.compression import CompressorConfig
+
+    c = state.config
+    return compressor_state_from_arrays(
+        CompressorConfig(depth=c.depth, width=c.width, top_k=c.top_k, momentum=c.momentum),
+        np.asarray(state.error), np.asarray(state.momentum),
+        np.asarray(state.hash.a), np.asarray(state.hash.b), device=device,
+    )

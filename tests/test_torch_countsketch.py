@@ -1,0 +1,108 @@
+"""Parity of the port's CountSketch with the JAX reference: the plain
+version (and the wrapper, which takes it for CPU tensors) against
+``repro.kernels.countsketch.ops.countsketch`` (the Pallas kernel in
+interpret mode) and ``countsketch_ref``, and the port's
+``train/compression.py::_sketch`` against the reference's.
+
+Integer-valued vectors (partial sums far below 2^24) must agree bit for
+bit; Gaussian vectors within ``tests/test_kernels.py``'s tolerance
+(rtol=1e-6, atol=1e-4), since the one-hot product of the Pallas kernel sums
+in another order than a scatter."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.hashing import make_hash_family as ref_make_hash_family
+from repro.kernels.countsketch.ops import countsketch as ref_countsketch
+from repro.kernels.countsketch.ref import countsketch_ref as ref_countsketch_ref
+from repro.train import compression as ref_comp
+from repro_torch.core.hashing import HashFamily
+from repro_torch.kernels import build
+from repro_torch.kernels.countsketch import ops
+from repro_torch.kernels.countsketch.ref import countsketch_ref
+from repro_torch.train import compression as comp
+
+from _torch_parity import compressor_to_port
+
+SHAPES = [(100, 64, 3), (5000, 256, 5), (3000, 300, 4)]
+
+
+def _vec(n, kind, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "integer":
+        return rng.integers(-8, 9, n).astype(np.float32)
+    return rng.normal(0, 1, n).astype(np.float32)
+
+
+def _assert_same(got, want, kind):
+    if kind == "integer":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["integer", "gaussian"])
+@pytest.mark.parametrize("n,w,d", SHAPES)
+def test_countsketch_matches_reference_kernel(n, w, d, kind):
+    fam = ref_make_hash_family(jax.random.key(2), d, w)
+    vec = _vec(n, kind, n + d)
+    idx = jnp.arange(n, dtype=jnp.uint32)
+    want = np.asarray(ref_countsketch(jnp.asarray(vec), fam))  # Pallas, interpret mode
+    oracle = np.asarray(
+        ref_countsketch_ref(jnp.asarray(vec), fam(idx).astype(jnp.int32), fam.signs(idx), w)
+    )
+    pfam = HashFamily.from_host(np.asarray(fam.a), np.asarray(fam.b), w)
+    h, s = ops.hash_indices(pfam, n)
+    assert h.dtype == torch.int32 and s.dtype == torch.int8 and tuple(h.shape) == (d, n)
+    np.testing.assert_array_equal(h.numpy(), np.asarray(fam(idx)))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(fam.signs(idx)))
+    v = torch.from_numpy(vec)
+    before = ops.countsketch.launches
+    for got in (
+        countsketch_ref(v, h, s, w),
+        ops.countsketch(v, h, s, w),
+        ops.countsketch(v, h, s.to(torch.int32), w),
+        ops.countsketch_family(v, pfam),
+    ):
+        assert tuple(got.shape) == (d, w) and got.dtype == torch.float32
+        _assert_same(got.numpy(), want, kind)
+        _assert_same(got.numpy(), oracle, kind)
+    assert ops.countsketch.launches == before  # CPU tensors launch nothing
+
+
+def test_hash_indices_chunks_agree(monkeypatch):
+    """Hashing in several chunks gives the buckets of one pass."""
+    fam = HashFamily.from_host(np.array([12345, 777]), np.array([99, 2**31 - 2]), 300)
+    h1, s1 = ops.hash_indices(fam, 1000)
+    monkeypatch.setattr(ops, "HASH_CHUNK", 64)
+    h2, s2 = ops.hash_indices(fam, 1000)
+    assert torch.equal(h1, h2) and torch.equal(s1, s2)
+
+
+def test_countsketch_wrapper_refuses_other_devices():
+    vec = torch.zeros(8, device="meta")
+    h = torch.zeros(2, 8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        ops.countsketch(vec, h, h.to(torch.int8), 16)
+
+
+@pytest.mark.parametrize("kind", ["integer", "gaussian"])
+def test_sketch_matches_reference_compression_module(kind):
+    ccfg = ref_comp.CompressorConfig(depth=4, width=256)
+    st = ref_comp.init_compressor(ccfg, 1000, jax.random.key(3))
+    vec = _vec(1000, kind, 11)
+    want = np.asarray(ref_comp._sketch(st, jnp.asarray(vec)))
+    port = compressor_to_port(st)
+    got = comp._sketch(port, torch.from_numpy(vec))
+    _assert_same(got.numpy(), want, kind)
+    # ... and the port's own ops entry point equals its _sketch
+    np.testing.assert_array_equal(ops.countsketch_family(torch.from_numpy(vec), port.hash).numpy(), got.numpy())
+
+
+def test_build_lists_every_cuda_source():
+    """``kernels/build.py::SOURCES`` (what ``chip_smoke.py`` builds) names
+    every CUDA source of the port, countsketch included."""
+    assert "countsketch" in build.SOURCES
+    assert sorted(build.SOURCES) == sorted(p.stem for p in build.CSRC_DIR.glob("*.cu"))

@@ -10,6 +10,8 @@ import torch
 from repro_torch.core import reach
 from repro_torch.kernels.closure import ops as closure_ops
 from repro_torch.kernels.closure.ref import closure_step_ref
+from repro_torch.kernels.countsketch import ops as cs_ops
+from repro_torch.kernels.countsketch.ref import countsketch_ref
 from repro_torch.kernels.flow import ops as flow_ops
 from repro_torch.kernels.flow.ref import flows_ref
 from repro_torch.kernels.ingest import ops as ingest_ops
@@ -18,7 +20,7 @@ from repro_torch.kernels.ingest_fused import ops as fused_ops
 from repro_torch.kernels.ingest_fused.ref import fused_ingest_ref
 from repro_torch.kernels.query import ops as query_ops
 from repro_torch.kernels.query.ref import edge_query_cells_ref, edge_query_min_ref
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train_lm
 
 pytestmark = pytest.mark.gpu
 
@@ -197,3 +199,62 @@ def test_fused_session_on_card_equals_cpu(cuda):
             va = ra.value if isinstance(ra.value, tuple) else (ra.value,)
             vb = rb.value if isinstance(rb.value, tuple) else (rb.value,)
             assert all(np.array_equal(x, y) for x, y in zip(va, vb))
+
+
+# 16,384 and 5,000 fit a row in shared memory; 2^17 does not (global atomics).
+@pytest.mark.parametrize("d,w,n", [(5, 16384, 1_000_003), (3, 5000, 77_777), (2, 1 << 17, 300_000)])
+def test_countsketch_kernel_bit_equals_plain_version_on_integers(cuda, d, w, n):
+    h = torch.randint(0, w, (d, n), generator=cuda, device="cuda", dtype=torch.int32)
+    s = (torch.randint(0, 2, (d, n), generator=cuda, device="cuda") * 2 - 1).to(torch.int8)
+    vec = torch.randint(-8, 9, (n,), generator=cuda, device="cuda").float()
+    vec[torch.rand(n, generator=cuda, device="cuda") < 0.3] = 0.0  # zeros are skipped
+    before = cs_ops.countsketch.launches
+    for signs in (s, s.to(torch.int32)):
+        got = cs_ops.countsketch(vec, h, signs, w)
+        assert got.shape == (d, w) and got.dtype == torch.float32
+        assert torch.equal(got, countsketch_ref(vec, h, signs, w))
+    assert cs_ops.countsketch.launches == before + 2
+
+
+def test_countsketch_kernel_float_values_close(cuda):
+    """tests/test_kernels.py's tolerance at its shapes (about 20 terms a cell)."""
+    for n, w, d in [(100, 64, 3), (5000, 256, 5), (3000, 300, 4)]:
+        h = torch.randint(0, w, (d, n), generator=cuda, device="cuda", dtype=torch.int32)
+        s = (torch.randint(0, 2, (d, n), generator=cuda, device="cuda") * 2 - 1).to(torch.int8)
+        vec = torch.randn(n, generator=cuda, device="cuda")
+        torch.testing.assert_close(cs_ops.countsketch(vec, h, s, w), countsketch_ref(vec, h, s, w), rtol=1e-6, atol=1e-4)
+
+
+def test_countsketch_wrapper_refuses_bad_operands(cuda):
+    vec = torch.zeros(10, device="cuda")
+    h = torch.zeros(2, 10, dtype=torch.int32, device="cuda")
+    s = torch.ones(2, 10, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError):
+        cs_ops.countsketch(vec.double(), h, s, 16)
+    with pytest.raises(ValueError):
+        cs_ops.countsketch(vec, h[:, :9], s, 16)
+    with pytest.raises(ValueError):
+        cs_ops.countsketch(vec, h, s.float(), 16)
+    with pytest.raises(ValueError):
+        cs_ops.countsketch(vec, h.cpu(), s, 16)
+    with pytest.raises(ValueError):
+        cs_ops.countsketch(vec, h, s, 0)
+
+
+def test_tiny_compressed_train_step_on_card_close_to_cpu(cuda):
+    argv = ["--preset", "tiny", "--compress", "--steps", "2", "--batch", "4", "--seq", "32"]
+    before = cs_ops.countsketch.launches
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = train_lm.main(argv)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert cs_ops.countsketch.launches - before == 4  # two sketches a step
+    host = train_lm.main(argv + ["--device", "cpu"])
+    # rtol 1e-4: float32 gradients summed in other orders (TF32 off).
+    np.testing.assert_allclose([h["loss"] for h in card.result.history],
+                               [h["loss"] for h in host.result.history], rtol=1e-4)
+    p_card = card.result.state["params"]["layers"]["wq"].cpu()
+    p_host = host.result.state["params"]["layers"]["wq"]
+    torch.testing.assert_close(p_card, p_host, rtol=1e-4, atol=1e-4)
