@@ -9,7 +9,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
 per source, all at once) and holds each kernel against its plain PyTorch
 version on the card at the BASE shapes (``configs/glava.py``: d=5,
 8192 x 8192 counters): the ingest scatter, the fused multi-query, the closure
-step, the one-pass fused ingest (B=50,000 with inert and weight-0 slots; also
+step (8-bit, int8 wgmma: bit-equal with its transpose at three densities,
+all ones among them; the IGMMA count of its SASS; one full closure), the
+one-pass fused ingest (B=50,000 with inert and weight-0 slots; also
 timed on serve BASE's zipf-skewed first batch), the
 per-sketch edge-query gather (Q=1,024 and 65,536), the flow reductions, and
 the CountSketch of a gradient at the 100m preset's length (65,020,416
@@ -22,7 +24,8 @@ before and read just after:
 
 - serve BASE: ``repro_torch.launch.serve`` at BASE with the serve entry
   point's own traffic, on the kernels and on the plain backends; the two
-  runs must agree bit for bit (counters, registers, transcript);
+  runs must agree bit for bit (counters, registers, transcript), and the
+  closure kernel must run 13 times per full rebuild;
 - fused serve BASE: the same traffic through a fused session
   (``ingest_backend="fused"`` on the parsed arguments), which must equal
   both runs above and launch the fused kernel once per batch;
@@ -56,13 +59,14 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
-# bf16 tensor-core FLOP/s.
+# int8 tensor-core operations/s.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 
 BASE_DEPTH, BASE_WIDTH = 5, 8192
 INGEST_BATCH = 50_000
@@ -116,11 +120,12 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, kernel: str):
+def device_ms(fn, reps: int, kernel: Optional[str] = None):
     """Mean device milliseconds per call of the CUDA kernel whose name holds
-    ``kernel``, from the profiler's CUPTI trace (the events above also count
-    the host's launch overhead whenever it exceeds the kernel); ``None``
-    when the trace shows no such kernel."""
+    ``kernel`` (of every kernel and copy when ``kernel`` is None), from the
+    profiler's CUPTI trace (the events above also count the host's launch
+    overhead whenever it exceeds the kernel); ``None`` when the trace shows
+    no such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -131,7 +136,7 @@ def device_ms(fn, reps: int, kernel: str):
             fn()
         torch.cuda.synchronize()
     total_us = sum(
-        getattr(e, "device_time_total", 0.0) for e in prof.key_averages() if kernel in e.key
+        getattr(e, "device_time_total", 0.0) for e in prof.key_averages() if kernel is None or kernel in e.key
     )
     return total_us / reps / 1e3 if total_us else None
 
@@ -203,11 +208,13 @@ def phase_query(torch, gen):
         plain_ms = time_ms(lambda: edge_query_min_ref(counters, rows, cols), 50)
         cell = rows.long() * w + cols.long()
         library_ms = time_ms(lambda: flat.gather(1, cell).amin(dim=0), 50)
+        library_dev_ms = device_ms(lambda: flat.gather(1, cell).amin(dim=0), 50)
         # One 32-byte sector per (sketch, query), the indices, the output.
         bound_bytes = d * q * (32 + 8) + q * 4
         print(
             f"[chip_smoke] query d={d} w={w} Q={q}: bit-equal; kernel {ms:.4f} ms "
-            f"(device {_fmt(dev_ms)}), plain {plain_ms:.4f} ms, gather+amin {library_ms:.4f} ms"
+            f"(device {_fmt(dev_ms)}), plain {plain_ms:.4f} ms, gather+amin {library_ms:.4f} ms "
+            f"(device {_fmt(library_dev_ms)})"
         )
         if q == 1024:  # the serve workload's edge family: the main-path shape
             out = dict(
@@ -220,41 +227,101 @@ def phase_query(torch, gen):
 
 
 def phase_closure(torch, gen):
-    from repro_torch.kernels.closure.ops import closure_step
+    """The closure step against its plain version at BASE on three inputs
+    (both outputs, the step and its transpose), its time beside the 8-bit
+    bound and the library calls, its SASS, and one full closure at BASE."""
+    from repro_torch.kernels.closure.ops import closure_step, closure_steps, transitive_closure
     from repro_torch.kernels.closure.ref import closure_step_ref
 
     d, w = BASE_DEPTH, BASE_WIDTH
-    # Density 0.005 leaves about a fifth of A @ A nonzero: both outcomes occur.
-    a = (torch.rand((d, w, w), generator=gen, device="cuda") < 0.005).float()
-    got = closure_step(a)
-    want = closure_step_ref(a)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    check(torch.equal(got, want), f"closure kernel differs from its plain version (max err {err})")
-    ones = float(got.mean())
-    del want
-    buf = torch.empty_like(a)
-    ms = time_ms(lambda: closure_step(a, out=buf), 5)
-    dev_ms = device_ms(lambda: closure_step(a, out=buf), 3, "closure_step_kernel")
+    # Density 0.005 leaves about a fifth of A @ A nonzero; 0.02 all but ~4%;
+    # all ones makes every sum equal w (an accumulator or epilogue that
+    # wraps at 127 or 255 would show).
+    err, ones = 0.0, []
+    for density in (0.005, 0.02, 1.0):
+        a = (torch.rand((d, w, w), generator=gen, device="cuda") < density).to(torch.uint8)
+        a_t = a.transpose(1, 2).contiguous()
+        got, got_t = closure_step(a, a_t)
+        want = closure_step_ref(a)
+        torch.cuda.synchronize()
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        check(torch.equal(got, want), f"closure kernel differs from its plain version at density {density}")
+        check(torch.equal(got_t, want.transpose(1, 2)), f"closure kernel's transpose is wrong at density {density}")
+        ones.append(float(got.float().mean()))
+        del got, got_t, want
+        if density == 0.005:
+            timed = a, a_t
+    a, a_t = timed
+    out, out_t = torch.empty_like(a), torch.empty_like(a)
+    step = lambda: closure_step(a, a_t, out, out_t)  # noqa: E731
+    ms = time_ms(step, 10)
+    dev_ms = device_ms(step, 5, "closure_step_wgmma_kernel")
     plain_ms = time_ms(lambda: closure_step_ref(a), 3)
+    # The yardsticks: int8 products per sketch on the same bytes (B as A
+    # itself, row-major, and as A^T's rows, column-major: the faster), and
+    # bf16 torch.matmul.
+    a8, at8 = a.view(torch.int8), a_t.view(torch.int8)
+    int_mm = {
+        "row-major B": lambda: [torch._int_mm(a8[i], a8[i]) for i in range(d)],
+        "column-major B": lambda: [torch._int_mm(a8[i], at8[i].t()) for i in range(d)],
+    }
+    int_ms = {k: time_ms(f, 5) for k, f in int_mm.items()}
+    int_dev = {k: device_ms(f, 3) for k, f in int_mm.items()}
+    best = min(int_ms, key=int_ms.get)
+    library_ms = int_ms[best]
     a16 = a.to(torch.bfloat16)
-    library_ms = time_ms(lambda: torch.matmul(a16, a16), 5)
-    flops = d * 2 * w**3
-    bound_bytes = 2 * d * w * w * 4
-    bound_ms = max(flops / PEAK_BF16_FLOPS, bound_bytes / PEAK_BYTES_PER_S) * 1e3
+    bf16_ms = time_ms(lambda: torch.matmul(a16, a16), 5)
+    del a16, out, out_t
+    ops = d * 2 * w**3
+    bound_bytes = 4 * d * w * w  # a and a_t read, out and out_t written, a byte an entry
+    bound_ms = max(ops / PEAK_INT8_OPS, bound_bytes / PEAK_BYTES_PER_S) * 1e3
+    # One full closure at BASE: ceil(log2 w) launches.
+    before = closure_step.launches
+    transitive_closure(a)
+    launches = closure_step.launches - before
+    full_ms = time_ms(lambda: transitive_closure(a), 2)
+    check(launches == closure_steps(w), f"full closure at BASE: {launches} launches, not {closure_steps(w)}")
+    sass = closure_sass()
+    del a, a_t, timed
     print(
-        f"[chip_smoke] closure step d={d} w={w} (output {ones:.3f} ones): bit-equal; "
-        f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s; device {_fmt(dev_ms)}), "
+        f"[chip_smoke] closure step d={d} w={w}, u8: bit-equal with its transpose at densities 0.005, 0.02 and 1 "
+        f"(output {', '.join(f'{x:.3f}' for x in ones)} ones); kernel {ms:.4f} ms "
+        f"({ops / ms / 1e9:.1f} TOPS; device {_fmt(dev_ms)}; bound {bound_ms:.4f} ms at the int8 peak), "
         f"plain {plain_ms:.3f} ms, "
-        f"bf16 matmul {library_ms:.3f} ms"
+        + ", ".join(f"_int_mm x{d} {k} {int_ms[k]:.4f} ms (device {_fmt(int_dev[k])})" for k in int_mm)
+        + f", bf16 matmul {bf16_ms:.4f} ms"
     )
+    print(f"[chip_smoke] closure full transitive_closure d={d} w={w}: {launches} launches, {full_ms:.3f} ms")
+    print(f"[chip_smoke] closure SASS: {sass}")
     return dict(
         name="closure_step", route="cuda", source="src/repro_torch/csrc/closure.cu",
         replaces="src/repro/kernels/closure/kernel.py:42", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by="operations" if flops / PEAK_BF16_FLOPS > bound_bytes / PEAK_BYTES_PER_S else "bytes",
+        bound_by="operations" if ops / PEAK_INT8_OPS > bound_bytes / PEAK_BYTES_PER_S else "bytes",
         library_ms=library_ms,
     )
+
+
+def closure_sass() -> str:
+    """The count of warpgroup MMA instructions (IGMMA, HGMMA, QGMMA) in the
+    built closure library's SASS, and ptxas's resource line for each of its
+    kernels."""
+    import re
+
+    from repro_torch.kernels import build
+
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(build.library_path("closure"))], capture_output=True, text=True, check=True
+    ).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("IGMMA", "HGMMA", "QGMMA")}
+    check(counts["IGMMA"] > 0, f"no IGMMA instruction in the closure kernel's SASS: {counts}")
+    usage = [
+        line.split("ptxas info    : ", 1)[-1].strip()
+        for line in build.build_log("closure").splitlines()
+        if "registers" in line or "spill" in line
+    ]
+    return f"{counts}; ptxas: {' | '.join(usage)}"
 
 
 def phase_fused_ingest(torch, gen):
@@ -362,11 +429,13 @@ def phase_query_cells(torch, gen):
         plain_ms = time_ms(lambda: edge_query_cells_ref(counters, rows, cols), 50)
         cell = rows.long() * w + cols.long()
         library_ms = time_ms(lambda: flat.gather(1, cell), 50)
+        library_dev_ms = device_ms(lambda: flat.gather(1, cell), 50)
         # One 32-byte sector per (sketch, query), the indices, the output.
         bound_bytes = d * q * (32 + 8 + 4)
         print(
             f"[chip_smoke] query cells d={d} w={w} Q={q}: bit-equal; kernel {ms:.4f} ms "
-            f"(device {_fmt(dev_ms)}), plain {plain_ms:.4f} ms, gather {library_ms:.4f} ms"
+            f"(device {_fmt(dev_ms)}), plain {plain_ms:.4f} ms, gather {library_ms:.4f} ms "
+            f"(device {_fmt(library_dev_ms)})"
         )
         if q == 1024:  # the ops-entry check's shape
             out = dict(
@@ -815,9 +884,14 @@ def main() -> int:
     plain, plain_ev, plain_s = timed_run(torch, lambda: serve.main(SERVE_BASE + PLAIN_BACKENDS))
     check_same(torch, base, base_ev, plain, plain_ev, "serve BASE vs plain")
     check(base.engine.closure_refreshes >= 1, "serve BASE: no closure build")
+    want_launches = base.engine.closure_refreshes * closure_ops.closure_steps(BASE_WIDTH)
+    check(rows["closure_step"]["launches"] == want_launches,
+          f"serve BASE: {rows['closure_step']['launches']} closure launches, not {want_launches} "
+          f"({base.engine.closure_refreshes} full rebuilds)")
     print(
-        f"[chip_smoke] serve BASE: kernels {base_s:.2f} s, plain {plain_s:.2f} s (host wall clock, "
-        f"build excluded); {len(base_ev)} ticks; counters, registers and transcript identical"
+        f"[chip_smoke] serve BASE: kernels {base_s:.3f} s, plain {plain_s:.3f} s (host wall clock, "
+        f"build excluded); {len(base_ev)} ticks; {want_launches} closure launches "
+        f"({base.engine.closure_refreshes} full rebuilds); counters, registers and transcript identical"
     )
 
     # The fused session on the same traffic: one fused launch per batch.

@@ -6,6 +6,7 @@ import torch
 
 
 def closure_step_ref(a: torch.Tensor) -> torch.Tensor:
-    """a (..., w, w) float32 in {0, 1} -> a OR (a @ a > 0), as float32 {0, 1}."""
-    prod = torch.matmul(a, a)
-    return torch.clamp(a + (prod > 0).to(a.dtype), 0.0, 1.0)
+    """a (..., w, w) uint8 in {0, 1} -> a OR (a @ a > 0), as uint8 {0, 1}.
+    The product runs in float32, exact: every sum is at most w <= 2^24."""
+    af = a.to(torch.float32)
+    return ((torch.matmul(af, af) > 0) | (a != 0)).to(torch.uint8)

@@ -126,11 +126,20 @@ def test_query_cells_kernel_bit_equals_plain_version(cuda, d, wr, wc, q):
     assert torch.equal(got, edge_query_cells_ref(counters, rows, cols))
 
 
-@pytest.mark.parametrize("n,w,density", [(1, 128, 0.02), (3, 384, 0.005), (2, 1024, 0.002)])
+@pytest.mark.parametrize(
+    "n,w,density",
+    [(1, 128, 0.02), (3, 384, 0.005), (2, 1024, 0.002), (2, 256, 1.0), (2, 512, 0.0), (1, 768, 0.6)],
+)
 def test_closure_step_bit_equals_plain_version(cuda, n, w, density):
-    a = (torch.rand((n, w, w), generator=cuda, device="cuda") < density).float()
-    got = closure_ops.closure_step(a)
-    assert torch.equal(got, closure_step_ref(a))
+    """Both of the step's outputs against the plain version, at random
+    densities and at all ones (every sum equals w) and all zeros."""
+    a = (torch.rand((n, w, w), generator=cuda, device="cuda") < density).to(torch.uint8)
+    before = closure_ops.closure_step.launches
+    got, got_t = closure_ops.closure_step(a, a.transpose(1, 2).contiguous())
+    assert closure_ops.closure_step.launches == before + 1
+    want = closure_step_ref(a)
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+    assert torch.equal(got_t, want.transpose(1, 2))
     assert got.data_ptr() != a.data_ptr()
 
 
@@ -140,15 +149,22 @@ def test_closure_loop_matches_plain_closure(cuda, w):
     before = closure_ops.closure_step.launches
     got = closure_ops.transitive_closure(adj)
     assert closure_ops.closure_step.launches - before == closure_ops.closure_steps(w)
-    assert torch.equal(got, reach.transitive_closure(adj))
+    assert got.dtype == torch.bool and torch.equal(got, reach.transitive_closure(adj))
 
 
 def test_wrappers_refuse_bad_operands(cuda):
     a = torch.zeros(1, 128, 128, device="cuda")
+    a8 = a.to(torch.uint8)
+    a8_t = a8.clone()
     with pytest.raises(ValueError):
-        closure_ops.closure_step(a, out=a)  # must not alias
+        closure_ops.closure_step(a8, a8_t, out=a8)  # must not alias
     with pytest.raises(ValueError):
-        closure_ops.closure_step(torch.zeros(1, 100, 100, device="cuda"))
+        closure_ops.closure_step(a8, a8)  # nor may the transpose
+    with pytest.raises(ValueError):
+        odd = torch.zeros(1, 100, 100, device="cuda", dtype=torch.uint8)
+        closure_ops.closure_step(odd, odd.clone())
+    with pytest.raises(ValueError):
+        closure_ops.closure_step(a, a.clone())  # bytes only
     with pytest.raises(ValueError):
         query_ops.edge_query_min(a.double(), torch.zeros(1, 4, device="cuda"), torch.zeros(1, 4, device="cuda"))
     with pytest.raises(ValueError):

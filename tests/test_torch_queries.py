@@ -106,13 +106,22 @@ def test_multi_query_plain_version_bit_equals_pallas_interpret():
     np.testing.assert_array_equal(edge_query_min(t(counters), t(rows), t(cols)).numpy(), want)
 
 
-def test_closure_step_plain_version_bit_equals_pallas_interpret():
+@pytest.mark.parametrize("density", [0.01, 0.0, 1.0])
+def test_closure_step_plain_version_bit_equals_pallas_interpret(density):
+    """The plain version and the CPU wrapper take the port's 8-bit storage;
+    the Pallas kernel takes float32 0/1.  All ones makes every sum w."""
     rng = np.random.default_rng(3)
-    a = (rng.random((256, 256)) < 0.01).astype(np.float32)
-    want = np.asarray(closure_step_pallas(jnp.asarray(a), interpret=True))
-    np.testing.assert_array_equal(closure_step_ref(torch.from_numpy(a)).numpy(), want)
-    out = torch.empty(1, 256, 256)
-    np.testing.assert_array_equal(closure_step(torch.from_numpy(a)[None], out=out)[0].numpy(), want)
+    a = (rng.random((256, 256)) < density).astype(np.float32)
+    want = np.asarray(closure_step_pallas(jnp.asarray(a), interpret=True)).astype(np.uint8)
+    a8 = torch.from_numpy(a.astype(np.uint8))
+    got = closure_step_ref(a8)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    out, out_t = torch.empty(1, 256, 256, dtype=torch.uint8), torch.empty(1, 256, 256, dtype=torch.uint8)
+    res, res_t = closure_step(a8[None], a8.T.contiguous()[None], out=out, out_t=out_t)
+    assert res is out and res_t is out_t
+    np.testing.assert_array_equal(out[0].numpy(), want)
+    np.testing.assert_array_equal(out_t[0].numpy(), want.T)
 
 
 @pytest.mark.parametrize("w", [64, 200])
