@@ -8,24 +8,28 @@ Run from the root of a checkout, on a machine with one CUDA card:
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
 per source, all at once) and holds each kernel against its plain PyTorch
 version on the card at the BASE shapes (``configs/glava.py``: d=5,
-8192 x 8192 counters): the ingest scatter, the fused multi-query, the closure
-step (8-bit, int8 wgmma: bit-equal with its transpose at three densities,
-all ones among them; the IGMMA count of its SASS; one full closure), the
-one-pass fused ingest (B=50,000 with inert and weight-0 slots; also
-timed on serve BASE's zipf-skewed first batch), the
-per-sketch edge-query gather (Q=1,024 and 65,536), the flow reductions, and
-the CountSketch of a gradient at the 100m preset's length (65,020,416
-elements into a 5 x 16,384 table; also at width 2^17, past the shared-memory
-limit).  Each is timed with CUDA events and the profiler beside its plain
-version and one PyTorch library call where there is one.
+8192 x 8192 counters): the ingest scatter; the fused multi-query and the
+per-sketch edge-query gather (Q=1,024 and 65,536, on int64 buckets from the
+BASE family's hash and on their int32 copy, timed in turns with the library
+call, with a host breakdown of one call); the closure step (8-bit, int8 wgmma: bit-equal with its
+transpose at three densities, all ones among them; the IGMMA count of its
+SASS; one full closure); the one-pass fused ingest (B=50,000 with inert and
+weight-0 slots; also timed on serve BASE's zipf-skewed first batch); the
+flow reductions; and the CountSketch of a gradient at the 100m preset's
+length (65,020,416 elements into a 5 x 16,384 table; also at width 2^17,
+past the shared-memory limit).  Each is timed with CUDA events and the
+profiler beside its plain version and one PyTorch library call where there
+is one.
 
 Then it drives the main paths, each with the launch counts set to 0 just
 before and read just after:
 
 - serve BASE: ``repro_torch.launch.serve`` at BASE with the serve entry
   point's own traffic, on the kernels and on the plain backends; the two
-  runs must agree bit for bit (counters, registers, transcript), and the
-  closure kernel must run 13 times per full rebuild;
+  runs must agree bit for bit (counters, registers, transcript), the
+  closure kernel must run 13 times per full rebuild and the multi-query
+  once a tick; one edge-family tick under the profiler must show no cast of
+  the int64 buckets;
 - fused serve BASE: the same traffic through a fused session
   (``ingest_backend="fused"`` on the parsed arguments), which must equal
   both runs above and launch the fused kernel once per batch;
@@ -131,18 +135,80 @@ def device_ms(fn, reps: int, kernel: Optional[str] = None):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(
-        getattr(e, "device_time_total", 0.0) for e in prof.key_averages() if kernel is None or kernel in e.key
-    )
-    return total_us / reps / 1e3 if total_us else None
+    for _ in range(3):  # now and then a trace comes back without its kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(
+            getattr(e, "device_time_total", 0.0) for e in prof.key_averages() if kernel is None or kernel in e.key
+        )
+        if total_us:
+            return total_us / reps / 1e3
+    return None
 
 
 def _fmt(ms) -> str:
     return "not in the trace" if ms is None else f"{ms:.4f} ms"
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call of ``fn`` (``time.perf_counter_ns`` around
+    ``calls`` calls, after one warm-up; one synchronize after the loop,
+    outside the timing, drains what the calls queued)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls / 1e3
+
+
+def query_host_breakdown(torch, counters, rows64, cols64):
+    """Host µs per call of the edge-query wrappers (whole calls, on int64
+    buckets and their int32 copies), of each piece of their launch path, and
+    of the library calls."""
+    from repro_torch.kernels.query import ops as query_ops
+
+    d, wr, wc = counters.shape
+    q = rows64.shape[1]
+    rows32, cols32 = rows64.to(torch.int32), cols64.to(torch.int32)
+    flat = counters.view(d, -1)
+    cell = rows64 * wc + cols64
+    dev = counters.get_device()
+    out = counters.new_empty(q)
+    fn = query_ops._bound.get("glava_multi_query_min") or query_ops._bind("glava_multi_query_min")
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    ptrs = (counters.data_ptr(), rows64.data_ptr(), cols64.data_ptr(), out.data_ptr())
+    record = query_ops._RECORD.pack(*ptrs, d, wr, wc, q, 8, stream)
+    host_counters, host_rows, host_cols = torch.zeros(d, 8, 8), rows64.cpu() % 8, cols64.cpu() % 8
+
+    pieces = {
+        "edge_query_min, whole call, int32 buckets": lambda: query_ops.edge_query_min(counters, rows32, cols32),
+        "edge_query_min, whole call, int64 buckets": lambda: query_ops.edge_query_min(counters, rows64, cols64),
+        "edge_query_cells, whole call, int32 buckets": lambda: query_ops.edge_query_cells(counters, rows32, cols32),
+        "edge_query_cells, whole call, int64 buckets": lambda: query_ops.edge_query_cells(counters, rows64, cols64),
+        "piece: the checks (_gather on CPU copies returns after them)": lambda: query_ops._gather(
+            "glava_multi_query_min", host_counters, host_rows, host_cols, True),
+        "piece: counters.new_empty(q)": lambda: counters.new_empty(q),
+        "piece: counters.new_empty(d, q)": lambda: counters.new_empty(d, q),
+        "piece (more than one device only): torch._C._cuda_getDevice()": torch._C._cuda_getDevice,
+        "piece: torch._C._cuda_getCurrentRawStream(dev)": lambda: torch._C._cuda_getCurrentRawStream(dev),
+        "piece: four data_ptr() calls": lambda: (counters.data_ptr(), rows64.data_ptr(), cols64.data_ptr(),
+                                                 out.data_ptr()),
+        "piece: the launch record's pack": lambda: query_ops._RECORD.pack(*ptrs, d, wr, wc, q, 8, stream),
+        "piece: the bound ctypes call on the record (launches B2)": lambda: fn(record),
+        "library: flat.gather(1, cell)": lambda: flat.gather(1, cell),
+        "library: flat.gather(1, cell).amin(dim=0)": lambda: flat.gather(1, cell).amin(dim=0),
+    }
+    times = {name: host_us(piece) for name, piece in pieces.items()}
+    for name, us in times.items():
+        print(f"[chip_smoke] host breakdown d={d} Q={q}: {us:8.3f} us/call  {name}")
+    return times
 
 
 def phase_ingest(torch, gen):
@@ -169,6 +235,7 @@ def phase_ingest(torch, gen):
     idx = (d_idx, rows.long()[valid], cols.long()[valid])
     vals = wts[None, :].expand(d, b)[valid]
     library_ms = time_ms(lambda: got.index_put_(idx, vals, accumulate=True), 20)
+    library_dev_ms = device_ms(lambda: got.index_put_(idx, vals, accumulate=True), 20)
     n_valid = int(valid.sum())
     # Each valid slot reads and writes one 32-byte sector of counters; the
     # row and column indices and the weights are read once.
@@ -176,7 +243,8 @@ def phase_ingest(torch, gen):
     print(
         f"[chip_smoke] ingest d={d} w={w} B={b} ({n_valid} valid slots): bit-equal; "
         f"kernel {ms:.4f} ms (device {_fmt(dev_ms)}), plain {plain_ms:.4f} ms, "
-        f"index_put_ {library_ms:.4f} ms"
+        f"index_put_ {library_ms:.4f} ms (device {_fmt(library_dev_ms)}); "
+        f"bound {bound_bytes / PEAK_BYTES_PER_S * 1e3:.5f} ms"
     )
     return dict(
         name="ingest_scatter", route="cuda", source="src/repro_torch/csrc/ingest.cu",
@@ -186,44 +254,82 @@ def phase_ingest(torch, gen):
     )
 
 
-def phase_query(torch, gen):
+# Calls per CUDA-event timing of the edge-query wrappers and their library
+# calls (host-bound at Q=1,024, so many calls average the host's noise).
+QUERY_REPS = 500
+
+
+def phase_queries(torch, gen):
+    """B2 (fused multi-query) and B5 (per-sketch gather) at Q=1,024, the
+    serve workload's edge family, and at 65,536, on int64 buckets from the
+    BASE family's hash (what the serve path hands them) and on their int32
+    copy: bit-equal to the plain versions; the wrapper's ms by CUDA events
+    in turns with the library call (library, kernel, kernel, library), host
+    µs per call and device ms beside the library call's; then the host
+    breakdown of one call."""
+    import numpy as np
+
     from repro_torch.configs.glava import QUERY_64K
-    from repro_torch.kernels.query.ops import edge_query_min
-    from repro_torch.kernels.query.ref import edge_query_min_ref
+    from repro_torch.core.hashing import keys_to_tensor, make_hash_family
+    from repro_torch.kernels.query import ops as query_ops
+    from repro_torch.kernels.query.ref import edge_query_cells_ref, edge_query_min_ref
 
     d, w = BASE_DEPTH, BASE_WIDTH
     counters = torch.randint(0, 1000, (d, w, w), generator=gen, device="cuda").float()
     flat = counters.view(d, -1)
-    out = None
+    # The square BASE session's one family, drawn as GraphStream seed 0 draws it.
+    family = make_hash_family(torch.Generator().manual_seed(0), d, w, "cuda")
+    rng = np.random.default_rng(5)
+    kernels = {
+        "edge_query_min": (query_ops.edge_query_min, edge_query_min_ref, "multi_query_min_kernel",
+                           "gather+amin", lambda cell: flat.gather(1, cell).amin(dim=0),
+                           "src/repro/kernels/query/kernel.py:99"),
+        "edge_query_cells": (query_ops.edge_query_cells, edge_query_cells_ref, "query_cells_kernel",
+                             "gather", lambda cell: flat.gather(1, cell),
+                             "src/repro/kernels/query/kernel.py:122"),
+    }
+    out = {}
     for q in (1024, QUERY_64K):
-        rows = torch.randint(0, w, (d, q), generator=gen, device="cuda", dtype=torch.int32)
-        cols = torch.randint(0, w, (d, q), generator=gen, device="cuda", dtype=torch.int32)
-        got = edge_query_min(counters, rows, cols)
-        want = edge_query_min_ref(counters, rows, cols)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        check(torch.equal(got, want), f"query kernel differs at Q={q} (max err {err})")
-        ms = time_ms(lambda: edge_query_min(counters, rows, cols), 50)
-        dev_ms = device_ms(lambda: edge_query_min(counters, rows, cols), 50, "multi_query_min_kernel")
-        plain_ms = time_ms(lambda: edge_query_min_ref(counters, rows, cols), 50)
-        cell = rows.long() * w + cols.long()
-        library_ms = time_ms(lambda: flat.gather(1, cell).amin(dim=0), 50)
-        library_dev_ms = device_ms(lambda: flat.gather(1, cell).amin(dim=0), 50)
-        # One 32-byte sector per (sketch, query), the indices, the output.
-        bound_bytes = d * q * (32 + 8) + q * 4
-        print(
-            f"[chip_smoke] query d={d} w={w} Q={q}: bit-equal; kernel {ms:.4f} ms "
-            f"(device {_fmt(dev_ms)}), plain {plain_ms:.4f} ms, gather+amin {library_ms:.4f} ms "
-            f"(device {_fmt(library_dev_ms)})"
-        )
-        if q == 1024:  # the serve workload's edge family: the main-path shape
-            out = dict(
-                name="edge_query_min", route="cuda", source="src/repro_torch/csrc/query.cu",
-                replaces="src/repro/kernels/query/kernel.py:99", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_bytes / PEAK_BYTES_PER_S * 1e3,
-                bound_by="bytes", library_ms=library_ms,
-            )
-    return out
+        src = keys_to_tensor(rng.integers(0, 100_000, q).astype(np.uint32), "cuda")
+        dst = keys_to_tensor(rng.integers(0, 100_000, q).astype(np.uint32), "cuda")
+        rows64, cols64 = family(src), family(dst)
+        check(rows64.dtype == torch.int64, f"the hash gave {rows64.dtype} buckets")
+        cell = rows64 * w + cols64
+        for rows, cols in ((rows64.to(torch.int32), cols64.to(torch.int32)), (rows64, cols64)):
+            index_bytes = rows.element_size()
+            for name, (fn, ref, kernel, lib_name, library, replaces) in kernels.items():
+                got, want = fn(counters, rows, cols), ref(counters, rows, cols)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                check(torch.equal(got, want), f"{name} differs from its plain version at Q={q}, {rows.dtype}")
+                call = lambda: fn(counters, rows, cols)  # noqa: E731
+                lib = lambda: library(cell)  # noqa: E731
+                lib_a, ms_a, ms_b, lib_b = (time_ms(f, QUERY_REPS) for f in (lib, call, call, lib))
+                ms, lib_ms = (ms_a + ms_b) / 2, (lib_a + lib_b) / 2
+                host, lib_host = host_us(call), host_us(lib)
+                dev_ms, lib_dev_ms = device_ms(call, 50, kernel), device_ms(lib, 50)
+                plain_ms = time_ms(lambda: ref(counters, rows, cols), 50)
+                # One 32-byte sector per (sketch, query), the row and column
+                # indices read once, the output written once.
+                out_bytes = 4 * q if name == "edge_query_min" else 4 * d * q
+                bound_ms = (d * q * (32 + 2 * index_bytes) + out_bytes) / PEAK_BYTES_PER_S * 1e3
+                print(
+                    f"[chip_smoke] {name} d={d} w={w} Q={q} {str(rows.dtype)[6:]} buckets: bit-equal; wrapper "
+                    f"{ms:.5f} ms ({ms_a:.5f}, {ms_b:.5f}) vs {lib_name} {lib_ms:.5f} ms ({lib_a:.5f}, {lib_b:.5f}): "
+                    f"{ms / lib_ms:.3f}x; host {host:.3f} vs {lib_host:.3f} us/call; device {_fmt(dev_ms)} vs "
+                    f"{_fmt(lib_dev_ms)}; bound {bound_ms:.5f} ms"
+                    + (f" = {100 * bound_ms / dev_ms:.1f}% of the device time" if dev_ms else "")
+                    + f"; plain {plain_ms:.4f} ms"
+                )
+                if q == 1024 and index_bytes == 8:  # the serve path's shape and buckets
+                    out[name] = dict(
+                        name=name, route="cuda", source="src/repro_torch/csrc/query.cu", replaces=replaces,
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                        library_ms=lib_ms,
+                    )
+        if q == 1024:
+            query_host_breakdown(torch, counters, rows64, cols64)
+    return list(out.values())
 
 
 def phase_closure(torch, gen):
@@ -350,23 +456,14 @@ def phase_fused_ingest(torch, gen):
     ms = time_ms(lambda: fused_ingest(counters, rf, cf, rows, cols, wts), 20)
     dev_ms = device_ms(lambda: fused_ingest(counters, rf, cf, rows, cols, wts), 20, "fused_ingest_kernel")
     plain_ms = time_ms(lambda: fused_ingest_ref(counters, rf, cf, rows, cols, wts), 20)
-    # Bytes this batch needs: a 32-byte sector read and written for every
-    # distinct counter and register sector its weighted valid slots add
-    # into, the bitmap written once, the indices and weights read once.
     valid = rows >= 0
     adds = valid & (wts != 0)[None, :]
-    i_idx = torch.arange(d, device="cuda")[:, None].expand(d, b)
-    r, c, i = rows.long()[adds], cols.long()[adds], i_idx[adds]
-    sectors = sum(
-        int(torch.unique(flat // 8).numel())
-        for flat in ((i * w + r) * w + c, i * w + r, i * w + c)
-    )
-    bound_bytes = sectors * 64 + d * w + d * b * 8 + b * 4
-    zipf_ms, uniform_ms, n_pairs = fused_ingest_under_skew(torch, counters, rf, cf)
+    bound_bytes = fused_bound_bytes(torch, rows, cols, wts, w)
+    zipf_ms, uniform_ms, n_pairs, zipf_bound_bytes = fused_ingest_under_skew(torch, counters, rf, cf)
     print(
         f"[chip_smoke] fused ingest on serve BASE's first batch ({n_pairs} pre-aggregated pairs, "
-        f"zipf a=1.2 sources): device {_fmt(zipf_ms)}; the same slots with uniform rows: "
-        f"device {_fmt(uniform_ms)}"
+        f"zipf a=1.2 sources): device {_fmt(zipf_ms)}, bound {zipf_bound_bytes / PEAK_BYTES_PER_S * 1e3:.5f} ms; "
+        f"the same slots with uniform rows: device {_fmt(uniform_ms)}"
     )
     print(
         f"[chip_smoke] fused ingest d={d} w={w} B={b} ({int(valid.sum())} valid slots, "
@@ -382,11 +479,27 @@ def phase_fused_ingest(torch, gen):
     )
 
 
+def fused_bound_bytes(torch, rows, cols, wts, w: int) -> int:
+    """Bytes a fused-ingest batch needs: a 32-byte sector read and written
+    for every distinct counter and register sector its weighted valid slots
+    add into, the (d, w) bitmap written once, the indices and weights read
+    once."""
+    d, b = rows.shape
+    adds = (rows >= 0) & (wts != 0)[None, :]
+    i_idx = torch.arange(d, device=rows.device)[:, None].expand(d, b)
+    r, c, i = rows.long()[adds], cols.long()[adds], i_idx[adds]
+    sectors = sum(
+        int(torch.unique(flat // 8).numel())
+        for flat in ((i * w + r) * w + c, i * w + r, i * w + c)
+    )
+    return sectors * 64 + d * w + d * b * 2 * rows.element_size() + b * wts.element_size()
+
+
 def fused_ingest_under_skew(torch, counters, rf, cf):
     """Device ms of the fused kernel on serve BASE's first batch as a fused
     session hashes it (zipf sources, so many slots add into one row_flows
-    address), and on the same slots with uniformly drawn rows; and the
-    batch's pair count."""
+    address), and on the same slots with uniformly drawn rows; the batch's
+    pair count and its bound's bytes."""
     import numpy as np
 
     from repro_torch.core.hashing import keys_to_tensor, make_hash_family
@@ -404,47 +517,7 @@ def fused_ingest_under_skew(torch, counters, rf, cf):
     uniform = torch.randint_like(rows, 0, BASE_WIDTH)
     zipf_ms = device_ms(lambda: fused_ingest(counters, rf, cf, rows, cols, wts), 20, "fused_ingest_kernel")
     uniform_ms = device_ms(lambda: fused_ingest(counters, rf, cf, uniform, cols, wts), 20, "fused_ingest_kernel")
-    return zipf_ms, uniform_ms, pre.n_pairs
-
-
-def phase_query_cells(torch, gen):
-    from repro_torch.configs.glava import QUERY_64K
-    from repro_torch.kernels.query.ops import edge_query_cells
-    from repro_torch.kernels.query.ref import edge_query_cells_ref
-
-    d, w = BASE_DEPTH, BASE_WIDTH
-    counters = torch.randint(0, 1000, (d, w, w), generator=gen, device="cuda").float()
-    flat = counters.view(d, -1)
-    out = None
-    for q in (1024, QUERY_64K):
-        rows = torch.randint(0, w, (d, q), generator=gen, device="cuda", dtype=torch.int32)
-        cols = torch.randint(0, w, (d, q), generator=gen, device="cuda", dtype=torch.int32)
-        got = edge_query_cells(counters, rows, cols)
-        want = edge_query_cells_ref(counters, rows, cols)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        check(torch.equal(got, want), f"query cells kernel differs at Q={q} (max err {err})")
-        ms = time_ms(lambda: edge_query_cells(counters, rows, cols), 50)
-        dev_ms = device_ms(lambda: edge_query_cells(counters, rows, cols), 50, "query_cells_kernel")
-        plain_ms = time_ms(lambda: edge_query_cells_ref(counters, rows, cols), 50)
-        cell = rows.long() * w + cols.long()
-        library_ms = time_ms(lambda: flat.gather(1, cell), 50)
-        library_dev_ms = device_ms(lambda: flat.gather(1, cell), 50)
-        # One 32-byte sector per (sketch, query), the indices, the output.
-        bound_bytes = d * q * (32 + 8 + 4)
-        print(
-            f"[chip_smoke] query cells d={d} w={w} Q={q}: bit-equal; kernel {ms:.4f} ms "
-            f"(device {_fmt(dev_ms)}), plain {plain_ms:.4f} ms, gather {library_ms:.4f} ms "
-            f"(device {_fmt(library_dev_ms)})"
-        )
-        if q == 1024:  # the ops-entry check's shape
-            out = dict(
-                name="edge_query_cells", route="cuda", source="src/repro_torch/csrc/query.cu",
-                replaces="src/repro/kernels/query/kernel.py:122", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_bytes / PEAK_BYTES_PER_S * 1e3,
-                bound_by="bytes", library_ms=library_ms,
-            )
-    return out
+    return zipf_ms, uniform_ms, pre.n_pairs, fused_bound_bytes(torch, rows, cols, wts, BASE_WIDTH)
 
 
 def phase_flows(torch, gen):
@@ -464,12 +537,14 @@ def phase_flows(torch, gen):
     dev_ms = device_ms(lambda: flows(counters), 20, "flows_kernel")
     plain_ms = time_ms(lambda: flows_ref(counters), 20)
     library_ms = time_ms(lambda: (counters.sum(2), counters.sum(1)), 20)
+    library_dev_ms = device_ms(lambda: (counters.sum(2), counters.sum(1)), 20)
     # One read of the counters, one write of both outputs.
     bound_bytes = d * w * w * 4 + 2 * d * w * 4
     print(
         f"[chip_smoke] flows d={d} w={w}: bit-equal; kernel {ms:.4f} ms (device {_fmt(dev_ms)}, "
         f"{d * w * w * 4 / ms / 1e9:.2f} TB/s by the wrapper's time), plain {plain_ms:.4f} ms, "
-        f"sum(2)+sum(1) {library_ms:.4f} ms"
+        f"sum(2)+sum(1) {library_ms:.4f} ms (device {_fmt(library_dev_ms)}); bound "
+        f"{bound_bytes / PEAK_BYTES_PER_S * 1e3:.5f} ms"
     )
     return dict(
         name="flows", route="cuda", source="src/repro_torch/csrc/flow.cu",
@@ -522,11 +597,10 @@ def phase_countsketch(torch, gen):
     plain_ms = time_ms(lambda: countsketch_ref(gvec, h, s, w), 10)
     flat = (torch.arange(d, device="cuda")[:, None] * w + h.long()).reshape(-1)
     vals = (s.float() * gvec[None, :]).reshape(-1)
-    library_ms = time_ms(lambda: torch.zeros(d * w, device="cuda").index_add_(0, flat, vals), 10)
-    del flat, vals
-    # Each element's value, its d int32 buckets and d int8 signs read once;
-    # the float32 table written once.
-    bound_bytes = n * (4 + 4 * d + 1 * d) + d * w * 4
+    library = lambda: torch.zeros(d * w, device="cuda").index_add_(0, flat, vals)  # noqa: E731
+    library_ms, library_dev_ms = time_ms(library, 10), device_ms(library, 10, "index")
+    del flat, vals, library
+    bound_bytes = countsketch_bound_bytes(n, d, w)
 
     # Past the shared-memory limit the same launch code takes global atomics.
     wide, n_wide = 1 << 17, 1 << 22
@@ -534,12 +608,20 @@ def phase_countsketch(torch, gen):
     check(torch.equal(countsketch(ivec[:n_wide], hw, sw, wide), countsketch_ref(ivec[:n_wide], hw, sw, wide)),
           f"countsketch differs from its plain version at width {wide}")
     wide_ms = device_ms(lambda: countsketch(gvec[:n_wide], hw, sw, wide), 10, "countsketch_global_kernel")
+    wide_bound_ms = countsketch_bound_bytes(n_wide, d, wide) / PEAK_BYTES_PER_S * 1e3
+    flat = (torch.arange(d, device="cuda")[:, None] * wide + hw.long()).reshape(-1)
+    vals = (sw.float() * gvec[None, :n_wide]).reshape(-1)
+    wide_library = lambda: torch.zeros(d * wide, device="cuda").index_add_(0, flat, vals)  # noqa: E731
+    wide_library_ms, wide_library_dev_ms = time_ms(wide_library, 10), device_ms(wide_library, 10, "index")
+    del flat, vals, wide_library
     print(
         f"[chip_smoke] countsketch d={d} w={w} n={n:,}: integer and sparse vectors bit-equal; Gaussian "
         f"within the float32 rounding bound (kernel off the float64 sum by {err:.3g}, plain by {plain_err:.3g}, "
         f"kernel off plain by {diff:.3g}); "
-        f"kernel {ms:.4f} ms (device {_fmt(dev_ms)}), plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms; "
-        f"width {wide}, n={n_wide:,}: bit-equal, device {_fmt(wide_ms)} (global atomics)"
+        f"kernel {ms:.4f} ms (device {_fmt(dev_ms)}), plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms "
+        f"(device {_fmt(library_dev_ms)}), bound {bound_bytes / PEAK_BYTES_PER_S * 1e3:.5f} ms; "
+        f"width {wide}, n={n_wide:,}: bit-equal, device {_fmt(wide_ms)} (global atomics), bound "
+        f"{wide_bound_ms:.5f} ms, index_add_ {wide_library_ms:.4f} ms (device {_fmt(wide_library_dev_ms)})"
     )
     return dict(
         name="countsketch", route="cuda", source="src/repro_torch/csrc/countsketch.cu",
@@ -547,6 +629,12 @@ def phase_countsketch(torch, gen):
         plain_ms=plain_ms, bound_ms=bound_bytes / PEAK_BYTES_PER_S * 1e3,
         bound_by="bytes", library_ms=library_ms,
     )
+
+
+def countsketch_bound_bytes(n: int, d: int, w: int) -> int:
+    """Each element's value, its d int32 buckets and d int8 signs read once;
+    the float32 table written once."""
+    return n * (4 + 4 * d + 1 * d) + d * w * 4
 
 
 def rounding_bound(torch, countsketch_ref, vec, h, w):
@@ -797,6 +885,53 @@ def profile_serve(torch, serve, argv, label):
         print(f"[chip_smoke]   {t:10.3f} ms  x{n:<5d} {key[:100]}")
 
 
+def profile_edge_tick(torch, session, argv, counted):
+    """The serve workload's edge family (1,024 queries, drawn as
+    ``launch/serve.py`` draws them) through the session's engine on its live
+    sketch, as a tick runs it: the answer against the plain version, one B2
+    launch, the tick's CUDA kernels from the profiler, and no cast of the
+    buckets (no copy kernel, no ``aten::_to_copy`` or ``aten::copy_``)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import queries
+    from repro_torch.core.hashing import keys_to_tensor
+    from repro_torch.data.graphs import edge_stream
+
+    n = flag(argv, "--nodes")
+    rng = np.random.default_rng(0)
+    edge_stream(n, flag(argv, "--edges"), rng, zipf_a=1.2)  # serve.run's draws, in order
+    qs = keys_to_tensor(rng.integers(0, n, 1024).astype(np.uint32), "cuda")
+    qd = keys_to_tensor(rng.integers(0, n, 1024).astype(np.uint32), "cuda")
+    live = session._live()
+    tick = lambda: session.engine.edge(live, qs, qd)  # noqa: E731
+    before = counted["edge_query_min"].launches
+    est = tick()
+    check(counted["edge_query_min"].launches == before + 1, "edge tick: B2 not launched once")
+    check(torch.equal(est, queries.edge_query(live, qs, qd)), "edge tick: differs from the plain edge query")
+    torch.cuda.synchronize()
+    for _ in range(3):  # now and then a trace comes back without its kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tick()
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
+                   if getattr(e, "device_time_total", 0.0) > 0]
+        if any("multi_query_min_kernel" in k for k, _, _ in kernels):
+            break
+    check(any("multi_query_min_kernel" in k for k, _, _ in kernels), f"edge tick: no B2 kernel in the trace: {kernels}")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tick()
+        torch.cuda.synchronize()
+    ops = sorted({e.key for e in prof.key_averages()})
+    casts = [k for k, _, _ in kernels if "copy_kernel" in k]
+    casts += [o for o in ops if o in ("aten::_to_copy", "aten::copy_")]
+    print(f"[chip_smoke] serve BASE edge tick (Q=1,024): {sum(c for _, c, _ in kernels)} kernels, "
+          f"no bucket cast; aten ops: {', '.join(ops)}")
+    for key, count, us in kernels:
+        print(f"[chip_smoke]   {us / 1e3:10.4f} ms  x{count:<3d} {key[:110]}")
+    check(not casts, f"edge tick: a cast of the buckets ran: {casts}")
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -840,10 +975,10 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for phase in (phase_ingest, phase_query, phase_closure, phase_fused_ingest, phase_query_cells, phase_flows,
-                  phase_countsketch):
-        row = phase(torch, gen)
-        rows[row["name"]] = row
+    for phase in (phase_ingest, phase_queries, phase_closure, phase_fused_ingest, phase_flows, phase_countsketch):
+        out = phase(torch, gen)
+        for row in out if isinstance(out, list) else [out]:
+            rows[row["name"]] = row
         torch.cuda.empty_cache()
 
     # A small session on the card against the same session on the CPU (the
@@ -888,11 +1023,15 @@ def main() -> int:
     check(rows["closure_step"]["launches"] == want_launches,
           f"serve BASE: {rows['closure_step']['launches']} closure launches, not {want_launches} "
           f"({base.engine.closure_refreshes} full rebuilds)")
+    check(rows["edge_query_min"]["launches"] == len(base_ev),
+          f"serve BASE: {rows['edge_query_min']['launches']} edge-query launches for {len(base_ev)} ticks")
     print(
         f"[chip_smoke] serve BASE: kernels {base_s:.3f} s, plain {plain_s:.3f} s (host wall clock, "
         f"build excluded); {len(base_ev)} ticks; {want_launches} closure launches "
-        f"({base.engine.closure_refreshes} full rebuilds); counters, registers and transcript identical"
+        f"({base.engine.closure_refreshes} full rebuilds), {rows['edge_query_min']['launches']} edge-query "
+        f"launches; counters, registers and transcript identical"
     )
+    profile_edge_tick(torch, base, SERVE_BASE, counted)
 
     # The fused session on the same traffic: one fused launch per batch.
     fused, fused_ev, fused_s = drive(

@@ -80,3 +80,48 @@ def test_wrappers_refuse_devices_other_than_cuda_and_cpu():
         flow_ops.flows(meta)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         edge_query_cells(meta, idx, idx)
+
+
+def hashed_queries(d, wr, wc, q, seed):
+    """A tiny loaded reference sketch, the port's copy of it, and (d, Q) int64
+    buckets from the port's ``hash_edges`` (the serve path's dtype)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, 500, 2000).astype(np.uint32)
+    dst = rng.integers(0, 500, 2000).astype(np.uint32)
+    w = rng.integers(1, 6, 2000).astype(np.float32)
+    cfg = RefConfig(depth=d, width_rows=wr, width_cols=wc)
+    ref = RefSketch.empty(cfg, jax.random.key(seed)).update(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(w))
+    port = to_port(ref)
+    qs = np.concatenate([src[:q // 2], rng.integers(0, 500, q - q // 2)]).astype(np.uint32)
+    qd = np.concatenate([dst[:q // 2], rng.integers(0, 500, q - q // 2)]).astype(np.uint32)
+    rows, cols = port.hash_edges(keys_to_tensor(qs), keys_to_tensor(qd))
+    return port, rows, cols
+
+
+@pytest.mark.parametrize("d", [1, 3, 9])
+def test_edge_query_cells_on_int64_hashed_buckets_match_reference_kernel(d):
+    port, rows, cols = hashed_queries(d, 256, 200, 300, seed=d)
+    assert rows.dtype == cols.dtype == torch.int64
+    want = np.asarray(ref_edge_query_cells(jnp.asarray(port.counters.numpy()), jnp.asarray(rows.numpy()),
+                                           jnp.asarray(cols.numpy()), interpret=True))
+    got = edge_query_cells(port.counters, rows, cols)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (d, 300)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(edge_query_cells(port.counters, rows.int(), cols.int()).numpy(), want)
+
+
+@pytest.mark.parametrize("fn", [edge_query_cells, edge_query_min])
+def test_query_wrappers_refuse_float_and_mixed_indices(fn):
+    counters = torch.zeros(2, 16, 16)
+    i32 = torch.zeros(2, 8, dtype=torch.int32)
+    for rows, cols in ((i32.float(), i32.float()), (i32, i32.long()), (i32.long(), i32), (i32, i32.float())):
+        with pytest.raises(ValueError, match="int32 or both int64"):
+            fn(counters, rows, cols)
+    with pytest.raises(ValueError, match="float32"):
+        fn(counters.double(), i32, i32)
+    with pytest.raises(ValueError, match="Q"):
+        fn(counters, i32, i32[:, :5])
+    # A non-contiguous index tensor is made contiguous, not refused.
+    wide = torch.randint(0, 16, (2, 16), dtype=torch.int64)
+    rows, cols = wide[:, ::2], wide[:, 1::2]
+    assert torch.equal(fn(counters, rows, cols), fn(counters, rows.contiguous(), cols.contiguous()))

@@ -126,6 +126,70 @@ def test_query_cells_kernel_bit_equals_plain_version(cuda, d, wr, wc, q):
     assert torch.equal(got, edge_query_cells_ref(counters, rows, cols))
 
 
+@pytest.mark.parametrize("q", [1, 255, 1024, 65537])
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("d", [1, 2, 5, 8, 9])
+def test_query_kernels_bit_equal_plain_versions_by_depth_and_index_dtype(cuda, d, index_dtype, q):
+    """Both gathers at every unrolled depth (1..8) and the runtime-depth
+    instantiation (9), on int32 and int64 buckets, with ragged Q."""
+    counters = torch.randint(0, 1000, (d, 300, 520), generator=cuda, device="cuda").float()
+    rows = torch.randint(0, 300, (d, q), generator=cuda, device="cuda").to(index_dtype)
+    cols = torch.randint(0, 520, (d, q), generator=cuda, device="cuda").to(index_dtype)
+    before = (query_ops.edge_query_min.launches, query_ops.edge_query_cells.launches)
+    mins = query_ops.edge_query_min(counters, rows, cols)
+    cells = query_ops.edge_query_cells(counters, rows, cols)
+    assert (query_ops.edge_query_min.launches, query_ops.edge_query_cells.launches) == (before[0] + 1, before[1] + 1)
+    assert mins.shape == (q,) and cells.shape == (d, q)
+    assert torch.equal(mins, edge_query_min_ref(counters, rows, cols))
+    assert torch.equal(cells, edge_query_cells_ref(counters, rows, cols))
+
+
+def test_query_kernels_with_64_bit_offsets(cuda):
+    """d=2, 32,768 x 32,768: 2^31 cells, past the 32-bit offset
+    instantiation; the buckets point into the last rows of the last sketch."""
+    d, w, q = 2, 32768, 4096
+    counters = torch.zeros(d, w, w, device="cuda")
+    counters[:, -64:] = torch.randint(1, 1000, (d, 64, w), generator=cuda, device="cuda").float()
+    rows = torch.randint(w - 64, w, (d, q), generator=cuda, device="cuda")
+    cols = torch.randint(0, w, (d, q), generator=cuda, device="cuda")
+    for r, c in ((rows, cols), (rows.int(), cols.int())):
+        cells = query_ops.edge_query_cells(counters, r, c)
+        assert bool((cells > 0).all())
+        assert torch.equal(cells, edge_query_cells_ref(counters, r, c))
+        assert torch.equal(query_ops.edge_query_min(counters, r, c), edge_query_min_ref(counters, r, c))
+
+
+def test_query_kernels_launch_on_the_current_stream(cuda):
+    counters = torch.randint(0, 1000, (5, 256, 256), generator=cuda, device="cuda").float()
+    rows = torch.randint(0, 256, (5, 1000), generator=cuda, device="cuda")
+    cols = torch.randint(0, 256, (5, 1000), generator=cuda, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert torch._C._cuda_getCurrentRawStream(counters.get_device()) == torch.cuda.current_stream().cuda_stream
+        assert torch.cuda.current_stream().cuda_stream == side.cuda_stream
+        # The update waits behind a sleep on the side stream: a kernel
+        # launched on another stream would read the counters before it.
+        torch.cuda._sleep(1_000_000)
+        counters += 1
+        mins = query_ops.edge_query_min(counters, rows, cols)
+        cells = query_ops.edge_query_cells(counters, rows, cols)
+    side.synchronize()
+    assert torch.equal(mins, edge_query_min_ref(counters, rows, cols))
+    assert torch.equal(cells, edge_query_cells_ref(counters, rows, cols))
+
+
+def test_query_wrappers_refuse_bad_indices_on_the_card(cuda):
+    counters = torch.zeros(2, 16, 16, device="cuda")
+    i32 = torch.zeros(2, 8, dtype=torch.int32, device="cuda")
+    for fn in (query_ops.edge_query_min, query_ops.edge_query_cells):
+        for rows, cols in ((i32.float(), i32.float()), (i32, i32.long()), (i32.long(), i32)):
+            with pytest.raises(ValueError, match="int32 or both int64"):
+                fn(counters, rows, cols)
+        with pytest.raises(ValueError, match="on cuda"):
+            fn(counters, i32.cpu(), i32)
+
+
 @pytest.mark.parametrize(
     "n,w,density",
     [(1, 128, 0.02), (3, 384, 0.005), (2, 1024, 0.002), (2, 256, 1.0), (2, 512, 0.0), (1, 768, 0.6)],
@@ -165,14 +229,13 @@ def test_wrappers_refuse_bad_operands(cuda):
         closure_ops.closure_step(odd, odd.clone())
     with pytest.raises(ValueError):
         closure_ops.closure_step(a, a.clone())  # bytes only
+    idx = torch.zeros(1, 4, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        query_ops.edge_query_min(a.double(), idx, idx)
     with pytest.raises(ValueError):
-        query_ops.edge_query_min(a.double(), torch.zeros(1, 4, device="cuda"), torch.zeros(1, 4, device="cuda"))
-    with pytest.raises(ValueError):
-        ingest_ops.ingest_scatter(a.transpose(1, 2), torch.zeros(1, 4, device="cuda"),
-                                  torch.zeros(1, 4, device="cuda"), torch.ones(4, device="cuda"))
-    idx = torch.zeros(1, 4, device="cuda")
-    with pytest.raises(ValueError):
-        query_ops.edge_query_cells(a, idx, torch.zeros(1, 5, device="cuda"))
+        ingest_ops.ingest_scatter(a.transpose(1, 2), idx, idx, torch.ones(4, device="cuda"))
+    with pytest.raises(ValueError, match="Q"):
+        query_ops.edge_query_cells(a, idx, torch.zeros(1, 5, dtype=torch.int32, device="cuda"))
     with pytest.raises(ValueError):
         flow_ops.flows(a.transpose(1, 2))
     with pytest.raises(ValueError):  # the registers must be float32

@@ -15,6 +15,7 @@ from repro.core.query_engine import QueryEngine as RefEngine
 from repro.core.sketch import GLavaSketch as RefSketch, SketchConfig as RefConfig
 from repro.kernels.closure.kernel import closure_step_pallas
 from repro.kernels.query.kernel import multi_query_pallas
+from repro.kernels.query.ops import edge_query_min as ref_edge_query_min
 from repro_torch.core import reach
 from repro_torch.core.hashing import keys_to_tensor
 from repro_torch.core.query_engine import QueryEngine
@@ -104,6 +105,28 @@ def test_multi_query_plain_version_bit_equals_pallas_interpret():
     t = torch.from_numpy
     np.testing.assert_array_equal(edge_query_min_ref(t(counters), t(rows), t(cols)).numpy(), want)
     np.testing.assert_array_equal(edge_query_min(t(counters), t(rows), t(cols)).numpy(), want)
+
+
+@pytest.mark.parametrize("d", [1, 3, 9])
+def test_multi_query_on_int64_hashed_buckets_bit_equals_pallas_interpret(d):
+    """The serve path's buckets: int64 from the port's ``hash_edges``, handed
+    to the wrapper as they are, against ``multi_query_pallas`` (through the
+    reference's padding wrapper) on the same buckets."""
+    rng = np.random.default_rng(d)
+    cfg = RefConfig(depth=d, width_rows=200, width_cols=256)
+    src = rng.integers(0, N_NODES, 2000).astype(np.uint32)
+    dst = rng.integers(0, N_NODES, 2000).astype(np.uint32)
+    w = rng.integers(1, 6, 2000).astype(np.float32)
+    port = to_port(RefSketch.empty(cfg, jax.random.key(d)).update(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(w)))
+    qs = np.concatenate([src[:250], rng.integers(0, N_NODES, 250)]).astype(np.uint32)
+    qd = np.concatenate([dst[:250], rng.integers(0, N_NODES, 250)]).astype(np.uint32)
+    rows, cols = port.hash_edges(keys_to_tensor(qs), keys_to_tensor(qd))
+    assert rows.dtype == cols.dtype == torch.int64
+    want = np.asarray(ref_edge_query_min(jnp.asarray(port.counters.numpy()), jnp.asarray(rows.numpy()),
+                                         jnp.asarray(cols.numpy()), interpret=True))
+    np.testing.assert_array_equal(edge_query_min(port.counters, rows, cols).numpy(), want)
+    np.testing.assert_array_equal(edge_query_min(port.counters, rows.int(), cols.int()).numpy(), want)
+    np.testing.assert_array_equal(edge_query_min_ref(port.counters, rows, cols).numpy(), want)
 
 
 @pytest.mark.parametrize("density", [0.01, 0.0, 1.0])
