@@ -15,11 +15,13 @@ call, with a host breakdown of one call); the closure step (8-bit, int8 wgmma: b
 transpose at three densities, all ones among them; the IGMMA count of its
 SASS; one full closure); the one-pass fused ingest (B=50,000 with inert and
 weight-0 slots; also timed on serve BASE's zipf-skewed first batch); the
-flow reductions; and the CountSketch of a gradient at the 100m preset's
-length (65,020,416 elements into a 5 x 16,384 table; also at width 2^17,
-past the shared-memory limit).  Each is timed with CUDA events and the
-profiler beside its plain version and one PyTorch library call where there
-is one.
+flow reductions; the CountSketch of a gradient at the 100m preset's
+length (65,020,416 elements into a 5 x 16,384 table), hashing in the kernel
+and on precomputed hashes, dense and 4,096-sparse (also at width 2^17, past
+the shared-memory limit), with the atomic instructions of its SASS; and the
+median decode of those tables (d=5 and d=4, and with NaN, +inf and -inf
+planted).  Each is timed with CUDA events and the profiler beside its plain
+version and one PyTorch library call where there is one.
 
 Then it drives the main paths, each with the launch counts set to 0 just
 before and read just after:
@@ -42,10 +44,12 @@ before and read just after:
   each must equal the plain-backend run;
 - train 100m: ``repro_torch.launch.train_lm --preset 100m --compress`` for
   10 steps at the example's batch 8 and sequence 64 (full width, random
-  weights from a seed): countsketch launched twice a step, every loss finite,
-  the mean loss over the run's batches lower at its final parameters than at
-  its initial ones; the median step time and one profiled step; one round
-  trip of the state it leaves, on the card against the CPU;
+  weights from a seed): countsketch launched twice a step and its decode
+  once, every loss finite, the mean loss over the run's batches lower at its
+  final parameters than at its initial ones; the median step time, one
+  profiled step, and one step's operators (no sort, no hashing over n) and
+  peak memory; one round trip of the state it leaves, on the card against
+  the CPU; round trips with NaN and inf in the gradient, card against CPU;
 - train tiny: the tiny preset, compressed, 5 steps on the card and on the
   CPU, whose losses must agree.
 
@@ -555,33 +559,38 @@ def phase_flows(torch, gen):
 
 
 def phase_countsketch(torch, gen):
-    """The CountSketch kernel against its plain version at the 100m preset's
-    gradient length, on buckets and signs hashed as a training step hashes
-    them; and at a width past the shared-memory limit."""
+    """The CountSketch kernel, in its family form (hashing in the kernel, the
+    main path's) and on precomputed hashes, against its plain version at the
+    100m preset's gradient length, and at a width past the shared-memory
+    limit; its SASS; then the median decode kernel against its plain version
+    on the tables those sketches produce, at d=5 and d=4 and with NaN, +inf
+    and -inf planted."""
     from repro_torch.core.hashing import make_hash_family
-    from repro_torch.kernels.countsketch.ops import countsketch, hash_indices
+    from repro_torch.kernels.countsketch.ops import countsketch, countsketch_family, hash_indices
     from repro_torch.kernels.countsketch.ref import countsketch_ref
 
     d, w, n = CS_DEPTH, CS_WIDTH, GRAD_100M
-    h, s = hash_indices(make_hash_family(torch.Generator().manual_seed(1), d, w, "cuda"), n)
+    fam = make_hash_family(torch.Generator().manual_seed(1), d, w, "cuda")
+    h, s = hash_indices(fam, n)
     # Integer values in [-8, 8]: every partial sum of a cell (about n/w = 4,000
     # terms) stays far below 2^24, so any order of the atomics is exact.
     ivec = torch.randint(-8, 9, (n,), generator=gen, device="cuda").float()
-    got = countsketch(ivec, h, s, w)
-    want = countsketch_ref(ivec, h, s, w)
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), f"countsketch differs from its plain version on integer values "
-          f"(max err {float((got - want).abs().max())})")
+    itable = countsketch_ref(ivec, h, s, w)
+    for name, got in (("family form", countsketch_family(ivec, fam)), ("pre-hashed form", countsketch(ivec, h, s, w))):
+        torch.cuda.synchronize()
+        check(torch.equal(got, itable), f"countsketch ({name}) differs from its plain version on integer values "
+              f"(max err {float((got - itable).abs().max())})")
     # A top-k update: 4,096 nonzero coordinates, the rest zero (skipped).
     sparse = torch.zeros(n, device="cuda")
     sparse[torch.randperm(n, generator=gen, device="cuda")[:4096]] = ivec[:4096]
-    check(torch.equal(countsketch(sparse, h, s, w), countsketch_ref(sparse, h, s, w)),
+    want = countsketch_ref(sparse, h, s, w)
+    check(torch.equal(countsketch_family(sparse, fam), want) and torch.equal(countsketch(sparse, h, s, w), want),
           "countsketch differs from its plain version on a sparse vector")
     # Gaussian values: each cell sums about 4,000 terms in another order than
     # the plain version's atomics; both must lie within the worst-case
     # rounding bound of a float32 sum of the float64 sum (rounding_bound).
     gvec = torch.randn(n, generator=gen, device="cuda")
-    got = countsketch(gvec, h, s, w)
+    got = countsketch_family(gvec, fam)
     plain = countsketch_ref(gvec, h, s, w)
     exact = countsketch_ref(gvec.double(), h, s, w, dtype=torch.float64)
     bound = rounding_bound(torch, countsketch_ref, gvec, h, w)
@@ -590,51 +599,180 @@ def phase_countsketch(torch, gen):
     diff = float((got - plain).abs().max())
     check(bool(((got.double() - exact).abs() <= bound).all()), f"countsketch off the float64 sum by {err}")
     check(bool(((plain.double() - exact).abs() <= bound).all()), f"plain countsketch off by {plain_err}")
-    del plain, exact, bound
+    pre = countsketch(gvec, h, s, w)
+    check(bool(((pre.double() - exact).abs() <= bound).all()), "countsketch (pre-hashed) off the float64 sum")
+    gtable = got
+    del plain, exact, bound, pre
 
-    ms = time_ms(lambda: countsketch(gvec, h, s, w), 20)
-    dev_ms = device_ms(lambda: countsketch(gvec, h, s, w), 20, "countsketch_smem_kernel")
-    plain_ms = time_ms(lambda: countsketch_ref(gvec, h, s, w), 10)
+    kernel = "countsketch_kernel<(anonymous namespace)::Hashed"
+    family = lambda: countsketch_family(gvec, fam)  # noqa: E731
+    ms, dev_ms = time_ms(family, 20), device_ms(family, 20, kernel)
+    sparse_ms = time_ms(lambda: countsketch_family(sparse, fam), 20)
+    sparse_dev_ms = device_ms(lambda: countsketch_family(sparse, fam), 20, kernel)
+    pre_ms = time_ms(lambda: countsketch(gvec, h, s, w), 20)
+    pre_dev_ms = device_ms(lambda: countsketch(gvec, h, s, w), 20, "countsketch_kernel<(anonymous namespace)::Prehashed")
+    plain_ms = time_ms(lambda: countsketch_ref(gvec, *hash_indices(fam, n), w), 3)
     flat = (torch.arange(d, device="cuda")[:, None] * w + h.long()).reshape(-1)
     vals = (s.float() * gvec[None, :]).reshape(-1)
     library = lambda: torch.zeros(d * w, device="cuda").index_add_(0, flat, vals)  # noqa: E731
     library_ms, library_dev_ms = time_ms(library, 10), device_ms(library, 10, "index")
     del flat, vals, library
-    bound_bytes = countsketch_bound_bytes(n, d, w)
+    bound_ms = countsketch_bound_bytes(n, d, w) / PEAK_BYTES_PER_S * 1e3
+    sparse_bytes = n * 4 + d * w * 4  # the same bytes; the zeros are read and skipped
+    print(
+        f"[chip_smoke] countsketch family form d={d} w={w} n={n:,}: integer and sparse vectors bit-equal (family and "
+        f"pre-hashed forms); Gaussian within the float32 rounding bound (kernel off the float64 sum by {err:.3g}, "
+        f"plain by {plain_err:.3g}, kernel off plain by {diff:.3g}); dense Gaussian: wrapper {ms:.4f} ms (device "
+        f"{_fmt(dev_ms)}), bound {bound_ms:.5f} ms (4n + 4dw bytes); the step's second launch (a 4,096-sparse vector): "
+        f"wrapper {sparse_ms:.4f} ms (device {_fmt(sparse_dev_ms)}), bound {sparse_bytes / PEAK_BYTES_PER_S * 1e3:.5f} "
+        f"ms; pre-hashed form {pre_ms:.4f} ms (device {_fmt(pre_dev_ms)}, bound "
+        f"{prehashed_bound_bytes(n, d, w) / PEAK_BYTES_PER_S * 1e3:.5f} ms); plain (hash + index_add_) "
+        f"{plain_ms:.4f} ms; index_add_ on a precomputed flat index {library_ms:.4f} ms (device "
+        f"{_fmt(library_dev_ms)})"
+    )
 
-    # Past the shared-memory limit the same launch code takes global atomics.
+    # Past the shared-memory limit the same kernel body takes global atomics.
     wide, n_wide = 1 << 17, 1 << 22
-    hw, sw = hash_indices(make_hash_family(torch.Generator().manual_seed(2), d, wide, "cuda"), n_wide)
-    check(torch.equal(countsketch(ivec[:n_wide], hw, sw, wide), countsketch_ref(ivec[:n_wide], hw, sw, wide)),
+    fam_wide = make_hash_family(torch.Generator().manual_seed(2), d, wide, "cuda")
+    hw, sw = hash_indices(fam_wide, n_wide)
+    want = countsketch_ref(ivec[:n_wide], hw, sw, wide)
+    check(torch.equal(countsketch_family(ivec[:n_wide], fam_wide), want)
+          and torch.equal(countsketch(ivec[:n_wide], hw, sw, wide), want),
           f"countsketch differs from its plain version at width {wide}")
-    wide_ms = device_ms(lambda: countsketch(gvec[:n_wide], hw, sw, wide), 10, "countsketch_global_kernel")
+    wide_ms = device_ms(lambda: countsketch_family(gvec[:n_wide], fam_wide), 10, kernel)
     wide_bound_ms = countsketch_bound_bytes(n_wide, d, wide) / PEAK_BYTES_PER_S * 1e3
     flat = (torch.arange(d, device="cuda")[:, None] * wide + hw.long()).reshape(-1)
     vals = (sw.float() * gvec[None, :n_wide]).reshape(-1)
     wide_library = lambda: torch.zeros(d * wide, device="cuda").index_add_(0, flat, vals)  # noqa: E731
     wide_library_ms, wide_library_dev_ms = time_ms(wide_library, 10), device_ms(wide_library, 10, "index")
-    del flat, vals, wide_library
+    del flat, vals, wide_library, hw, sw
     print(
-        f"[chip_smoke] countsketch d={d} w={w} n={n:,}: integer and sparse vectors bit-equal; Gaussian "
-        f"within the float32 rounding bound (kernel off the float64 sum by {err:.3g}, plain by {plain_err:.3g}, "
-        f"kernel off plain by {diff:.3g}); "
-        f"kernel {ms:.4f} ms (device {_fmt(dev_ms)}), plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms "
-        f"(device {_fmt(library_dev_ms)}), bound {bound_bytes / PEAK_BYTES_PER_S * 1e3:.5f} ms; "
-        f"width {wide}, n={n_wide:,}: bit-equal, device {_fmt(wide_ms)} (global atomics), bound "
-        f"{wide_bound_ms:.5f} ms, index_add_ {wide_library_ms:.4f} ms (device {_fmt(wide_library_dev_ms)})"
+        f"[chip_smoke] countsketch width {wide}, n={n_wide:,}: family and pre-hashed forms bit-equal; family form "
+        f"device {_fmt(wide_ms)} (global atomics), bound {wide_bound_ms:.5f} ms, index_add_ {wide_library_ms:.4f} ms "
+        f"(device {_fmt(wide_library_dev_ms)})"
     )
-    return dict(
+    print(f"[chip_smoke] countsketch SASS: {countsketch_sass()}")
+    sketch_row = dict(
         name="countsketch", route="cuda", source="src/repro_torch/csrc/countsketch.cu",
         replaces="src/repro/kernels/countsketch/kernel.py:47", max_abs_err=diff, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_bytes / PEAK_BYTES_PER_S * 1e3,
-        bound_by="bytes", library_ms=library_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
+    )
+    median_row = phase_countsketch_median(torch, gen, fam, h, s, itable, gtable)
+    return [sketch_row, median_row]
+
+
+def same_with_nan(torch, a, b) -> bool:
+    """Equal values (``-0.0 == 0.0``, as ``torch.equal`` has it) and NaN in
+    the same positions."""
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(torch.where(nan, 0.0, a), torch.where(b.isnan(), 0.0, b))
+
+
+def phase_countsketch_median(torch, gen, fam, h, s, itable, gtable):
+    """The decode kernel against its plain version (hash, gather, sign,
+    median) on the integer and Gaussian tables of the sketch phase, at d=5
+    and on their first 4 rows, and on the Gaussian table with NaN, +inf and
+    -inf planted; its times beside its bound and the library path it
+    replaces (gather, sort over d, midpoint; and torch.median for odd d)."""
+    from repro_torch.core.hashing import HashFamily
+    from repro_torch.kernels.countsketch.ops import countsketch_median
+    from repro_torch.kernels.countsketch.ref import countsketch_median_ref
+
+    d, w, n = CS_DEPTH, CS_WIDTH, GRAD_100M
+    fam4 = HashFamily.from_host(fam.a_host[:4], fam.b_host[:4], w, "cuda")
+    planted = gtable.clone()
+    cells = torch.randperm(d * w, generator=gen, device="cuda")[:9]
+    planted.view(-1)[cells[:3]] = float("nan")
+    planted.view(-1)[cells[3:6]] = float("inf")
+    planted.view(-1)[cells[6:]] = float("-inf")
+    cases = (
+        ("integer table d=5", itable, fam),
+        ("integer table d=4", itable[:4].contiguous(), fam4),
+        ("Gaussian table d=5", gtable, fam),
+        ("Gaussian table d=4", gtable[:4].contiguous(), fam4),
+        ("NaN/inf planted d=5", planted, fam),
+        ("NaN/inf planted d=4", planted[:4].contiguous(), fam4),
+    )
+    n_nan, err = {}, 0.0
+    for name, table, family in cases:
+        got, want = countsketch_median(table, family, n), countsketch_median_ref(table, family, n)
+        torch.cuda.synchronize()
+        check(same_with_nan(torch, got, want), f"countsketch_median differs from its plain version on the {name}")
+        n_nan[name] = int(want.isnan().sum())
+        finite = got.isfinite() & want.isfinite()
+        err = max(err, float((got[finite] - want[finite]).abs().max()))
+    check(n_nan["NaN/inf planted d=5"] > 0, "no NaN estimate from the planted table")
+    del got, want
+
+    decode = lambda: countsketch_median(gtable, fam, n)  # noqa: E731
+    ms, dev_ms = time_ms(decode, 20), device_ms(decode, 20, "median_kernel")
+    ms4 = device_ms(lambda: countsketch_median(gtable[:4].contiguous(), fam4, n), 20, "median_kernel")
+    plain_ms = time_ms(lambda: countsketch_median_ref(gtable, fam, n), 3)
+    # The path it replaces, on precomputed hashes: gather, sign, sort over d,
+    # midpoint; and torch.median over d (odd d: the same value).
+    hl, sf = h.long(), s.float()
+    mid = (d - 1) // 2, d // 2
+
+    def library():
+        srt = (torch.gather(gtable, 1, hl) * sf).sort(dim=0).values
+        return (srt[mid[0]] + srt[mid[1]]) * 0.5
+
+    library_ms, library_dev_ms = time_ms(library, 3), device_ms(library, 3)
+    median = lambda: torch.median(torch.gather(gtable, 1, hl) * sf, dim=0).values  # noqa: E731
+    median_ms = time_ms(median, 3)
+    check(torch.equal(library(), countsketch_median(gtable, fam, n)), "the library path differs from the decode")
+    del hl, sf
+    bound_ms = (4 * n + 4 * d * w) / PEAK_BYTES_PER_S * 1e3
+    print(
+        f"[chip_smoke] countsketch_median d={d} w={w} n={n:,}: equal to its plain version, NaN positions included, "
+        f"on {len(cases)} tables ({', '.join(f'{k}: {v} NaN' for k, v in n_nan.items())}); wrapper {ms:.4f} ms "
+        f"(device {_fmt(dev_ms)}; d=4 device {_fmt(ms4)}), bound {bound_ms:.5f} ms (4n + 4dw bytes); plain (hash, "
+        f"gather, sort) {plain_ms:.4f} ms; library path on precomputed hashes (gather + sort(dim=0) + midpoint) "
+        f"{library_ms:.4f} ms (device {_fmt(library_dev_ms)}), gather + torch.median(dim=0) {median_ms:.4f} ms"
+    )
+    return dict(
+        name="countsketch_median", route="cuda", source="src/repro_torch/csrc/countsketch.cu",
+        replaces="src/repro/train/compression.py:64", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
     )
 
 
 def countsketch_bound_bytes(n: int, d: int, w: int) -> int:
-    """Each element's value, its d int32 buckets and d int8 signs read once;
-    the float32 table written once."""
+    """The family form: each element's value read once, the float32 table
+    written once (the hashes are computed, not read)."""
+    return 4 * n + 4 * d * w
+
+
+def prehashed_bound_bytes(n: int, d: int, w: int) -> int:
+    """The pre-hashed form: each element's value, its d int32 buckets and d
+    int8 signs read once; the float32 table written once."""
     return n * (4 + 4 * d + 1 * d) + d * w * 4
+
+
+def countsketch_sass() -> str:
+    """The atomic instructions of each kernel in the built countsketch
+    library's SASS: ``ATOMS.ADD`` would be a native shared-memory float add,
+    ``ATOMS.CAST.SPIN`` the compare-and-swap loop that emulates one; ``RED``
+    global reductions."""
+    import re
+
+    from repro_torch.kernels import build
+
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(build.library_path("countsketch"))], capture_output=True, text=True, check=True
+    ).stdout
+    out = []
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        kernel = re.search(r"(countsketch_kernel|median_kernel|median_any_depth_kernel)I(.*?)EEv", name)
+        counts = {}
+        for op in re.findall(r"\b((?:ATOMS|ATOMG|ATOM|RED)(?:\.[A-Z0-9_]+)*)", block):
+            counts[op] = counts.get(op, 0) + 1
+        if kernel and counts:
+            out.append(f"{kernel.group(1)}<{kernel.group(2)}>: {counts}")
+    check(any("CAS" in x or "ATOMS" in x for x in out), f"no shared-memory atomic in the countsketch SASS: {out}")
+    return "; ".join(out)
 
 
 def rounding_bound(torch, countsketch_ref, vec, h, w):
@@ -650,15 +788,17 @@ def rounding_bound(torch, countsketch_ref, vec, h, w):
 
 def phase_train(torch, drive):
     """The training path: the 100m preset, compressed, at full width on the
-    card (countsketch launched twice a step), one profiled step, one round
-    trip of the state it leaves on the card against the CPU, and the tiny
-    preset on the card against the CPU."""
+    card (countsketch launched twice a step, its decode once), one profiled
+    step, one step's operators (no sort, no hashing over n) and peak memory,
+    one round trip of the state it leaves on the card against the CPU, round
+    trips with non-finite gradients on the card against the CPU, and the
+    tiny preset on the card against the CPU."""
     import numpy as np
 
     from repro_torch.launch import train_lm
 
     t0 = time.time()
-    run = drive(("countsketch",), lambda: train_lm.main(TRAIN_100M))
+    run = drive(("countsketch", "countsketch_median"), lambda: train_lm.main(TRAIN_100M))
     train_s = time.time() - t0
     hist = run.result.history
     losses = [h["loss"] for h in hist]
@@ -680,8 +820,11 @@ def phase_train(torch, drive):
         f"(host wall clock; steps {', '.join(f'{t:.1f}' for t in step_ms)} ms); n={n:,}"
     )
     profile_step(torch, run)
+    check_step_ops(torch, run)
     check_roundtrip_cpu(torch, run)
     del run, state
+    torch.cuda.empty_cache()
+    check_roundtrip_nonfinite(torch)
     torch.cuda.empty_cache()
 
     # The tiny preset (float32) on the card and on the CPU: the same batches
@@ -751,6 +894,131 @@ def profile_step(torch, run):
     )
     for t, k, key in by_kernel[:12]:
         print(f"[chip_smoke]   {t:10.3f} ms  x{k:<5d} {key[:100]}")
+
+
+def check_step_ops(torch, run):
+    """One more compressed 100m step under the profiler with CPU activity,
+    the compressor's round trip marked by a ``record_function`` range: the
+    round trip runs no sort of any kind (no sort operator or kernel) and no
+    int64 hashing over n (``hash_indices`` not called, no
+    ``aten::remainder`` or ``aten::bitwise_and``); the step's other sort
+    kernels are all the model backward's (the token embedding's gradient
+    sorts the batch's token ids); and the step's peak allocation above what
+    was allocated before it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.train import compression as comp
+
+    batch = {k: torch.as_tensor(v).cuda() for k, v in next(run.batches).items()}
+    state = run.result.state
+    calls = []
+    real_hash, real_roundtrip = comp.hash_indices, comp.roundtrip
+
+    def roundtrip(*args, **kwargs):
+        with record_function("compression.roundtrip"):
+            return real_roundtrip(*args, **kwargs)
+
+    comp.hash_indices = lambda *args: calls.append(args) or real_hash(*args)
+    comp.roundtrip = roundtrip
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, metrics = run.step(state, batch)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        comp.hash_indices, comp.roundtrip = real_hash, real_roundtrip
+
+    def chain(evt, step):
+        while evt is not None:
+            yield evt
+            evt = step(evt)
+
+    def descendants(evt):
+        todo = [evt]
+        while todo:
+            e = todo.pop()
+            yield e
+            todo.extend(e.cpu_children)
+
+    events = prof.events()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    marks = {e.device_type: e for e in events if e.name == "compression.roundtrip"}
+    check(set(marks) == {cpu, cuda}, f"100m step: round-trip ranges on {sorted(map(str, marks))}")
+    # Its operators: those under the CPU range; its kernels: those that ran
+    # within the device range (one stream, so nothing else runs there).
+    ops = {e.name for e in descendants(marks[cpu])}
+    span = marks[cuda].time_range
+    device = [e for e in events if e.device_type == cuda and e.name != "compression.roundtrip"]
+    kernels = [e.name for e in device if span.start <= e.time_range.start and e.time_range.end <= span.end]
+    check(not calls, f"100m step: hash_indices called {len(calls)} times on the card")
+    sorts = sorted({k for k in kernels if "sort" in k.lower()} | {o for o in ops if "sort" in o})
+    check(not sorts, f"100m step: the round trip sorted: {sorts}")
+    hashing = sorted(o for o in ops if o in ("aten::remainder", "aten::bitwise_and"))
+    check(not hashing, f"100m step: the round trip hashed over n: {hashing}")
+    n_sketch = sum("countsketch_kernel" in k for k in kernels)
+    n_decode = sum("median_kernel" in k for k in kernels)
+    check((n_sketch, n_decode) == (2, 1), f"100m step: {n_sketch} sketch and {n_decode} decode kernels in the round trip")
+    # Every other sort kernel of the step is the model's backward: the token
+    # embedding's gradient (index_put_ with accumulation sorts the batch's
+    # 512 token ids).
+    step_sorts = [(k.name, [a.name for a in chain(e, lambda x: x.cpu_parent)])
+                  for e in events if e.device_type == cpu for k in e.kernels if "sort" in k.name.lower()]
+    all_sorts = [e.name for e in device if "sort" in e.name.lower()]
+    elsewhere = [(k, names) for k, names in step_sorts if not any("Backward" in a for a in names)]
+    check(not elsewhere and len(step_sorts) == len(all_sorts),
+          f"100m step: a sort outside the model's backward: {elsewhere or all_sorts}")
+    launchers = sorted({next(a for a in names if "Backward" in a) + " > " + names[0] for _, names in step_sorts})
+    print(
+        f"[chip_smoke] train 100m step operators: the round trip ran {len(kernels)} kernels, {n_sketch} sketch and "
+        f"{n_decode} decode, no sort, no hash_indices, no remainder or bitwise_and; the step's other sort kernels are "
+        f"the model backward's ({len(step_sorts)}, launched by {'; '.join(launchers)}); "
+        f"peak allocation during the step {peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before it"
+    )
+
+
+def check_roundtrip_nonfinite(torch):
+    """Round trips with non-finite gradients on the card (the kernels)
+    against the CPU (the plain versions): the 100m compressor's shape (d=5,
+    w=16,384, top-k 4,096) over 2^21 coordinates with sketch momentum off,
+    so every cell is an integer sum and the two sides must agree bit for
+    bit, NaN positions included.  One NaN and one inf leave fewer than k NaN
+    estimates (by the reference's rule they count as the largest, and the
+    rest of the k places go to the largest finite ones); 24 NaNs leave more
+    than k (the threshold is NaN: nothing is selected)."""
+    import numpy as np
+
+    from repro_torch.train import compression as comp
+
+    n = 1 << 21
+    cfg = comp.CompressorConfig(depth=CS_DEPTH, width=CS_WIDTH, top_k=4096, momentum=0.0)
+    cases = (("one NaN and one inf", [7], [11]), ("24 NaNs", list(range(3, 3 + 5 * 24, 5)), []))
+    out = []
+    for label, nans, infs in cases:
+        card = comp.init_compressor(cfg, n, torch.Generator().manual_seed(3), "cuda")
+        host = comp.init_compressor(cfg, n, torch.Generator().manual_seed(3), "cpu")
+        rng = np.random.default_rng(4)
+        selected = []
+        for _ in range(3):
+            g = rng.integers(-20, 21, n).astype(np.float32)
+            g[nans], g[infs] = np.nan, np.inf
+            up_card, card = comp.roundtrip(card, torch.from_numpy(g).cuda())
+            up_host, host = comp.roundtrip(host, torch.from_numpy(g))
+            for what, a, b in (("update", up_card, up_host), ("error", card.error, host.error),
+                               ("momentum", card.momentum, host.momentum)):
+                check(same_with_nan(torch, a.cpu(), b), f"non-finite round trip ({label}): {what} differs from the CPU")
+            selected.append(int((up_host != 0).sum()))
+        nan_error = int(host.error.isnan().sum())
+        out.append(f"{label}: selected {selected} over 3 round trips, {nan_error} NaN in the error")
+        if nans == [7]:
+            # The NaN estimates take the first places of the top k.
+            check(all(0 < k < cfg.top_k for k in selected), f"{label}: selected {selected}")
+        else:
+            check(selected == [0, 0, 0], f"{label}: selected {selected}, expected none (NaN threshold)")
+    print(f"[chip_smoke] non-finite round trips, card against CPU, bit-equal with NaN positions: {'; '.join(out)}")
 
 
 def check_roundtrip_cpu(torch, run):
@@ -998,6 +1266,7 @@ def main() -> int:
         "edge_query_cells": query_ops.edge_query_cells,
         "flows": flow_ops.flows,
         "countsketch": countsketch_ops.countsketch,
+        "countsketch_median": countsketch_ops.countsketch_median,
     }
 
     def drive(kernel_names, fn):
@@ -1092,11 +1361,14 @@ def main() -> int:
         f"identical to the plain run"
     )
 
-    # The training path: countsketch twice per compressed step.
+    # The training path: countsketch twice and its decode once per
+    # compressed step.
     phase_train(torch, drive)
     n_steps = flag(TRAIN_100M, "--steps")
     check(rows["countsketch"]["launches"] == 2 * n_steps,
           f"train 100m: {rows['countsketch']['launches']} countsketch launches for {n_steps} steps")
+    check(rows["countsketch_median"]["launches"] == n_steps,
+          f"train 100m: {rows['countsketch_median']['launches']} countsketch_median launches for {n_steps} steps")
 
     print(f"[chip_smoke] total {time.time() - t_start:.1f} s, build included")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

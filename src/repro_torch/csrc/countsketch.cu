@@ -1,133 +1,515 @@
-// CountSketch of a flat vector: table[i, h[i,j]] += s[i,j] * vec[j].
+// The CountSketch of a flat vector and its median decode, the gradient
+// compressor's round trip (src/repro_torch/train/compression.py).
 //
-// Replaces the TPU kernel src/repro/kernels/countsketch/kernel.py::
-// countsketch_pallas (body _cs_kernel).  The TPU version tiled the table into
-// 256-wide stripes over a (d, width/256, n/1024) grid and built each stripe
-// as a one-hot MXU product, so every stripe re-read all of vec: O(n * width)
-// work.  None of that carries over.  Here the work is O(d * n):
-//   * Shared-memory path (width * 4 bytes within the opt-in limit, about
-//     56 K floats on an H100): one block owns one sketch row i and a
-//     contiguous range of j.  It zeroes a private copy of the row's width
-//     floats in shared memory, folds s * vec into it with shared-memory
-//     atomics (a zero product is skipped: adding +0.0 changes no cell, and
-//     the second sketch of a training step is almost all zeros), then adds
-//     each nonzero cell into the global table with one atomicAdd.
-//   * Global path (wider rows): a grid-stride loop over the d * n slots with
-//     one global atomicAdd per nonzero product.
-// The table must be zeroed by the caller.  Buckets outside [0, width) are
-// skipped (a HashFamily of width `width` never yields one).
+// 1. The sketch: table[i, h_i(j)] += s_i(j) * vec[j].  Replaces the TPU kernel
+//    src/repro/kernels/countsketch/kernel.py::countsketch_pallas (body
+//    _cs_kernel) together with the hashing its wrapper did before it
+//    (src/repro/kernels/countsketch/ops.py::countsketch).  The TPU version
+//    tiled the table into 256-wide stripes and built each as a one-hot MXU
+//    product, re-reading vec for every stripe: O(n * width) work.  Here the
+//    work is O(d * n), and one kernel body serves two sources of buckets:
+//    hashed in registers from the family's coefficients (the main path, no
+//    (d, n) operand), or read from precomputed (d, n) buckets and signs (the
+//    Pallas kernel's own interface).
+//    * Shared-memory path (width * 4 bytes within the opt-in limit, about
+//      56 K floats on an H100): one block owns one sketch row i and a
+//      contiguous chunk of j, zeroes a private copy of the row in shared
+//      memory, folds s * vec into it with shared-memory atomics, then adds
+//      each nonzero cell into the global table with one atomicAdd.  The row
+//      is the fastest grid index, so the d blocks of a chunk run side by side
+//      and rows 2..d read the chunk from L2: vec leaves DRAM about once.
+//    * Global path (wider rows): the same loop with global atomics.
+//    Each thread takes 4 consecutive coordinates at a time (one 16-byte load
+//    of vec); a group of 4 zeros is skipped whole and a zero product is never
+//    added (the second sketch of a training step is almost all zeros).
+// 2. The decode: est[j] = median_i(s_i(j) * table[i, h_i(j)]), NaN wherever a
+//    value is NaN, else (lo + hi) * 0.5 of the two middle values
+//    (jnp.median's midpoint rule).  Replaces the gather and jnp.median of
+//    src/repro/train/compression.py:64-70 (no Pallas kernel there).  Each
+//    thread hashes its 4 coordinates under every row, gathers d cells, and
+//    takes the median with a sorting network in registers (d = 1..8; a
+//    counting selection with a runtime d beyond).  The longest prefix of the
+//    table that fits is staged in shared memory (3.5 of the 5 rows of a
+//    5 x 16,384 table), the rest is read through L1/L2.
+//
+// The hash is repro_torch/core/hashing.py's, in 32-bit registers: with
+// k = j mod p and p = 2^31 - 1, bucket = ((a k + b) mod p) mod w and sign
+// = 1 - 2 ((((b | 1) k + a) mod p) & 1).  From one coordinate to the next
+// each residue grows by its multiplier mod p, so after a group's first
+// coordinate a hash costs an add and a conditional subtract; the first is
+// one 64-bit product reduced by Mersenne folds (mod_p).
+//
 // fp32 atomics add in any order: integer-valued vec whose partial sums stay
 // below 2^24 gives the plain version's table bit for bit, float vec agrees to
-// rounding.
+// rounding.  The decode is exact (a selection) and equals its plain version
+// bit for bit, NaN positions included.
 //
-// Bound on an H100 (3.35 TB/s): each element's value (4 bytes), its d int32
-// buckets and its d signs (int8: 1 byte each, or int32) are read once, the
-// (d, width) float32 table written once: 4 + 5d bytes an element with int8
-// signs, 29 at d=5, so 0.56 ms for a 65 M-element gradient.  No arithmetic
-// worth counting; the shared-memory atomics' throughput is the practical
-// limit once the reads are coalesced.
+// Bounds, both bytes, on an NVIDIA H100 80GB HBM3 at its 700.00 W limit
+// (3.35 TB/s, the data sheet's peak): the sketch reads vec once and writes
+// the table once, 4n + 4dw bytes (0.0777 ms at n = 65,020,416, d = 5,
+// w = 16,384); the decode reads the table once and writes est once, the same
+// 4n + 4dw.  What limits the sketch in practice is its d*n shared-memory
+// atomics and the integer work of the hash; the decode's d*n random gathers
+// from a table larger than shared memory.
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace {
 
+constexpr uint32_t P = 0x7FFFFFFFu;  // 2^31 - 1
 constexpr int THREADS = 512;
+constexpr int VEC = 4;               // coordinates a thread takes at a time
+constexpr int INLINE_ROWS = 8;       // rows whose coefficients come by value
+constexpr int NETWORK_DEPTH = 8;     // deepest decode by sorting network
+
+// x mod p for any 64-bit x.
+__host__ __device__ __forceinline__ uint32_t mod_p(uint64_t x) {
+  x = (x & P) + (x >> 31);  // < 2^33 + 2^31
+  x = (x & P) + (x >> 31);  // < p + 6
+  return static_cast<uint32_t>(x >= P ? x - P : x);
+}
+
+// (u + s) mod p for u, s < p.
+__device__ __forceinline__ uint32_t add_mod(uint32_t u, uint32_t s) {
+  const uint32_t t = u + s;
+  return t >= P ? t - P : t;
+}
+
+// x with its sign bit flipped when `odd` is 1: (-1) * x, exactly.
+__device__ __forceinline__ float flip(float x, uint32_t odd) {
+  return __int_as_float(__float_as_int(x) ^ static_cast<int>(odd << 31));
+}
+
+// A hash family: the coefficients of its first rows by value, every row's on
+// the device (read only past INLINE_ROWS), and the width with its Lemire
+// constant floor((2^64 - 1) / w) + 1, so that u mod w is two multiplies.
+struct Family {
+  uint32_t a[INLINE_ROWS];
+  uint32_t b[INLINE_ROWS];
+  const int64_t* a_dev;
+  const int64_t* b_dev;
+  uint64_t lemire;
+  uint32_t width;
+
+  __device__ __forceinline__ void coef(int i, uint32_t& ai, uint32_t& bi) const {
+    if (i < INLINE_ROWS) {
+      ai = a[i];
+      bi = b[i];
+    } else {
+      ai = static_cast<uint32_t>(a_dev[i]);
+      bi = static_cast<uint32_t>(b_dev[i]);
+    }
+  }
+};
+
+// u mod w: a mask for a power of two, else Lemire's two multiplies.
+template <bool kPow2>
+__device__ __forceinline__ int bucket(uint32_t u, uint64_t lemire, uint32_t width) {
+  if (kPow2) return static_cast<int>(u & (width - 1));
+  return static_cast<int>(__umul64hi(lemire * u, width));
+}
+
+// One row's hashes along a thread's coordinates: the bucket residue
+// u = (a k + b) mod p and the sign residue u2 = (sa k + sb) mod p at the
+// thread's current group, stepped by `step` coordinates at a time.
+template <bool kPow2>
+struct HashedRow {
+  uint32_t a, sa, step_a, step_sa, u, u2;
+  uint32_t cu[VEC], cu2[VEC];
+
+  __device__ __forceinline__ void start(const Family& f, int i, int64_t j, int64_t step) {
+    uint32_t ai, bi;
+    f.coef(i, ai, bi);
+    const uint32_t sai = bi | 1u;
+    a = mod_p(ai);
+    sa = mod_p(sai);
+    step_a = mod_p(static_cast<uint64_t>(a) * static_cast<uint64_t>(step));
+    step_sa = mod_p(static_cast<uint64_t>(sa) * static_cast<uint64_t>(step));
+    const uint64_t k = mod_p(static_cast<uint64_t>(j));
+    u = mod_p(static_cast<uint64_t>(ai) * k + bi);
+    u2 = mod_p(static_cast<uint64_t>(sai) * k + ai);
+  }
+  // The residues of the group's VEC coordinates.
+  __device__ __forceinline__ void group() {
+    cu[0] = u;
+    cu2[0] = u2;
+#pragma unroll
+    for (int e = 1; e < VEC; ++e) {
+      cu[e] = add_mod(cu[e - 1], a);
+      cu2[e] = add_mod(cu2[e - 1], sa);
+    }
+  }
+  __device__ __forceinline__ void advance() {
+    u = add_mod(u, step_a);
+    u2 = add_mod(u2, step_sa);
+  }
+};
+
+// Bucket sources of the sketch.  row(i, j, step) gives a thread's state for
+// sketch row i from coordinate j on; group(j) readies the VEC coordinates
+// from j; term(e, v, b) sets b to the bucket of the group's e-th coordinate
+// and returns its signed value; advance() moves on by `step` coordinates.
+template <bool kPow2>
+struct Hashed {
+  Family f;
+  struct Row {
+    HashedRow<kPow2> r;
+    uint64_t lemire;
+    uint32_t width;
+    __device__ __forceinline__ void group(int64_t) { r.group(); }
+    __device__ __forceinline__ float term(int e, float v, int& b) const {
+      b = bucket<kPow2>(r.cu[e], lemire, width);
+      return flip(v, r.cu2[e] & 1u);
+    }
+    __device__ __forceinline__ void advance() { r.advance(); }
+  };
+  __device__ __forceinline__ Row row(int i, int64_t j, int64_t step) const {
+    Row out;
+    out.r.start(f, i, j, step);
+    out.lemire = f.lemire;
+    out.width = f.width;
+    return out;
+  }
+};
 
 template <typename Sign>
+struct Prehashed {
+  const int* h;
+  const Sign* s;
+  int64_t n;
+  struct Row {
+    const int* h;
+    const Sign* s;
+    int64_t j;
+    __device__ __forceinline__ void group(int64_t jj) { j = jj; }
+    __device__ __forceinline__ float term(int e, float v, int& b) const {
+      b = h[j + e];
+      return static_cast<float>(s[j + e]) * v;
+    }
+    __device__ __forceinline__ void advance() {}
+  };
+  __device__ __forceinline__ Row row(int i, int64_t, int64_t) const {
+    return Row{h + static_cast<int64_t>(i) * n, s + static_cast<int64_t>(i) * n, 0};
+  }
+};
+
+// vec[j..j+VEC) with zeros at and past hi; one 16-byte load when aligned.
+__device__ __forceinline__ void load_group(const float* __restrict__ vec, int64_t j, int64_t hi,
+                                           bool aligned, float (&v)[VEC]) {
+  if (aligned && j + VEC <= hi) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(vec + j));
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) v[e] = j + e < hi ? vec[j + e] : 0.0f;
+}
+
+template <class Src, bool kShared>
 __global__ void __launch_bounds__(THREADS)
-countsketch_smem_kernel(const float* __restrict__ vec, const int* __restrict__ h,
-                        const Sign* __restrict__ s, float* __restrict__ table,
-                        int64_t n, int width, int64_t chunk) {
+countsketch_kernel(const float* __restrict__ vec, float* __restrict__ table, int64_t n,
+                   int width, int64_t chunk, bool aligned, const __grid_constant__ Src src) {
   extern __shared__ float row[];
-  const int64_t i = blockIdx.y;
-  for (int c = threadIdx.x; c < width; c += THREADS) row[c] = 0.0f;
-  __syncthreads();
-  const int64_t lo = static_cast<int64_t>(blockIdx.x) * chunk;
+  const int i = blockIdx.x;  // the sketch row, fastest: a chunk's d blocks run together
+  const int64_t lo = static_cast<int64_t>(blockIdx.y) * chunk;
   const int64_t hi = lo + chunk < n ? lo + chunk : n;
-  const int* hrow = h + i * n;
-  const Sign* srow = s + i * n;
-  for (int64_t j = lo + threadIdx.x; j < hi; j += THREADS) {
-    const float v = vec[j];
-    if (v == 0.0f) continue;
-    const int b = hrow[j];
-    if (static_cast<unsigned>(b) >= static_cast<unsigned>(width)) continue;
-    atomicAdd(&row[b], static_cast<float>(srow[j]) * v);
+  float* out = table + static_cast<int64_t>(i) * width;
+  float* dst = kShared ? row : out;
+  if (kShared) {
+    for (int c = threadIdx.x; c < width; c += THREADS) row[c] = 0.0f;
+    __syncthreads();
   }
-  __syncthreads();
-  float* out = table + i * width;
-  for (int c = threadIdx.x; c < width; c += THREADS) {
-    const float v = row[c];
-    if (v != 0.0f) atomicAdd(&out[c], v);
+  constexpr int64_t step = static_cast<int64_t>(VEC) * THREADS;
+  int64_t j = lo + static_cast<int64_t>(VEC) * threadIdx.x;
+  auto r = src.row(i, j, step);
+  float v[VEC];
+  load_group(vec, j, hi, aligned, v);
+  for (; j < hi; j += step, r.advance()) {
+    float next[VEC];  // the next group's load is in flight while this one adds
+    load_group(vec, j + step, hi, aligned, next);
+    if (v[0] != 0.0f || v[1] != 0.0f || v[2] != 0.0f || v[3] != 0.0f) {
+      r.group(j);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        if (v[e] == 0.0f) continue;
+        int b;
+        const float t = r.term(e, v[e], b);
+        if (static_cast<unsigned>(b) < static_cast<unsigned>(width)) atomicAdd(&dst[b], t);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) v[e] = next[e];
+  }
+  if (kShared) {
+    __syncthreads();
+    for (int c = threadIdx.x; c < width; c += THREADS) {
+      const float x = row[c];
+      if (x != 0.0f) atomicAdd(&out[c], x);
+    }
   }
 }
 
-template <typename Sign>
+// Median of D values by jnp.median's rule, in registers: an odd-even
+// transposition network (fminf/fmaxf), then NaN if any value was NaN.
+template <int D>
+__device__ __forceinline__ float median_network(float (&v)[D]) {
+  bool nan = false;
+#pragma unroll
+  for (int i = 0; i < D; ++i) nan |= v[i] != v[i];
+#pragma unroll
+  for (int p = 0; p < D; ++p) {
+#pragma unroll
+    for (int q = p & 1; q + 1 < D; q += 2) {
+      const float lo = fminf(v[q], v[q + 1]);
+      const float hi = fmaxf(v[q], v[q + 1]);
+      v[q] = lo;
+      v[q + 1] = hi;
+    }
+  }
+  return nan ? __int_as_float(0x7fc00000) : (v[(D - 1) / 2] + v[D / 2]) * 0.5f;
+}
+
+template <int D, bool kPow2>
 __global__ void __launch_bounds__(THREADS)
-countsketch_global_kernel(const float* __restrict__ vec, const int* __restrict__ h,
-                          const Sign* __restrict__ s, float* __restrict__ table,
-                          int64_t n, int64_t width, int64_t slots) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * THREADS;
-  for (int64_t k = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
-       k < slots; k += stride) {
-    const int64_t i = k / n;
-    const float v = vec[k - i * n];
-    if (v == 0.0f) continue;
-    const int b = h[k];
-    if (b < 0 || b >= width) continue;
-    atomicAdd(&table[i * width + b], static_cast<float>(s[k]) * v);
+median_kernel(const float* __restrict__ table, float* __restrict__ est, int64_t n,
+              int64_t staged, bool aligned, const __grid_constant__ Family f) {
+  extern __shared__ float cells[];  // the table's first `staged` cells
+  const int w = static_cast<int>(f.width);
+  for (int64_t c = threadIdx.x; c < staged; c += THREADS) cells[c] = table[c];
+  __syncthreads();
+  const int64_t step = static_cast<int64_t>(VEC) * THREADS * gridDim.x;
+  int64_t j = (static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x) * VEC;
+  HashedRow<kPow2> r[D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) r[i].start(f, i, j, step);
+  for (; j < n; j += step) {
+    float v[VEC][D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      r[i].group();
+      const int64_t row = static_cast<int64_t>(i) * w;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const int64_t c = row + bucket<kPow2>(r[i].cu[e], f.lemire, f.width);
+        const float x = c < staged ? cells[c] : __ldg(table + c);
+        v[e][i] = flip(x, r[i].cu2[e] & 1u);
+      }
+      r[i].advance();
+    }
+    float m[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) m[e] = median_network<D>(v[e]);
+    if (aligned && j + VEC <= n) {
+      *reinterpret_cast<float4*>(est + j) = make_float4(m[0], m[1], m[2], m[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        if (j + e < n) est[j + e] = m[e];
+    }
   }
 }
 
-template <typename Sign>
-int launch(const float* vec, const int* h, const Sign* s, float* table,
-           int64_t depth, int64_t n, int64_t width, cudaStream_t stream) {
-  if (depth == 0 || n == 0) return 0;
-  int dev = 0, sms = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const int64_t smem = width * static_cast<int64_t>(sizeof(float));
-  if (smem <= optin) {
-    auto kernel = countsketch_smem_kernel<Sign>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
-                                                        static_cast<size_t>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (per_sm < 1) per_sm = 1;
-    // Two waves of resident blocks, split evenly over the d rows; no block
-    // gets fewer than 4 elements a thread, so the flush stays a small share.
-    int64_t per_row = (2LL * sms * per_sm + depth - 1) / depth;
-    const int64_t most = (n + 4LL * THREADS - 1) / (4LL * THREADS);
-    if (per_row > most) per_row = most;
-    if (per_row < 1) per_row = 1;
-    const int64_t chunk = (n + per_row - 1) / per_row;
-    per_row = (n + chunk - 1) / chunk;
-    kernel<<<dim3(static_cast<unsigned>(per_row), static_cast<unsigned>(depth)), THREADS,
-             static_cast<size_t>(smem), stream>>>(vec, h, s, table, n,
-                                                   static_cast<int>(width), chunk);
-  } else {
-    const int64_t slots = depth * n;
-    int64_t blocks = (slots + THREADS - 1) / THREADS;
-    if (blocks > 32LL * sms) blocks = 32LL * sms;  // grid-stride beyond this
-    countsketch_global_kernel<Sign><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
-        vec, h, s, table, n, width, slots);
+// Past NETWORK_DEPTH rows: the r-th smallest value is the v_i with
+// #{v < v_i} <= r < #{v <= v_i}; each value is hashed and gathered again
+// for each comparison (d^2 of them), so no array of d values is kept.
+template <bool kPow2>
+__device__ __forceinline__ float cell_value(const float* __restrict__ table, const Family& f,
+                                            int i, uint64_t k) {
+  uint32_t ai, bi;
+  f.coef(i, ai, bi);
+  const uint32_t u = mod_p(static_cast<uint64_t>(ai) * k + bi);
+  const uint32_t u2 = mod_p(static_cast<uint64_t>(bi | 1u) * k + ai);
+  const float x = __ldg(table + static_cast<int64_t>(i) * f.width + bucket<kPow2>(u, f.lemire, f.width));
+  return flip(x, u2 & 1u);
+}
+
+template <bool kPow2>
+__global__ void __launch_bounds__(THREADS)
+median_any_depth_kernel(const float* __restrict__ table, float* __restrict__ est, int64_t n,
+                        int depth, const __grid_constant__ Family f) {
+  const int r_lo = (depth - 1) / 2, r_hi = depth / 2;
+  const int64_t step = static_cast<int64_t>(THREADS) * gridDim.x;
+  for (int64_t j = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; j < n; j += step) {
+    const uint64_t k = mod_p(static_cast<uint64_t>(j));
+    bool nan = false;
+    for (int i = 0; i < depth; ++i) {
+      const float x = cell_value<kPow2>(table, f, i, k);
+      nan |= x != x;
+    }
+    float lo = 0.0f, hi = 0.0f;
+    for (int i = 0; !nan && i < depth; ++i) {
+      const float x = cell_value<kPow2>(table, f, i, k);
+      int less = 0, leq = 0;
+      for (int q = 0; q < depth; ++q) {
+        const float y = cell_value<kPow2>(table, f, q, k);
+        less += y < x;
+        leq += y <= x;
+      }
+      if (less <= r_lo && r_lo < leq) lo = x;
+      if (less <= r_hi && r_hi < leq) hi = x;
+    }
+    est[j] = nan ? __int_as_float(0x7fc00000) : (lo + hi) * 0.5f;
   }
+}
+
+// The launch record both entry points take (kernels/countsketch/ops.py
+// packs it): pointers, sizes and the stream, then depth x (a, b) as int64
+// when the buckets are hashed.
+struct Record {
+  uint64_t in;      // vec (sketch) or table (decode)
+  uint64_t out;     // table (sketch, zeroed by the caller) or est (decode)
+  uint64_t h, s;    // precomputed (d, n) buckets and signs, or 0: hash them
+  uint64_t a_dev, b_dev;  // the family's (d,) int64 coefficients on the device
+  int64_t n, depth, width, sign_bytes;
+  uint64_t stream;
+};
+
+Family make_family(const Record& r) {
+  const int64_t* ab = reinterpret_cast<const int64_t*>(
+      reinterpret_cast<const char*>(&r) + sizeof(Record));
+  Family f{};
+  for (int i = 0; i < INLINE_ROWS && i < r.depth; ++i) {
+    f.a[i] = static_cast<uint32_t>(ab[2 * i]);
+    f.b[i] = static_cast<uint32_t>(ab[2 * i + 1]);
+  }
+  f.a_dev = reinterpret_cast<const int64_t*>(r.a_dev);
+  f.b_dev = reinterpret_cast<const int64_t*>(r.b_dev);
+  f.width = static_cast<uint32_t>(r.width);
+  f.lemire = ~0ull / static_cast<uint64_t>(r.width) + 1;
+  return f;
+}
+
+bool is_pow2(int64_t w) { return (w & (w - 1)) == 0; }
+
+struct Device {
+  int sms = 0, optin = 0;
+  Device() {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+};
+
+template <class Src>
+int launch_sketch(const Record& r, Src src) {
+  const float* vec = reinterpret_cast<const float*>(r.in);
+  float* table = reinterpret_cast<float*>(r.out);
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(r.stream);
+  const int64_t d = r.depth, n = r.n, width = r.width;
+  const Device dev;
+  const int64_t smem = width * static_cast<int64_t>(sizeof(float));
+  const bool shared = smem <= dev.optin;
+  auto kernel = shared ? countsketch_kernel<Src, true> : countsketch_kernel<Src, false>;
+  if (shared) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, THREADS, shared ? static_cast<size_t>(smem) : 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) per_sm = 1;
+  // One wave of resident blocks, split evenly over the d rows (each block's
+  // flush adds up to a row of atomics, and a second wave of a few blocks
+  // would double the time); no block gets fewer than 4 groups a thread;
+  // chunks are whole groups, so every 16-byte load stays aligned.
+  int64_t per_row = static_cast<int64_t>(dev.sms) * per_sm / d;
+  const int64_t most = (n + 4LL * VEC * THREADS - 1) / (4LL * VEC * THREADS);
+  if (per_row > most) per_row = most;
+  if (per_row < 1) per_row = 1;
+  int64_t chunk = (n + per_row - 1) / per_row;
+  chunk = (chunk + VEC - 1) / VEC * VEC;
+  per_row = (n + chunk - 1) / chunk;
+  const bool aligned = (r.in & 15) == 0;
+  kernel<<<dim3(static_cast<unsigned>(d), static_cast<unsigned>(per_row)), THREADS,
+           shared ? static_cast<size_t>(smem) : 0, stream>>>(
+      vec, table, n, static_cast<int>(width), chunk, aligned, src);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_median_network(const Record& r, const Family& f, const Device& dev) {
+  const float* table = reinterpret_cast<const float*>(r.in);
+  float* est = reinterpret_cast<float*>(r.out);
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(r.stream);
+  int64_t staged = dev.optin / static_cast<int64_t>(sizeof(float));
+  if (staged > D * r.width) staged = D * r.width;
+  const size_t smem = static_cast<size_t>(staged) * sizeof(float);
+  auto kernel = is_pow2(r.width) ? median_kernel<D, true> : median_kernel<D, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) per_sm = 1;
+  // A persistent grid (each block stages the table once), cut short for a
+  // vector too small to give every block a group a thread.
+  int64_t blocks = static_cast<int64_t>(dev.sms) * per_sm;
+  const int64_t most = (r.n + static_cast<int64_t>(VEC) * THREADS - 1) / (static_cast<int64_t>(VEC) * THREADS);
+  if (blocks > most) blocks = most;
+  if (blocks < 1) blocks = 1;
+  const bool aligned = (r.out & 15) == 0;
+  kernel<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
+      table, est, r.n, staged, aligned, f);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// sign_bytes selects the sign type: 1 for int8, 4 for int32.
-extern "C" int glava_countsketch(const float* vec, const int* h, const void* s,
-                                 int64_t sign_bytes, float* table, int64_t depth,
-                                 int64_t n, int64_t width, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (sign_bytes == 1)
-    return launch(vec, h, static_cast<const int8_t*>(s), table, depth, n, width, st);
-  if (sign_bytes == 4)
-    return launch(vec, h, static_cast<const int32_t*>(s), table, depth, n, width, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+// table (zeroed) += the CountSketch of vec: from the precomputed buckets h
+// and signs s (sign_bytes 1 for int8, 4 for int32) when h is set, else
+// hashed in the kernel from the record's coefficients.
+extern "C" int glava_countsketch(const char* record) {
+  const Record& r = *reinterpret_cast<const Record*>(record);
+  if (r.depth == 0 || r.n == 0) return 0;
+  if (r.width < 1 || r.width > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  if (r.h != 0) {
+    const int* h = reinterpret_cast<const int*>(r.h);
+    if (r.sign_bytes == 1)
+      return launch_sketch(r, Prehashed<int8_t>{h, reinterpret_cast<const int8_t*>(r.s), r.n});
+    if (r.sign_bytes == 4)
+      return launch_sketch(r, Prehashed<int32_t>{h, reinterpret_cast<const int32_t*>(r.s), r.n});
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Family f = make_family(r);
+  if (is_pow2(r.width)) return launch_sketch(r, Hashed<true>{f});
+  return launch_sketch(r, Hashed<false>{f});
+}
+
+// est (n,) = the median decode of the (depth, width) table under the
+// record's family, for the coordinates 0..n-1.
+extern "C" int glava_countsketch_median(const char* record) {
+  const Record& r = *reinterpret_cast<const Record*>(record);
+  if (r.depth == 0 || r.n == 0) return 0;
+  if (r.width < 1 || r.width > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  const Family f = make_family(r);
+  const Device dev;
+  switch (r.depth) {
+    case 1: return launch_median_network<1>(r, f, dev);
+    case 2: return launch_median_network<2>(r, f, dev);
+    case 3: return launch_median_network<3>(r, f, dev);
+    case 4: return launch_median_network<4>(r, f, dev);
+    case 5: return launch_median_network<5>(r, f, dev);
+    case 6: return launch_median_network<6>(r, f, dev);
+    case 7: return launch_median_network<7>(r, f, dev);
+    case 8: return launch_median_network<8>(r, f, dev);
+    default: break;
+  }
+  static_assert(NETWORK_DEPTH == 8, "the switch above covers depths 1..NETWORK_DEPTH");
+  const float* table = reinterpret_cast<const float*>(r.in);
+  float* est = reinterpret_cast<float*>(r.out);
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(r.stream);
+  int64_t blocks = static_cast<int64_t>(dev.sms) * 4;
+  const int64_t most = (r.n + THREADS - 1) / THREADS;
+  if (blocks > most) blocks = most;
+  if (is_pow2(r.width))
+    median_any_depth_kernel<true><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+        table, est, r.n, static_cast<int>(r.depth), f);
+  else
+    median_any_depth_kernel<false><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+        table, est, r.n, static_cast<int>(r.depth), f);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,69 +1,179 @@
-"""Wrapper of the CUDA CountSketch (``csrc/countsketch.cu``), the port of
-``src/repro/kernels/countsketch/kernel.py::countsketch_pallas``, and of
-``src/repro/kernels/countsketch/ops.py::countsketch``.
+"""Wrappers of the CUDA CountSketch and its median decode
+(``csrc/countsketch.cu``): :func:`countsketch_family`, the reference's
+``src/repro/kernels/countsketch/ops.py::countsketch(vec, hash_family)``
+(the hash and ``kernel.py::countsketch_pallas`` in one kernel);
+:func:`countsketch`, the Pallas kernel's own interface on buckets and signs
+hashed before; and :func:`countsketch_median`, the gather and ``jnp.median``
+of ``src/repro/train/compression.py::_unsketch``.  The hashed forms take the
+family's coefficients in the launch record and build no (d, n) tensor.
 
-``countsketch`` takes operands already hashed; :func:`hash_indices` hashes
-the coordinates ``0..n-1`` once into the narrow types the kernel reads
-(int32 buckets, int8 signs), and :func:`countsketch_family` is the
-reference's ``countsketch(vec, hash_family)``.  ``countsketch.launches``
-counts the kernel launches."""
+The launch path is ``kernels/query/ops.py``'s: the checks build no tensors,
+the C function is bound at its first launch and takes one packed record,
+the stream is the raw handle of the device's current stream, and the device
+guard is entered only for a tensor off the current device.  CPU tensors
+take the plain versions (``ref.py``).  :func:`hash_indices` hashes the
+coordinates ``0..n-1`` into the narrow types the pre-hashed kernel reads
+(int32 buckets, int8 signs); the CPU round trip shares one such hash
+between its two sketches and its decode.
+
+``countsketch.launches`` counts the sketch kernel's launches (pre-hashed
+and hashed), ``countsketch_median.launches`` the decode's."""
 from __future__ import annotations
 
 import ctypes
+import operator
+import struct
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.hashing import HashFamily
 from repro_torch.kernels import build
-from repro_torch.kernels.countsketch.ref import countsketch_ref
+from repro_torch.kernels.countsketch.ref import countsketch_median_ref, countsketch_ref
 
-_C = ctypes.c_int64
-_P = ctypes.c_void_p
-_ARGTYPES = [_P, _P, _P, _C, _P, _C, _C, _C, _P]
-_SIGN_TYPES = (torch.int8, torch.int32)
+# csrc/countsketch.cu's Record: in, out, h, s, a_dev and b_dev pointers; n,
+# depth, width and the sign size in bytes; the stream.  The hashed forms
+# append depth x (a, b) as int64.
+_RECORD = struct.Struct("=6Q4qQ")
+_SIGN_BYTES = {torch.int8: 1, torch.int32: 4}
 # Coordinates hashed per pass: bounds the int64 temporaries of the hash at
 # a few hundred MB whatever the length of the vector.
 HASH_CHUNK = 1 << 23
+# Symbol -> C launch function, bound at its first launch.
+_bound = {}
+# Whether the process sees one CUDA device (then a tensor's device is always
+# the current one and the guard check is skipped); set at the first launch.
+_one_device = False
+
+
+def _bind(symbol: str):
+    global _one_device
+    fn = _bound[symbol] = build.function("countsketch", symbol, [ctypes.c_char_p])
+    _one_device = torch.cuda.device_count() == 1
+    return fn
+
+
+def _launch(symbol: str, dev: int, record: bytes) -> None:
+    fn = _bound.get(symbol) or _bind(symbol)
+    if _one_device or dev == torch._C._cuda_getDevice():
+        status = fn(record)
+    else:
+        with torch.cuda.device(dev):
+            status = fn(record)
+    if status:
+        build.check(status, symbol)
+
+
+def _family_rows(family: HashFamily) -> bytes:
+    """The family's (a, b) pairs as int64, row by row (the record's tail)."""
+    return np.stack([family.a_host, family.b_host], axis=1).astype(np.int64).tobytes()
+
+
+def _check_vec(vec: torch.Tensor) -> int:
+    """The device index of a (n,) float32 vector (-1 on the CPU)."""
+    if vec.dtype is not torch.float32 or vec.dim() != 1:
+        raise ValueError(f"vec must be a (n,) float32 tensor, got {tuple(vec.shape)} {vec.dtype}")
+    return _device_of(vec)
+
+
+def _device_of(t: torch.Tensor) -> int:
+    dev = t.get_device()
+    if dev < 0 and not t.is_cpu:
+        raise ValueError(f"the countsketch kernels run on CUDA or CPU, got {t.device}")
+    return dev
+
+
+def _check_family(family: HashFamily, dev: int) -> None:
+    if family.a.get_device() != dev:
+        raise ValueError(f"the hash family lies on {family.device}, the operands on device {dev}")
 
 
 def countsketch(vec: torch.Tensor, h: torch.Tensor, s: torch.Tensor, width: int) -> torch.Tensor:
-    """vec (n,) float32; h (d, n) buckets in [0, width); s (d, n) ±1 (int8 or
-    int32) -> (d, width) float32 table.  CPU tensors take the plain
+    """vec (n,) float32; h (d, n) integer buckets in [0, width); s (d, n) ±1
+    (int8 or int32) -> (d, width) float32 table.  CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
-    if vec.device.type == "cpu":
-        return countsketch_ref(vec, h, s, width)
-    if vec.device.type != "cuda":
-        raise ValueError(f"countsketch runs on CUDA or CPU, got {vec.device}")
-    if vec.dtype != torch.float32 or vec.dim() != 1:
-        raise ValueError(f"vec must be a (n,) float32 tensor, got {tuple(vec.shape)} {vec.dtype}")
+    width = operator.index(width)
+    dev = _check_vec(vec)
     n = vec.shape[0]
     if h.dim() != 2 or h.shape[1] != n or s.shape != h.shape:
         raise ValueError(f"h and s must be (d, n={n}), got {tuple(h.shape)}, {tuple(s.shape)}")
-    if h.dtype.is_floating_point or s.dtype not in _SIGN_TYPES:
+    sign_bytes = _SIGN_BYTES.get(s.dtype)
+    if h.dtype.is_floating_point or h.dtype is torch.bool or sign_bytes is None:
         raise ValueError(f"h must be integer and s int8 or int32, got {h.dtype}, {s.dtype}")
-    if int(width) < 1:
+    if width < 1:
         raise ValueError(f"width must be positive, got {width}")
-    for t in (h, s):
-        if t.device != vec.device:
-            raise ValueError(f"all operands must be on {vec.device}, got {t.device}")
+    if h.get_device() != dev or s.get_device() != dev:
+        raise ValueError(f"all operands must be on {vec.device}, got {h.device}, {s.device}")
+    if dev < 0:
+        return countsketch_ref(vec, h, s, width)
     d = h.shape[0]
     v = vec.contiguous()
     hi = h.to(torch.int32).contiguous()
     si = s.contiguous()
-    table = torch.zeros((d, int(width)), dtype=torch.float32, device=vec.device)
-    with torch.cuda.device(vec.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = build.function("countsketch", "glava_countsketch", _ARGTYPES)(
-            v.data_ptr(), hi.data_ptr(), si.data_ptr(), si.element_size(), table.data_ptr(),
-            d, n, int(width), stream,
-        )
-    build.check(status, "countsketch")
+    table = vec.new_zeros(d, width)
+    record = _RECORD.pack(
+        v.data_ptr(), table.data_ptr(), hi.data_ptr(), si.data_ptr(), 0, 0,
+        n, d, width, sign_bytes, torch._C._cuda_getCurrentRawStream(dev),
+    )
+    _launch("glava_countsketch", dev, record)
     countsketch.launches += 1
     return table
 
 
 countsketch.launches = 0
+
+
+def countsketch_family(vec: torch.Tensor, family: HashFamily) -> torch.Tensor:
+    """Compress a flat (n,) float32 vector with a HashFamily -> (d, family.w)
+    float32 table; on the card the kernel hashes the coordinates itself.
+    Equals ``repro_torch.train.compression._sketch`` (tested)."""
+    dev = _check_vec(vec)
+    _check_family(family, dev)
+    n, d, w = vec.shape[0], family.depth, family.w
+    if dev < 0:
+        return countsketch_ref(vec, *hash_indices(family, n), w)
+    v = vec if vec.is_contiguous() else vec.contiguous()
+    table = vec.new_zeros(d, w)
+    record = _RECORD.pack(
+        v.data_ptr(), table.data_ptr(), 0, 0, family.a.data_ptr(), family.b.data_ptr(),
+        n, d, w, 0, torch._C._cuda_getCurrentRawStream(dev),
+    )
+    _launch("glava_countsketch", dev, record + _family_rows(family))
+    countsketch.launches += 1
+    return table
+
+
+def countsketch_median(table: torch.Tensor, family: HashFamily, n: int) -> torch.Tensor:
+    """The median decode of a (d, w) float32 CountSketch ``table`` under
+    ``family`` for the coordinates ``0..n-1`` -> (n,) float32
+    ``median_i(s_i(j) * table[i, h_i(j)])`` by ``jnp.median``'s rule (NaN
+    wherever a value is NaN, the midpoint of the two middle values).  CPU
+    tensors take the plain version."""
+    n = operator.index(n)
+    if table.dtype is not torch.float32 or table.dim() != 2:
+        raise ValueError(f"table must be a (d, w) float32 tensor, got {tuple(table.shape)} {table.dtype}")
+    d, w = family.depth, family.w
+    if tuple(table.shape) != (d, w):
+        raise ValueError(f"table must be (d={d}, w={w}) for this family, got {tuple(table.shape)}")
+    if n < 0:
+        raise ValueError(f"n must be non-negative, got {n}")
+    dev = _device_of(table)
+    _check_family(family, dev)
+    if dev < 0:
+        return countsketch_median_ref(table, family, n)
+    t = table if table.is_contiguous() else table.contiguous()
+    est = table.new_empty(n)
+    record = _RECORD.pack(
+        t.data_ptr(), est.data_ptr(), 0, 0, family.a.data_ptr(), family.b.data_ptr(),
+        n, d, w, 0, torch._C._cuda_getCurrentRawStream(dev),
+    )
+    _launch("glava_countsketch_median", dev, record + _family_rows(family))
+    countsketch_median.launches += 1
+    return est
+
+
+countsketch_median.launches = 0
 
 
 def hash_indices(family: HashFamily, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -77,10 +187,3 @@ def hash_indices(family: HashFamily, n: int) -> Tuple[torch.Tensor, torch.Tensor
         h[:, lo : lo + idx.shape[0]] = family(idx)
         s[:, lo : lo + idx.shape[0]] = family.signs(idx)
     return h, s
-
-
-def countsketch_family(vec: torch.Tensor, family: HashFamily) -> torch.Tensor:
-    """Compress a flat vector with a HashFamily -> (d, family.w) table.
-    Equals ``repro_torch.train.compression._sketch`` (tested)."""
-    h, s = hash_indices(family, vec.shape[0])
-    return countsketch(vec.to(torch.float32), h, s, family.w)

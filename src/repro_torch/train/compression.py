@@ -7,12 +7,14 @@ hashing, the tables are summed across workers (``psum_fn``; linearity is the
 paper's Section 6.3 merge), the top-k coordinates are un-sketched with the
 median estimator, and the residual stays local as error feedback.
 
-The port hashes the coordinates once per :func:`roundtrip` (int32 buckets,
-int8 signs) and shares them between its two sketches and its un-sketch; a
-sketch of a CUDA vector launches the CountSketch kernel
-(``kernels/countsketch``).  ``jnp.median`` averages the two middle values
-when d is even, and so does :func:`_median` (``torch.median`` would return
-the lower one).
+On the card a round trip launches the CountSketch kernel twice and its
+median decode once (``kernels/countsketch``); both hash the coordinates in
+registers, so no (d, n) tensor is built.  On the CPU the plain versions
+share one :func:`hash_indices` per round trip.  The decode follows
+``jnp.median`` (NaN wherever a value is NaN, the midpoint of the two middle
+values) and the top-k threshold ``jnp.sort(|est|)[-k]`` (NaN counted as the
+largest magnitude), so a non-finite gradient trains as it does in the
+reference.
 """
 from __future__ import annotations
 
@@ -22,7 +24,13 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch.core.hashing import HashFamily, make_hash_family
-from repro_torch.kernels.countsketch.ops import countsketch, hash_indices
+from repro_torch.kernels.countsketch.ops import (
+    countsketch,
+    countsketch_family,
+    countsketch_median,
+    hash_indices,
+)
+from repro_torch.kernels.countsketch.ref import median_of_cells_ref
 from repro_torch.tree import skeleton, tree_leaves, tree_unflatten
 
 Hashes = Tuple[torch.Tensor, torch.Tensor]
@@ -60,26 +68,31 @@ def init_compressor(
 
 
 def _sketch(state: CompressorState, vec: torch.Tensor, hashes: Optional[Hashes] = None) -> torch.Tensor:
-    """CountSketch a flat vector -> (d, w)."""
-    h, s = hashes if hashes is not None else hash_indices(state.hash, vec.shape[0])
+    """CountSketch a flat vector -> (d, w); ``hashes`` (the CPU path) are
+    the coordinates' buckets and signs, else the kernel hashes them."""
+    if hashes is None:
+        return countsketch_family(vec.to(torch.float32), state.hash)
+    h, s = hashes
     return countsketch(vec.to(torch.float32), h, s, state.config.width)
-
-
-def _median(vals: torch.Tensor) -> torch.Tensor:
-    """Median over dim 0, the mean of the two middle values when it is even
-    (``jnp.median``'s midpoint rule: ``(lo + hi) * 0.5``)."""
-    d = vals.shape[0]
-    srt = vals.sort(dim=0).values
-    return (srt[(d - 1) // 2] + srt[d // 2]) * 0.5
 
 
 def _unsketch(
     state: CompressorState, table: torch.Tensor, n: int, hashes: Optional[Hashes] = None
 ) -> torch.Tensor:
     """Median-of-d estimate for every coordinate -> (n,)."""
-    h, s = hashes if hashes is not None else hash_indices(state.hash, n)
-    vals = torch.gather(table, 1, h.long()) * s.to(torch.float32)  # (d, n)
-    return _median(vals)
+    if hashes is None:
+        return countsketch_median(table, state.hash, n)
+    return median_of_cells_ref(table, *hashes)
+
+
+def _threshold(mag: torch.Tensor, k: int) -> torch.Tensor:
+    """``jnp.sort(mag)[-k]``: the k-th largest magnitude with NaN counted as
+    the largest, so NaN once k or more are NaN.  ``topk`` ranks NaN first
+    too; no sort runs (the k values come unsorted)."""
+    top = torch.topk(mag, k, sorted=False).values
+    nan = top.isnan()
+    kth = torch.where(nan, torch.inf, top).amin()
+    return torch.where(nan.all(), torch.nan, kth)
 
 
 def roundtrip(
@@ -92,7 +105,7 @@ def roundtrip(
     (None = single worker)."""
     cfg = state.config
     n = grad_vec.shape[0]
-    hashes = hash_indices(state.hash, n)
+    hashes = hash_indices(state.hash, n) if grad_vec.device.type == "cpu" else None
     corrected = grad_vec + state.error
     table = _sketch(state, corrected, hashes)
     if psum_fn is not None:
@@ -101,8 +114,8 @@ def roundtrip(
     est = _unsketch(state, mom, n, hashes)
     k = min(cfg.top_k, n)
     mag = est.abs()
-    # jnp.sort(|est|)[-k]: the k-th largest magnitude; ">=" keeps every tie.
-    thresh = torch.topk(mag, k, sorted=False).values.min()
+    # ">=" keeps every tie; a NaN magnitude is never selected.
+    thresh = _threshold(mag, k)
     update = torch.where(mag >= thresh, est, torch.zeros((), dtype=est.dtype, device=est.device))
     new_mom = mom - _sketch(state, update, hashes)
     new_error = corrected - update

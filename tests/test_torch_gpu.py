@@ -11,7 +11,8 @@ from repro_torch.core import reach
 from repro_torch.kernels.closure import ops as closure_ops
 from repro_torch.kernels.closure.ref import closure_step_ref
 from repro_torch.kernels.countsketch import ops as cs_ops
-from repro_torch.kernels.countsketch.ref import countsketch_ref
+from repro_torch.core.hashing import HashFamily, make_hash_family
+from repro_torch.kernels.countsketch.ref import countsketch_median_ref, countsketch_ref
 from repro_torch.kernels.flow import ops as flow_ops
 from repro_torch.kernels.flow.ref import flows_ref
 from repro_torch.kernels.ingest import ops as ingest_ops
@@ -320,16 +321,87 @@ def test_countsketch_wrapper_refuses_bad_operands(cuda):
         cs_ops.countsketch(vec, h, s, 0)
 
 
+def _same_with_nan(a, b):
+    """Equal values (``-0.0 == 0.0``) and NaN in the same positions."""
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(torch.where(nan, 0.0, a), torch.where(b.isnan(), 0.0, b))
+
+
+def _family(d, w, seed, device="cuda"):
+    """A drawn family; its first row's b = 2^31 - 2 (sign multiplier p)."""
+    fam = make_hash_family(torch.Generator().manual_seed(seed), d, w)
+    b = fam.b_host.copy()
+    b[0] = 2**31 - 2
+    return HashFamily.from_host(fam.a_host, b, w, device)
+
+
+# 16,384, 5,000 and 300 fit a row in shared memory (16,384 and 2^17 take the
+# power-of-two bucket, 5,000 and 300 Lemire's); 2^17 does not (global atomics).
+@pytest.mark.parametrize("d,w,n", [(5, 16384, 1_000_003), (1, 5000, 77_777), (8, 300, 4_097), (2, 1 << 17, 300_000)])
+def test_countsketch_family_kernel_bit_equals_plain_version_on_integers(cuda, d, w, n):
+    fam = _family(d, w, n)
+    vec = torch.randint(-8, 9, (n + 1,), generator=cuda, device="cuda").float()
+    vec[torch.rand(n + 1, generator=cuda, device="cuda") < 0.3] = 0.0  # zeros are skipped
+    before = cs_ops.countsketch.launches
+    # An aligned vector and one a float past 16 bytes (scalar loads).
+    for v in (vec[:n], vec[1:]):
+        got = cs_ops.countsketch_family(v, fam)
+        assert got.shape == (d, w) and got.dtype == torch.float32
+        assert torch.equal(got, countsketch_ref(v, *cs_ops.hash_indices(fam, n), w))
+    assert cs_ops.countsketch.launches == before + 2
+
+
+@pytest.mark.parametrize("d", [1, 2, 4, 5, 8, 9])
+@pytest.mark.parametrize("w", [16384, 300])
+def test_countsketch_median_kernel_bit_equals_plain_version(cuda, d, w):
+    """Integer cells with NaN, +inf and -inf planted; d = 9 takes the
+    runtime-depth kernel."""
+    n = 100_003
+    fam = _family(d, w, d)
+    table = torch.randint(-50, 51, (d, w), generator=cuda, device="cuda").float()
+    flat = table.view(-1)
+    cells = torch.randperm(d * w, generator=cuda, device="cuda")[:6]
+    flat[cells[:2]], flat[cells[2:4]], flat[cells[4:]] = float("nan"), float("inf"), float("-inf")
+    before = cs_ops.countsketch_median.launches
+    got = cs_ops.countsketch_median(table, fam, n)
+    want = countsketch_median_ref(table, fam, n)
+    assert got.shape == (n,) and got.dtype == torch.float32
+    assert _same_with_nan(got, want) and bool(want.isnan().any())
+    assert cs_ops.countsketch_median.launches == before + 1
+    assert torch.equal(cs_ops.countsketch_median(table, fam, 5), want[:5])  # fewer than a block
+
+
+def test_countsketch_family_and_median_refuse_bad_operands_on_the_card(cuda):
+    fam = _family(2, 16, 0)
+    vec = torch.zeros(10, device="cuda")
+    table = torch.zeros(2, 16, device="cuda")
+    for bad in (vec.double(), vec.view(2, 5), vec.cpu()):
+        with pytest.raises(ValueError):
+            cs_ops.countsketch_family(bad, fam)
+    with pytest.raises(ValueError):
+        cs_ops.countsketch_family(vec, fam.to("cpu"))  # the family on another device
+    for bad in (table.double(), table[:, :15], table[:1], table.cpu()):
+        with pytest.raises(ValueError):
+            cs_ops.countsketch_median(bad, fam, 10)
+    with pytest.raises(TypeError):
+        cs_ops.countsketch_median(table, fam, 10.0)
+    with pytest.raises(TypeError):
+        cs_ops.countsketch(vec, torch.zeros(2, 10, dtype=torch.int32, device="cuda"),
+                           torch.ones(2, 10, dtype=torch.int8, device="cuda"), 16.0)
+
+
 def test_tiny_compressed_train_step_on_card_close_to_cpu(cuda):
     argv = ["--preset", "tiny", "--compress", "--steps", "2", "--batch", "4", "--seq", "32"]
-    before = cs_ops.countsketch.launches
+    before = cs_ops.countsketch.launches, cs_ops.countsketch_median.launches
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         card = train_lm.main(argv)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    assert cs_ops.countsketch.launches - before == 4  # two sketches a step
+    # Two sketches and one decode a step.
+    assert cs_ops.countsketch.launches - before[0] == 4
+    assert cs_ops.countsketch_median.launches - before[1] == 2
     host = train_lm.main(argv + ["--device", "cpu"])
     # rtol 1e-4: float32 gradients summed in other orders (TF32 off).
     np.testing.assert_allclose([h["loss"] for h in card.result.history],
