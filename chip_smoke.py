@@ -8,13 +8,17 @@ Run from the root of a checkout, on a machine with one CUDA card:
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
 per source, all at once) and holds each kernel against its plain PyTorch
 version on the card at the BASE shapes (``configs/glava.py``: d=5,
-8192 x 8192 counters): the ingest scatter; the fused multi-query and the
+8192 x 8192 counters): the ingest scatter (B=50,000 int32, and serve BASE's
+first batch as the session hands it over: pre-aggregated, padded, int64
+buckets; host us per call, a cold-L2 time); the fused multi-query and the
 per-sketch edge-query gather (Q=1,024 and 65,536, on int64 buckets from the
 BASE family's hash and on their int32 copy, timed in turns with the library
 call, with a host breakdown of one call); the closure step (8-bit, int8 wgmma: bit-equal with its
 transpose at three densities, all ones among them; the IGMMA count of its
 SASS; one full closure); the one-pass fused ingest (B=50,000 with inert and
-weight-0 slots; also timed on serve BASE's zipf-skewed first batch); the
+weight-0 slots, and serve BASE's first batch; host us per call; the atomic
+and warp instructions of both ingest kernels' SASS, which must hold RED and
+no returning ATOM); the
 flow reductions; the CountSketch of a gradient at the 100m preset's
 length (65,020,416 elements into a 5 x 16,384 table), hashing in the kernel
 and on precomputed hashes, dense and 4,096-sparse (also at width 2^17, past
@@ -30,11 +34,14 @@ before and read just after:
   point's own traffic, on the kernels and on the plain backends; the two
   runs must agree bit for bit (counters, registers, transcript), the
   closure kernel must run 13 times per full rebuild and the multi-query
-  once a tick; one edge-family tick under the profiler must show no cast of
-  the int64 buckets;
+  once a tick and the ingest scatter once a batch; one edge-family tick under
+  the profiler must show no cast of the int64 buckets;
 - fused serve BASE: the same traffic through a fused session
   (``ingest_backend="fused"`` on the parsed arguments), which must equal
-  both runs above and launch the fused kernel once per batch;
+  both runs above and launch the fused kernel once per batch; one ingest
+  batch of each run under the profiler and an aten-op log must show no
+  int64-to-int32 cast and no fill (the bitmap is zeroed inside the fused
+  kernel's C function);
 - the ops entry points on the fused session's live sketch:
   ``kernels/flow/ops.py::node_in_flow``/``node_out_flow`` (the flow kernel)
   against the session's registers, and ``kernels/query/ops.py::
@@ -152,6 +159,16 @@ def device_ms(fn, reps: int, kernel: Optional[str] = None):
     return None
 
 
+def cold_device_ms(fn, kernel: str, reps: int = 20):
+    """``device_ms`` of ``kernel`` with the 50 MB L2 emptied before each call
+    (a 256 MB fill between calls), as a batch meets counters it has not
+    touched; the fill itself is not counted."""
+    import torch
+
+    flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
+    return device_ms(lambda: (flush.zero_(), fn()), reps, kernel)
+
+
 def _fmt(ms) -> str:
     return "not in the trace" if ms is None else f"{ms:.4f} ms"
 
@@ -176,6 +193,9 @@ def query_host_breakdown(torch, counters, rows64, cols64):
     """Host µs per call of the edge-query wrappers (whole calls, on int64
     buckets and their int32 copies), of each piece of their launch path, and
     of the library calls."""
+    import ctypes
+
+    from repro_torch.kernels import build
     from repro_torch.kernels.query import ops as query_ops
 
     d, wr, wc = counters.shape
@@ -185,7 +205,7 @@ def query_host_breakdown(torch, counters, rows64, cols64):
     cell = rows64 * wc + cols64
     dev = counters.get_device()
     out = counters.new_empty(q)
-    fn = query_ops._bound.get("glava_multi_query_min") or query_ops._bind("glava_multi_query_min")
+    fn = build.function("query", "glava_multi_query_min", [ctypes.c_char_p])
     stream = torch._C._cuda_getCurrentRawStream(dev)
     ptrs = (counters.data_ptr(), rows64.data_ptr(), cols64.data_ptr(), out.data_ptr())
     record = query_ops._RECORD.pack(*ptrs, d, wr, wc, q, 8, stream)
@@ -215,7 +235,48 @@ def query_host_breakdown(torch, counters, rows64, cols64):
     return times
 
 
+def serve_first_batch(torch):
+    """Serve BASE's first batch as a session hands it to an ingest kernel:
+    the first ``--batch`` edges of ``launch/serve.py``'s traffic (zipf a=1.2
+    sources and destinations, seed 0), pre-aggregated on the host, padded by
+    ``pad_bucket`` (key 0, weight 0) and hashed by the square BASE session's
+    family (drawn as GraphStream seed 0 draws it) into int64 buckets.
+    Returns ``(rows, cols, weights, pairs)``."""
+    import numpy as np
+
+    from repro_torch.core.hashing import keys_to_tensor, make_hash_family
+    from repro_torch.core.ingest import pad_bucket, preaggregate_host
+    from repro_torch.data.graphs import edge_stream
+
+    data = edge_stream(flag(SERVE_BASE, "--nodes"), flag(SERVE_BASE, "--edges"), np.random.default_rng(0), zipf_a=1.2)
+    b = flag(SERVE_BASE, "--batch")
+    pre = preaggregate_host(data["src"][:b], data["dst"][:b], data["weight"][:b])
+    family = make_hash_family(torch.Generator().manual_seed(0), BASE_DEPTH, BASE_WIDTH, "cuda")
+    rows = family(keys_to_tensor(pad_bucket(pre.src), "cuda"))
+    cols = family(keys_to_tensor(pad_bucket(pre.dst), "cuda"))
+    check(rows.dtype == torch.int64 and cols.dtype == torch.int64, f"the hash gave {rows.dtype} buckets")
+    return rows, cols, torch.from_numpy(pad_bucket(pre.weights)).cuda(), pre.n_pairs
+
+
+# Calls per CUDA-event timing of the ingest wrappers (10-20 us a call, about
+# the host's time per call, so many calls average the host's noise).
+INGEST_REPS = 200
+
+
+def ingest_bound_bytes(rows, wts) -> int:
+    """Bytes an ingest-scatter batch needs: each weighted valid slot reads and
+    writes one 32-byte sector of counters; the row and column indices and
+    the weights are read once."""
+    d, b = rows.shape
+    n_adds = int(((rows >= 0) & (wts != 0)[None, :]).sum())
+    return n_adds * 64 + d * b * 2 * rows.element_size() + b * wts.element_size()
+
+
 def phase_ingest(torch, gen):
+    """B1 on a synthetic int32 batch (B=50,000, a tenth of its slots inert)
+    and on serve BASE's first batch (int64 buckets, as the serve path hands
+    them over): bit-equal to the plain version; wrapper ms by CUDA events,
+    host us per call, device ms beside the bound."""
     from repro_torch.kernels.ingest.ops import ingest_scatter
     from repro_torch.kernels.ingest.ref import ingest_scatter_ref
 
@@ -225,13 +286,17 @@ def phase_ingest(torch, gen):
     rows[torch.rand((d, b), generator=gen, device="cuda") < 0.1] = -1  # inert slots
     cols = torch.randint(0, w, (d, b), generator=gen, device="cuda", dtype=torch.int32)
     wts = torch.randint(1, 9, (b,), generator=gen, device="cuda").float()
-    got = ingest_scatter(base.clone(), rows, cols, wts)
-    want = ingest_scatter_ref(base.clone(), rows, cols, wts)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    check(torch.equal(got, want), f"ingest kernel differs from its plain version (max err {err})")
-    del want
-    ms = time_ms(lambda: ingest_scatter(got, rows, cols, wts), 20)
+    srows, scols, swts, n_pairs = serve_first_batch(torch)
+    err = 0.0
+    for r, c, wt in ((rows, cols, wts), (srows, scols, swts)):
+        got = ingest_scatter(base.clone(), r, c, wt)
+        want = ingest_scatter_ref(base.clone(), r, c, wt)
+        torch.cuda.synchronize()
+        err = max(err, float((got - want).abs().max()))
+        check(torch.equal(got, want), f"ingest kernel differs from its plain version on {r.dtype} buckets (max err {err})")
+        del want
+    ms = time_ms(lambda: ingest_scatter(got, rows, cols, wts), INGEST_REPS)
+    host = host_us(lambda: ingest_scatter(got, rows, cols, wts))
     dev_ms = device_ms(lambda: ingest_scatter(got, rows, cols, wts), 20, "ingest_scatter_kernel")
     plain_ms = time_ms(lambda: ingest_scatter_ref(got, rows, cols, wts), 20)
     valid = rows >= 0
@@ -240,21 +305,29 @@ def phase_ingest(torch, gen):
     vals = wts[None, :].expand(d, b)[valid]
     library_ms = time_ms(lambda: got.index_put_(idx, vals, accumulate=True), 20)
     library_dev_ms = device_ms(lambda: got.index_put_(idx, vals, accumulate=True), 20)
-    n_valid = int(valid.sum())
-    # Each valid slot reads and writes one 32-byte sector of counters; the
-    # row and column indices and the weights are read once.
-    bound_bytes = n_valid * 64 + d * b * 8 + b * 4
+    bound_ms = ingest_bound_bytes(rows, wts) / PEAK_BYTES_PER_S * 1e3
     print(
-        f"[chip_smoke] ingest d={d} w={w} B={b} ({n_valid} valid slots): bit-equal; "
-        f"kernel {ms:.4f} ms (device {_fmt(dev_ms)}), plain {plain_ms:.4f} ms, "
-        f"index_put_ {library_ms:.4f} ms (device {_fmt(library_dev_ms)}); "
-        f"bound {bound_bytes / PEAK_BYTES_PER_S * 1e3:.5f} ms"
+        f"[chip_smoke] ingest d={d} w={w} B={b} int32 ({int(valid.sum())} valid slots): bit-equal; "
+        f"wrapper {ms:.4f} ms, host {host:.3f} us/call, device {_fmt(dev_ms)}"
+        + (f" ({100 * bound_ms / dev_ms:.1f}% of the bound)" if dev_ms else "")
+        + f"; plain {plain_ms:.4f} ms, index_put_ {library_ms:.4f} ms (device {_fmt(library_dev_ms)}); "
+        f"bound {bound_ms:.5f} ms"
+    )
+    s_ms = time_ms(lambda: ingest_scatter(got, srows, scols, swts), INGEST_REPS)
+    s_host = host_us(lambda: ingest_scatter(got, srows, scols, swts))
+    s_dev = device_ms(lambda: ingest_scatter(got, srows, scols, swts), 20, "ingest_scatter_kernel")
+    s_cold = cold_device_ms(lambda: ingest_scatter(got, srows, scols, swts), "ingest_scatter_kernel")
+    s_bound = ingest_bound_bytes(srows, swts) / PEAK_BYTES_PER_S * 1e3
+    print(
+        f"[chip_smoke] ingest on serve BASE's first batch ({n_pairs} pre-aggregated pairs padded to "
+        f"{srows.shape[1]}, int64 buckets): bit-equal; wrapper {s_ms:.4f} ms, host {s_host:.3f} us/call, "
+        f"device {_fmt(s_dev)}" + (f" ({100 * s_bound / s_dev:.1f}% of the bound)" if s_dev else "")
+        + f", with a cold L2 {_fmt(s_cold)}; bound {s_bound:.5f} ms"
     )
     return dict(
         name="ingest_scatter", route="cuda", source="src/repro_torch/csrc/ingest.cu",
         replaces="src/repro/kernels/ingest/kernel.py:59", max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_bytes / PEAK_BYTES_PER_S * 1e3,
-        bound_by="bytes", library_ms=library_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
     )
 
 
@@ -435,6 +508,12 @@ def closure_sass() -> str:
 
 
 def phase_fused_ingest(torch, gen):
+    """B4 on a synthetic int32 batch (B=50,000 with inert and weight-0
+    slots) and on serve BASE's first batch (int64 buckets, pairs sorted by
+    source, padded by pad_bucket): all four outputs bit-equal to the plain
+    version; wrapper ms by CUDA events, host us per call, device ms beside
+    the bound; the serve batch's slots also with uniformly drawn rows; the
+    atomic and warp instructions of the kernel's SASS."""
     from repro_torch.kernels.ingest_fused.ops import fused_ingest
     from repro_torch.kernels.ingest_fused.ref import fused_ingest_ref
 
@@ -449,37 +528,53 @@ def phase_fused_ingest(torch, gen):
     cols = torch.randint(0, w, (d, b), generator=gen, device="cuda", dtype=torch.int32)
     wts = torch.randint(1, 9, (b,), generator=gen, device="cuda").float()
     wts[torch.rand((b,), generator=gen, device="cuda") < 0.05] = 0.0  # valid, weight 0
-    got = fused_ingest(*(t.clone() for t in state), rows, cols, wts)
-    want = fused_ingest_ref(*state, rows, cols, wts)
-    torch.cuda.synchronize()
-    err = max(float((g.float() - x.float()).abs().max()) for g, x in zip(got, want))
-    for name, g, x in zip(("counters", "row_flows", "col_flows", "touched"), got, want):
-        check(torch.equal(g, x), f"fused ingest kernel: {name} differs from its plain version (max err {err})")
-    del want
+    srows, scols, swts, n_pairs = serve_first_batch(torch)
+    err = 0.0
+    for r, c, wt in ((rows, cols, wts), (srows, scols, swts)):
+        got = fused_ingest(*(t.clone() for t in state), r, c, wt)
+        want = fused_ingest_ref(*(t.clone() for t in state), r, c, wt)
+        torch.cuda.synchronize()
+        err = max([err] + [float((g.float() - x.float()).abs().max()) for g, x in zip(got, want)])
+        for name, g, x in zip(("counters", "row_flows", "col_flows", "touched"), got, want):
+            check(torch.equal(g, x), f"fused ingest kernel: {name} differs from its plain version on {r.dtype} "
+                                     f"buckets (max err {err})")
+        del want
     counters, rf, cf, _ = got
-    ms = time_ms(lambda: fused_ingest(counters, rf, cf, rows, cols, wts), 20)
-    dev_ms = device_ms(lambda: fused_ingest(counters, rf, cf, rows, cols, wts), 20, "fused_ingest_kernel")
+    rows_out = {}
+    for label, (r, c, wt) in {"synthetic": (rows, cols, wts), "serve": (srows, scols, swts)}.items():
+        call = lambda: fused_ingest(counters, rf, cf, r, c, wt)  # noqa: E731
+        rows_out[label] = dict(
+            ms=time_ms(call, INGEST_REPS), host=host_us(call), dev=device_ms(call, 20, "fused_ingest_kernel"),
+            with_memset=device_ms(call, 20), bound=fused_bound_bytes(torch, r, c, wt, w) / PEAK_BYTES_PER_S * 1e3,
+        )
     plain_ms = time_ms(lambda: fused_ingest_ref(counters, rf, cf, rows, cols, wts), 20)
+    uniform = torch.randint_like(srows, 0, w)
+    uniform_ms = device_ms(lambda: fused_ingest(counters, rf, cf, uniform, scols, swts), 20, "fused_ingest_kernel")
+    cold_ms = cold_device_ms(lambda: fused_ingest(counters, rf, cf, srows, scols, swts), "fused_ingest_kernel")
     valid = rows >= 0
     adds = valid & (wts != 0)[None, :]
-    bound_bytes = fused_bound_bytes(torch, rows, cols, wts, w)
-    zipf_ms, uniform_ms, n_pairs, zipf_bound_bytes = fused_ingest_under_skew(torch, counters, rf, cf)
-    print(
-        f"[chip_smoke] fused ingest on serve BASE's first batch ({n_pairs} pre-aggregated pairs, "
-        f"zipf a=1.2 sources): device {_fmt(zipf_ms)}, bound {zipf_bound_bytes / PEAK_BYTES_PER_S * 1e3:.5f} ms; "
-        f"the same slots with uniform rows: device {_fmt(uniform_ms)}"
-    )
-    print(
-        f"[chip_smoke] fused ingest d={d} w={w} B={b} ({int(valid.sum())} valid slots, "
-        f"{int(adds.sum())} weighted): all four outputs bit-equal; kernel {ms:.4f} ms "
-        f"(device {_fmt(dev_ms)}), plain {plain_ms:.4f} ms; no single library call "
-        f"updates counters, both registers and the bitmap (library_ms null)"
-    )
+
+    def line(x):
+        return (f"wrapper {x['ms']:.4f} ms, host {x['host']:.3f} us/call, device {_fmt(x['dev'])}"
+                + (f" ({100 * x['bound'] / x['dev']:.1f}% of the bound)" if x["dev"] else "")
+                + f", with the bitmap's memset {_fmt(x['with_memset'])}; bound {x['bound']:.5f} ms")
+
+    print(f"[chip_smoke] fused ingest on serve BASE's first batch ({n_pairs} pre-aggregated pairs padded to "
+          f"{srows.shape[1]}, int64 buckets): all four outputs bit-equal; {line(rows_out['serve'])}; with a cold "
+          f"L2: device {_fmt(cold_ms)}; the same slots with uniform rows: device {_fmt(uniform_ms)}")
+    print(f"[chip_smoke] fused ingest d={d} w={w} B={b} int32 ({int(valid.sum())} valid slots, {int(adds.sum())} "
+          f"weighted): all four outputs bit-equal; {line(rows_out['synthetic'])}; plain {plain_ms:.4f} ms; no single "
+          f"library call updates counters, both registers and the bitmap (library_ms null)")
+    # The adds and marks must compile to RED (no value returned), not ATOM.
+    for source, kernel, ops in (("ingest_fused", "fused_ingest_kernel", "RED|ATOM|MATCH|VOTE|STG"),
+                                ("ingest", "ingest_scatter_kernel", "RED|ATOM")):
+        sass = sass_ops(source, kernel, ops)
+        check("RED" in sass and "ATOM" not in sass, f"{kernel}: the adds are not all RED: {sass}")
+        print(f"[chip_smoke] {source} SASS: {sass}")
     return dict(
         name="fused_ingest", route="cuda", source="src/repro_torch/csrc/ingest_fused.cu",
-        replaces="src/repro/kernels/ingest_fused/kernel.py:98", max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_bytes / PEAK_BYTES_PER_S * 1e3,
-        bound_by="bytes", library_ms=None,
+        replaces="src/repro/kernels/ingest_fused/kernel.py:98", max_abs_err=err, ms=rows_out["synthetic"]["ms"],
+        plain_ms=plain_ms, bound_ms=rows_out["synthetic"]["bound"], bound_by="bytes", library_ms=None,
     )
 
 
@@ -499,29 +594,28 @@ def fused_bound_bytes(torch, rows, cols, wts, w: int) -> int:
     return sectors * 64 + d * w + d * b * 2 * rows.element_size() + b * wts.element_size()
 
 
-def fused_ingest_under_skew(torch, counters, rf, cf):
-    """Device ms of the fused kernel on serve BASE's first batch as a fused
-    session hashes it (zipf sources, so many slots add into one row_flows
-    address), and on the same slots with uniformly drawn rows; the batch's
-    pair count and its bound's bytes."""
-    import numpy as np
+def sass_ops(source: str, kernel: str, ops: str) -> str:
+    """The count of each instruction of ``ops`` (a regex alternation of
+    opcode prefixes, each matched to its whole opcode and modifiers, e.g.
+    ``RED`` to ``REDG.E.ADD.F32.FTZ.RN.STRONG.GPU``) in each instantiation of
+    ``kernel`` in the built library of ``csrc/<source>.cu``."""
+    import re
 
-    from repro_torch.core.hashing import keys_to_tensor, make_hash_family
-    from repro_torch.core.ingest import pad_bucket, preaggregate_host
-    from repro_torch.data.graphs import edge_stream
-    from repro_torch.kernels.ingest_fused.ops import fused_ingest
+    from repro_torch.kernels import build
 
-    data = edge_stream(100_000, INGEST_BATCH, np.random.default_rng(0), zipf_a=1.2)
-    pre = preaggregate_host(data["src"], data["dst"], data["weight"])
-    # The square BASE session's one family, drawn as GraphStream seed 0 draws it.
-    family = make_hash_family(torch.Generator().manual_seed(0), BASE_DEPTH, BASE_WIDTH, "cuda")
-    rows = family(keys_to_tensor(pad_bucket(pre.src), "cuda"))
-    cols = family(keys_to_tensor(pad_bucket(pre.dst), "cuda"))
-    wts = torch.from_numpy(pad_bucket(pre.weights)).cuda()
-    uniform = torch.randint_like(rows, 0, BASE_WIDTH)
-    zipf_ms = device_ms(lambda: fused_ingest(counters, rf, cf, rows, cols, wts), 20, "fused_ingest_kernel")
-    uniform_ms = device_ms(lambda: fused_ingest(counters, rf, cf, uniform, cols, wts), 20, "fused_ingest_kernel")
-    return zipf_ms, uniform_ms, pre.n_pairs, fused_bound_bytes(torch, rows, cols, wts, BASE_WIDTH)
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(build.library_path(source))], capture_output=True, text=True, check=True
+    ).stdout
+    out = []
+    for block in sass.split("Function : ")[1:]:
+        name = re.search(rf"({kernel})I(.*?)EEv", block.split("\n", 1)[0])
+        counts = {}
+        for op in re.findall(rf"\b((?:{ops})[A-Z]*(?:\.[A-Z0-9_]+)*)", block):
+            counts[op] = counts.get(op, 0) + 1
+        if name and counts:
+            out.append(f"{name.group(1)}<{name.group(2)}>: {counts}")
+    return "; ".join(out)
 
 
 def phase_flows(torch, gen):
@@ -651,7 +745,9 @@ def phase_countsketch(torch, gen):
         f"device {_fmt(wide_ms)} (global atomics), bound {wide_bound_ms:.5f} ms, index_add_ {wide_library_ms:.4f} ms "
         f"(device {_fmt(wide_library_dev_ms)})"
     )
-    print(f"[chip_smoke] countsketch SASS: {countsketch_sass()}")
+    cs_sass = sass_ops("countsketch", "countsketch_kernel|median_kernel|median_any_depth_kernel", "ATOMS|ATOMG|ATOM|RED")
+    check("CAS" in cs_sass or "ATOMS" in cs_sass, f"no shared-memory atomic in the countsketch SASS: {cs_sass}")
+    print(f"[chip_smoke] countsketch SASS: {cs_sass}")
     sketch_row = dict(
         name="countsketch", route="cuda", source="src/repro_torch/csrc/countsketch.cu",
         replaces="src/repro/kernels/countsketch/kernel.py:47", max_abs_err=diff, ms=ms,
@@ -747,32 +843,6 @@ def prehashed_bound_bytes(n: int, d: int, w: int) -> int:
     """The pre-hashed form: each element's value, its d int32 buckets and d
     int8 signs read once; the float32 table written once."""
     return n * (4 + 4 * d + 1 * d) + d * w * 4
-
-
-def countsketch_sass() -> str:
-    """The atomic instructions of each kernel in the built countsketch
-    library's SASS: ``ATOMS.ADD`` would be a native shared-memory float add,
-    ``ATOMS.CAST.SPIN`` the compare-and-swap loop that emulates one; ``RED``
-    global reductions."""
-    import re
-
-    from repro_torch.kernels import build
-
-    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
-    sass = subprocess.run(
-        [str(cuobjdump), "-sass", str(build.library_path("countsketch"))], capture_output=True, text=True, check=True
-    ).stdout
-    out = []
-    for block in sass.split("Function : ")[1:]:
-        name = block.split("\n", 1)[0].strip()
-        kernel = re.search(r"(countsketch_kernel|median_kernel|median_any_depth_kernel)I(.*?)EEv", name)
-        counts = {}
-        for op in re.findall(r"\b((?:ATOMS|ATOMG|ATOM|RED)(?:\.[A-Z0-9_]+)*)", block):
-            counts[op] = counts.get(op, 0) + 1
-        if kernel and counts:
-            out.append(f"{kernel.group(1)}<{kernel.group(2)}>: {counts}")
-    check(any("CAS" in x or "ATOMS" in x for x in out), f"no shared-memory atomic in the countsketch SASS: {out}")
-    return "; ".join(out)
 
 
 def rounding_bound(torch, countsketch_ref, vec, h, w):
@@ -1200,6 +1270,79 @@ def profile_edge_tick(torch, session, argv, counted):
     check(not casts, f"edge tick: a cast of the buckets ran: {casts}")
 
 
+def profile_ingest_batch(torch, session, counted, fused: bool):
+    """One ingest batch of a serve BASE session on its live sketch, as the
+    session folds serve BASE's first batch in (pre-aggregated pairs and
+    marginals, padded, on the card): the sketch-level update of the kernels
+    run (B1, ``update_preaggregated_``) or of the fused run (B4,
+    ``update_fused_``), its kernel launched once, its CUDA kernels from the
+    profiler, and its aten ops with their dtypes: no cast of the int64
+    buckets to int32 and no fill of the bitmap (no fill kernel, no
+    ``zeros``/``fill_``/``zero_``)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.core.hashing import keys_to_tensor
+    from repro_torch.core.ingest import pad_bucket, preaggregate_host
+    from repro_torch.data.graphs import edge_stream
+
+    class AtenLog(TorchDispatchMode):
+        """Every aten op a call dispatches, with its tensors' dtypes."""
+
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            flat = [*args, *(kwargs or {}).values(), *(out if isinstance(out, (tuple, list)) else [out])]
+            self.ops.append((str(func.overloadpacket), [t.dtype for t in flat if isinstance(t, torch.Tensor)]))
+            return out
+
+    data = edge_stream(flag(SERVE_BASE, "--nodes"), flag(SERVE_BASE, "--edges"), np.random.default_rng(0), zipf_a=1.2)
+    b = flag(SERVE_BASE, "--batch")
+    pre = preaggregate_host(data["src"][:b], data["dst"][:b], data["weight"][:b])
+    live = session._live()
+    keys = lambda x: keys_to_tensor(pad_bucket(x), "cuda")  # noqa: E731
+    vals = lambda x: torch.from_numpy(pad_bucket(x)).cuda()  # noqa: E731
+    if fused:
+        name, kernel, label = "fused_ingest", "fused_ingest_kernel", "fused serve BASE"
+        args = (keys(pre.src), keys(pre.dst), vals(pre.weights))
+        batch = lambda: live.update_fused_(*args)  # noqa: E731
+    else:
+        name, kernel, label = "ingest_scatter", "ingest_scatter_kernel", "serve BASE"
+        args = (keys(pre.src), keys(pre.dst), vals(pre.weights), keys(pre.src_unique), vals(pre.src_totals),
+                keys(pre.dst_unique), vals(pre.dst_totals))
+        batch = lambda: live.update_preaggregated_(*args, backend=session.ingest_backend)  # noqa: E731
+    torch.cuda.synchronize()
+    before = counted[name].launches
+    with AtenLog() as log:
+        batch()
+        torch.cuda.synchronize()
+    check(counted[name].launches == before + 1, f"{label} ingest batch: {name} not launched once")
+    for _ in range(3):  # now and then a trace comes back without its kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            batch()
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
+                   if getattr(e, "device_time_total", 0.0) > 0]
+        if any(kernel in k for k, _, _ in kernels):
+            break
+    check(any(kernel in k for k, _, _ in kernels), f"{label} ingest batch: no {kernel} in the trace: {kernels}")
+    narrow = (torch.int32, torch.int16, torch.int8, torch.uint8, torch.float32, torch.float64)
+    casts = [(op, dt) for op, dt in log.ops if op in ("aten._to_copy", "aten.copy_", "aten.to")
+             and torch.int64 in dt and any(t in narrow for t in dt)]
+    fills = [(op, dt) for op, dt in log.ops if op in ("aten.zeros", "aten.fill_", "aten.zero_", "aten.full", "aten.new_zeros")]
+    fills += [(k, c) for k, c, _ in kernels if "fill" in k.lower()]
+    check(not casts, f"{label} ingest batch: a cast of the buckets ran: {casts}")
+    check(not fills, f"{label} ingest batch: a fill ran: {fills}")
+    print(f"[chip_smoke] {label} ingest batch ({pre.n_pairs} pairs): {sum(c for _, c, _ in kernels)} kernels, "
+          f"no bucket cast, no fill; aten ops: {', '.join(sorted({op for op, _ in log.ops}))}")
+    for key, count, us in kernels:
+        print(f"[chip_smoke]   {us / 1e3:10.4f} ms  x{count:<3d} {key[:110]}")
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -1294,11 +1437,14 @@ def main() -> int:
           f"({base.engine.closure_refreshes} full rebuilds)")
     check(rows["edge_query_min"]["launches"] == len(base_ev),
           f"serve BASE: {rows['edge_query_min']['launches']} edge-query launches for {len(base_ev)} ticks")
+    n_batches = -(-flag(SERVE_BASE, "--edges") // flag(SERVE_BASE, "--batch"))
+    check(rows["ingest_scatter"]["launches"] == n_batches,
+          f"serve BASE: {rows['ingest_scatter']['launches']} ingest launches for {n_batches} batches")
     print(
         f"[chip_smoke] serve BASE: kernels {base_s:.3f} s, plain {plain_s:.3f} s (host wall clock, "
         f"build excluded); {len(base_ev)} ticks; {want_launches} closure launches "
         f"({base.engine.closure_refreshes} full rebuilds), {rows['edge_query_min']['launches']} edge-query "
-        f"launches; counters, registers and transcript identical"
+        f"launches, {rows['ingest_scatter']['launches']} ingest launches; counters, registers and transcript identical"
     )
     profile_edge_tick(torch, base, SERVE_BASE, counted)
 
@@ -1306,7 +1452,6 @@ def main() -> int:
     fused, fused_ev, fused_s = drive(
         ("fused_ingest",), lambda: timed_run(torch, lambda: run_fused(serve, SERVE_BASE))
     )
-    n_batches = -(-int(SERVE_BASE[SERVE_BASE.index("--edges") + 1]) // INGEST_BATCH)
     check(rows["fused_ingest"]["launches"] == n_batches,
           f"fused serve BASE: {rows['fused_ingest']['launches']} fused launches for {n_batches} batches")
     check_same(torch, fused, fused_ev, plain, plain_ev, "fused serve BASE vs plain")
@@ -1316,6 +1461,10 @@ def main() -> int:
         f"closure full={fused.engine.closure_refreshes} incremental={fused.engine.closure_incremental_refreshes}); "
         f"identical to the plain and cuda-ingest runs"
     )
+    # One ingest batch of each run under the profiler, after the runs are
+    # compared (it folds one more batch into their sketches).
+    profile_ingest_batch(torch, base, counted, fused=False)
+    profile_ingest_batch(torch, fused, counted, fused=True)
     del base, plain, base_ev, plain_ev
     torch.cuda.empty_cache()
 

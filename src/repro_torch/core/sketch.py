@@ -235,7 +235,8 @@ class GLavaSketch:
         of the row buckets this batch wrote, on the sketch's device: the
         replacement for the host-side ``touched_row_keys`` pass, consumed by
         ``QueryEngine.refresh_closure``.  Undirected sketches make a second
-        launch for the mirrored edges and OR the two bitmaps."""
+        launch for the mirrored edges, which ORs its rows into the first
+        launch's bitmap."""
         if weights is None:
             weights = torch.ones(src.shape, dtype=torch.float32, device=src.device)
         weights = weights.to(torch.float32)
@@ -243,10 +244,7 @@ class GLavaSketch:
         *_, touched = fused_ingest(self.counters, self.row_flows, self.col_flows, r, c, weights)
         if not self.config.directed:
             r2, c2 = self.hash_edges(dst, src)
-            *_, touched2 = fused_ingest(
-                self.counters, self.row_flows, self.col_flows, r2, c2, weights
-            )
-            touched |= touched2
+            fused_ingest(self.counters, self.row_flows, self.col_flows, r2, c2, weights, touched)
         return self, touched
 
     def delete_(self, src, dst, weights=None, backend: str = "auto") -> "GLavaSketch":

@@ -17,6 +17,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Sequence, Tuple
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -29,6 +31,10 @@ SOURCES = ("ingest", "query", "closure", "ingest_fused", "flow", "countsketch")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+# Whether the process sees one CUDA device (then an operand's device is
+# always the current one and :func:`launch` skips the guard check); set at
+# the first launch.
+_one_device = False
 
 
 def nvcc() -> str:
@@ -105,3 +111,23 @@ def check(status: int, what: str) -> None:
     """Raise if a launch function returned a nonzero ``cudaGetLastError()``."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {status}")
+
+
+def launch(name: str, symbol: str, dev: int, record: bytes) -> None:
+    """Launch ``symbol`` of ``csrc/<name>.cu``, a C function that takes one
+    packed launch record (so ctypes converts one argument) and is bound at
+    its first use, for operands on CUDA device ``dev``; raise on a nonzero
+    status.  The device guard is entered only for a device other than the
+    current one, never checked in a process that sees one device."""
+    global _one_device
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        fn = function(name, symbol, [ctypes.c_char_p])
+        _one_device = torch.cuda.device_count() == 1
+    if _one_device or dev == torch._C._cuda_getDevice():
+        status = fn(record)
+    else:
+        with torch.cuda.device(dev):
+            status = fn(record)
+    if status:
+        check(status, symbol)

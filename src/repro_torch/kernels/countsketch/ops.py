@@ -20,7 +20,6 @@ between its two sketches and its decode.
 and hashed), ``countsketch_median.launches`` the decode's."""
 from __future__ import annotations
 
-import ctypes
 import operator
 import struct
 from typing import Tuple
@@ -40,29 +39,6 @@ _SIGN_BYTES = {torch.int8: 1, torch.int32: 4}
 # Coordinates hashed per pass: bounds the int64 temporaries of the hash at
 # a few hundred MB whatever the length of the vector.
 HASH_CHUNK = 1 << 23
-# Symbol -> C launch function, bound at its first launch.
-_bound = {}
-# Whether the process sees one CUDA device (then a tensor's device is always
-# the current one and the guard check is skipped); set at the first launch.
-_one_device = False
-
-
-def _bind(symbol: str):
-    global _one_device
-    fn = _bound[symbol] = build.function("countsketch", symbol, [ctypes.c_char_p])
-    _one_device = torch.cuda.device_count() == 1
-    return fn
-
-
-def _launch(symbol: str, dev: int, record: bytes) -> None:
-    fn = _bound.get(symbol) or _bind(symbol)
-    if _one_device or dev == torch._C._cuda_getDevice():
-        status = fn(record)
-    else:
-        with torch.cuda.device(dev):
-            status = fn(record)
-    if status:
-        build.check(status, symbol)
 
 
 def _family_rows(family: HashFamily) -> bytes:
@@ -116,7 +92,7 @@ def countsketch(vec: torch.Tensor, h: torch.Tensor, s: torch.Tensor, width: int)
         v.data_ptr(), table.data_ptr(), hi.data_ptr(), si.data_ptr(), 0, 0,
         n, d, width, sign_bytes, torch._C._cuda_getCurrentRawStream(dev),
     )
-    _launch("glava_countsketch", dev, record)
+    build.launch("countsketch", "glava_countsketch", dev, record)
     countsketch.launches += 1
     return table
 
@@ -139,7 +115,7 @@ def countsketch_family(vec: torch.Tensor, family: HashFamily) -> torch.Tensor:
         v.data_ptr(), table.data_ptr(), 0, 0, family.a.data_ptr(), family.b.data_ptr(),
         n, d, w, 0, torch._C._cuda_getCurrentRawStream(dev),
     )
-    _launch("glava_countsketch", dev, record + _family_rows(family))
+    build.launch("countsketch", "glava_countsketch", dev, record + _family_rows(family))
     countsketch.launches += 1
     return table
 
@@ -168,7 +144,7 @@ def countsketch_median(table: torch.Tensor, family: HashFamily, n: int) -> torch
         t.data_ptr(), est.data_ptr(), 0, 0, family.a.data_ptr(), family.b.data_ptr(),
         n, d, w, 0, torch._C._cuda_getCurrentRawStream(dev),
     )
-    _launch("glava_countsketch_median", dev, record + _family_rows(family))
+    build.launch("countsketch", "glava_countsketch_median", dev, record + _family_rows(family))
     countsketch_median.launches += 1
     return est
 

@@ -1,5 +1,10 @@
 """Wrapper of the CUDA one-pass fused ingest (``csrc/ingest_fused.cu``), the
-port of ``src/repro/kernels/ingest_fused/kernel.py::fused_ingest_pallas``.
+port of ``src/repro/kernels/ingest_fused/kernel.py::fused_ingest_pallas``, on
+the ingest scatter's launch path (``kernels/ingest/ops.py``): the same
+checks, int32 or int64 buckets as they come and nothing else, float32
+weights, one packed launch record.  The C function zeroes a new bitmap
+itself (``cudaMemsetAsync`` on the launch's stream), or ORs into the one
+the caller passes.
 
 Unlike the reference's ``ops.py`` there is no width cap: the reference fell
 back to its plain twin above a padded width of 2,048 because the TPU kernel's
@@ -9,70 +14,66 @@ tensor launches it at every width.
 ``fused_ingest.launches`` counts the kernel launches."""
 from __future__ import annotations
 
-import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ingest.ops import INDEX_BYTES, RECORD, check_batch
 from repro_torch.kernels.ingest_fused.ref import fused_ingest_ref
 
-_C = ctypes.c_int64
-_P = ctypes.c_void_p
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C, _P]
+# The record's flag: OR into the caller's bitmap instead of zeroing a new one.
+KEEP_TOUCHED = 1
 
 
-def _check_state(name: str, t: torch.Tensor, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} must be on {device}, got {t.device}")
-    if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous {shape} float32 tensor")
+def _check_state(name: str, t: torch.Tensor, dtype, shape, dev: int) -> None:
+    if t.dtype is not dtype or t.shape != shape or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {tuple(shape)} {dtype} tensor, got {tuple(t.shape)} {t.dtype}")
+    if t.get_device() != dev:
+        raise ValueError(f"{name} must be on the counters' device, got {t.device}")
 
 
 def fused_ingest(
     counters: torch.Tensor,    # (d, wr, wc) float32, contiguous, updated in place
     row_flows: torch.Tensor,   # (d, wr) float32, contiguous, updated in place
     col_flows: torch.Tensor,   # (d, wc) float32, contiguous, updated in place
-    rows: torch.Tensor,        # (d, B) int — row buckets, -1 inert
-    cols: torch.Tensor,        # (d, B) int — column buckets in [0, wc)
-    weights: torch.Tensor,     # (B,) float
+    rows: torch.Tensor,        # (d, B) int32 or int64 — row buckets, -1 inert
+    cols: torch.Tensor,        # (d, B) same dtype as rows — column buckets in [0, wc)
+    weights: torch.Tensor,     # (B,) float32
+    touched: Optional[torch.Tensor] = None,  # (d, wr) bool, contiguous, ORed into
 ):
     """Fold one hashed batch into the counters and both flow registers in
     place and mark its rows; returns ``(counters, row_flows, col_flows,
-    touched)`` with touched a new (d, wr) bool tensor.  CPU tensors take
-    the plain version."""
-    if counters.device.type == "cpu":
-        return fused_ingest_ref(counters, row_flows, col_flows, rows, cols, weights)
-    if counters.device.type != "cuda":
-        raise ValueError(f"fused_ingest runs on CUDA or CPU, got {counters.device}")
-    if counters.dim() != 3:
-        raise ValueError("counters must be a (d, wr, wc) tensor")
-    d, wr, wc = counters.shape
-    _check_state("counters", counters, (d, wr, wc), counters.device)
-    _check_state("row_flows", row_flows, (d, wr), counters.device)
-    _check_state("col_flows", col_flows, (d, wc), counters.device)
-    if rows.shape != cols.shape or rows.dim() != 2 or rows.shape[0] != d:
-        raise ValueError(
-            f"rows/cols must be (d={d}, B), got {tuple(rows.shape)}, {tuple(cols.shape)}"
-        )
-    if weights.shape != (rows.shape[1],):
-        raise ValueError(f"weights must be (B={rows.shape[1]},), got {tuple(weights.shape)}")
-    for t in (rows, cols, weights):
-        if t.device != counters.device:
-            raise ValueError(f"all operands must be on {counters.device}, got {t.device}")
-    r = rows.to(torch.int32).contiguous()
-    c = cols.to(torch.int32).contiguous()
-    w = weights.to(torch.float32).contiguous()
-    touched = torch.zeros((d, wr), dtype=torch.uint8, device=counters.device)
-    with torch.cuda.device(counters.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = build.function("ingest_fused", "glava_fused_ingest", _ARGTYPES)(
-            counters.data_ptr(), row_flows.data_ptr(), col_flows.data_ptr(),
-            touched.data_ptr(), r.data_ptr(), c.data_ptr(), w.data_ptr(),
-            d, wr, wc, r.shape[1], stream,
-        )
-    build.check(status, "fused_ingest")
+    touched)`` with touched a new (d, wr) bool tensor, or the given one with
+    this batch's rows ORed in.  CPU tensors take the plain version."""
+    dev = check_batch("fused_ingest", counters, rows, cols, weights)
+    cshape = counters.shape
+    d, wr, wc = cshape
+    _check_state("row_flows", row_flows, torch.float32, cshape[:2], dev)
+    _check_state("col_flows", col_flows, torch.float32, cshape[::2], dev)
+    if touched is not None:
+        _check_state("touched", touched, torch.bool, cshape[:2], dev)
+    if dev < 0:
+        return fused_ingest_ref(counters, row_flows, col_flows, rows, cols, weights, touched)
+    if not rows.is_contiguous():
+        rows = rows.contiguous()
+    if not cols.is_contiguous():
+        cols = cols.contiguous()
+    if not weights.is_contiguous():
+        weights = weights.contiguous()
+    flags = KEEP_TOUCHED
+    if touched is None:
+        touched = counters.new_empty(d, wr, dtype=torch.bool)  # zeroed by the C function
+        flags = 0
+    record = RECORD.pack(
+        counters.data_ptr(), row_flows.data_ptr(), col_flows.data_ptr(), touched.data_ptr(),
+        rows.data_ptr(), cols.data_ptr(), weights.data_ptr(),
+        d, wr, wc, rows.shape[1], 0, INDEX_BYTES[rows.dtype], flags,
+        torch._C._cuda_getCurrentRawStream(dev),
+    )
+    build.launch("ingest_fused", "glava_fused_ingest", dev, record)
     fused_ingest.launches += 1
-    return counters, row_flows, col_flows, touched.view(torch.bool)
+    return counters, row_flows, col_flows, touched
 
 
 fused_ingest.launches = 0

@@ -11,6 +11,8 @@ Semantics shared with the kernel (``csrc/ingest_fused.cu``):
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -21,9 +23,11 @@ def fused_ingest_ref(
     rows: torch.Tensor,        # (d, B) int — row buckets, -1 inert
     cols: torch.Tensor,        # (d, B) int — column buckets in [0, wc)
     weights: torch.Tensor,     # (B,) float
+    touched: Optional[torch.Tensor] = None,  # (d, wr) bool, ORed into
 ):
     """Returns ``(counters, row_flows, col_flows, touched)`` with touched a
-    new (d, wr) bool tensor."""
+    new (d, wr) bool tensor, or the given one with this batch's rows ORed in
+    (the second launch of an undirected sketch)."""
     d, wr, wc = counters.shape
     valid = rows >= 0
     safe_r = torch.where(valid, rows.long(), torch.zeros((), dtype=torch.long, device=rows.device))
@@ -34,6 +38,7 @@ def fused_ingest_ref(
     counters.view(-1).index_add_(0, ((d_idx * wr + safe_r) * wc + c).reshape(-1), w)
     row_flows.view(-1).index_add_(0, (d_idx * wr + safe_r).reshape(-1), w)
     col_flows.view(-1).index_add_(0, (d_idx * wc + c).reshape(-1), w)
-    touched = torch.zeros(d * wr, dtype=torch.bool, device=counters.device)
-    touched[(d_idx * wr + safe_r)[valid]] = True
-    return counters, row_flows, col_flows, touched.view(d, wr)
+    if touched is None:
+        touched = torch.zeros((d, wr), dtype=torch.bool, device=counters.device)
+    touched.view(-1)[(d_idx * wr + safe_r)[valid]] = True
+    return counters, row_flows, col_flows, touched

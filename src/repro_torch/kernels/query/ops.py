@@ -18,7 +18,6 @@ in a process that sees one device).
 kernel launches."""
 from __future__ import annotations
 
-import ctypes
 import struct
 
 import torch
@@ -31,20 +30,6 @@ from repro_torch.kernels.query.ref import edge_query_cells_ref, edge_query_min_r
 _RECORD = struct.Struct("=4Q5qQ")
 # The index dtypes the kernels take, with their size in bytes.
 _INDEX_BYTES = {torch.int32: 4, torch.int64: 8}
-# Symbol -> C launch function, bound at its first launch.
-_bound = {}
-# Whether the process sees one CUDA device (then a tensor's device is always
-# the current one and the guard check is skipped); set at the first launch.
-_one_device = False
-
-
-def _bind(symbol: str):
-    """The C launch function ``symbol`` of ``csrc/query.cu``, built and bound
-    at its first use."""
-    global _one_device
-    fn = _bound[symbol] = build.function("query", symbol, [ctypes.c_char_p])
-    _one_device = torch.cuda.device_count() == 1
-    return fn
 
 
 def _gather(symbol: str, counters: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, fused_min: bool):
@@ -79,14 +64,7 @@ def _gather(symbol: str, counters: torch.Tensor, rows: torch.Tensor, cols: torch
         counters.data_ptr(), rows.data_ptr(), cols.data_ptr(), out.data_ptr(),
         d, cshape[1], cshape[2], q, index_bytes, torch._C._cuda_getCurrentRawStream(dev),
     )
-    fn = _bound.get(symbol) or _bind(symbol)
-    if _one_device or dev == torch._C._cuda_getDevice():
-        status = fn(record)
-    else:
-        with torch.cuda.device(dev):
-            status = fn(record)
-    if status:
-        build.check(status, symbol)
+    build.launch("query", symbol, dev, record)
     return out
 
 

@@ -105,6 +105,172 @@ def test_fused_ingest_kernel_float_weights_close(cuda):
     assert torch.equal(got[3], want[3])
 
 
+def _sorted_batch(pattern, d, wr, wc, seed):
+    """A hashed batch as a fused session hands it to the kernel: slots in
+    runs of one source (every sketch's row constant along a run), integer
+    weights 1..8.  ``one_source``: one run over the whole batch; ``runs``:
+    runs of 1 to a few thousand slots, crossing warp (32 slots) and block
+    boundaries; ``padded``: 25,356 slots in runs, padded to 32,768 with the
+    bucket of key 0 and weight 0, as ``pad_bucket`` pads; ``inert_in_runs``:
+    runs with a tenth of their slots -1; ``zero_run``: runs with the longest
+    one's weights all 0."""
+    rng = np.random.default_rng(seed)
+    b = 32_768 if pattern == "padded" else 20_000
+    n = 25_356 if pattern == "padded" else b
+    if pattern == "one_source":
+        lengths = np.array([n])
+    else:
+        lengths = np.concatenate([[2_500, 1_100, 33, 31, 64, 1], rng.geometric(1 / 40, n)])
+        lengths = lengths[: np.searchsorted(np.cumsum(lengths), n) + 1]
+        lengths[-1] -= lengths.sum() - n
+        rng.shuffle(lengths)
+    run_of = np.repeat(np.arange(lengths.size), lengths)
+    rows = rng.integers(0, wr, (d, lengths.size))[:, run_of]
+    cols = rng.integers(0, wc, (d, n))
+    w = rng.integers(1, 9, n).astype(np.float32)
+    if pattern == "padded":
+        rows = np.concatenate([rows, np.repeat(rng.integers(0, wr, (d, 1)), b - n, axis=1)], axis=1)
+        cols = np.concatenate([cols, np.repeat(rng.integers(0, wc, (d, 1)), b - n, axis=1)], axis=1)
+        w = np.concatenate([w, np.zeros(b - n, np.float32)])
+    elif pattern == "inert_in_runs":
+        rows[rng.random((d, b)) < 0.1] = -1
+    elif pattern == "zero_run":
+        w[run_of == np.argmax(lengths)] = 0.0
+        w[rng.random(b) < 0.02] = 0.0
+    return rows, cols, w
+
+
+def _fused_state(d, wr, wc, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (
+        torch.randint(0, 1000, (d, wr, wc), generator=g, device="cuda").float(),
+        torch.randint(0, 1000, (d, wr), generator=g, device="cuda").float(),
+        torch.randint(0, 1000, (d, wc), generator=g, device="cuda").float(),
+    )
+
+
+@pytest.mark.parametrize("pattern", ["one_source", "runs", "padded", "inert_in_runs", "zero_run"])
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("d", [1, 5, 8])
+def test_fused_ingest_kernel_bit_equal_on_sorted_runs(cuda, d, index_dtype, pattern):
+    """The warp-aggregated row_flows and touched against the plain version on
+    integer weights: runs of one row within and across warps and blocks."""
+    wr, wc = 1024, 512
+    rows, cols, w = _sorted_batch(pattern, d, wr, wc, seed=d)
+    r, c = (torch.from_numpy(x).to(index_dtype).cuda() for x in (rows, cols))
+    wt = torch.from_numpy(w).cuda()
+    before = fused_ops.fused_ingest.launches
+    got = fused_ops.fused_ingest(*_fused_state(d, wr, wc, d), r, c, wt)
+    assert fused_ops.fused_ingest.launches == before + 1
+    want = fused_ingest_ref(*_fused_state(d, wr, wc, d), r, c, wt)
+    for name, g, x in zip(("counters", "row_flows", "col_flows", "touched"), got, want):
+        assert torch.equal(g, x), name
+
+
+@pytest.mark.parametrize("pattern", ["runs", "padded"])
+def test_fused_ingest_kernel_float_weights_close_on_sorted_runs(cuda, pattern):
+    """Float weights: a run's register sum is taken in another order than the
+    plain version's, so each output is held to the rounding bound of a sum
+    in any order, 2 n u sum|w| (n terms, u = 2^-24; both sides lie within
+    n u sum|w| of the exact sum), not to a fixed tolerance: runs of
+    thousands of slots add thousands of roundings into one register."""
+    d, wr, wc = 3, 256, 256
+    rows, cols, w = _sorted_batch(pattern, d, wr, wc, seed=3)
+    w = np.where(w != 0, np.random.default_rng(3).normal(0, 1, w.shape), 0).astype(np.float32)
+    r, c, wt = (torch.from_numpy(x).cuda() for x in (rows, cols, w))
+
+    def zeros(dtype=torch.float32):
+        return (torch.zeros(d, wr, wc, device="cuda", dtype=dtype), torch.zeros(d, wr, device="cuda", dtype=dtype),
+                torch.zeros(d, wc, device="cuda", dtype=dtype))
+
+    got = fused_ops.fused_ingest(*zeros(), r, c, wt)
+    want = fused_ingest_ref(*zeros(), r, c, wt)
+    mass = fused_ingest_ref(*zeros(torch.float64), r, c, wt.double().abs())[:3]
+    terms = fused_ingest_ref(*zeros(torch.float64), r, c, torch.ones_like(wt, dtype=torch.float64))[:3]
+    for g, x, m, n in zip(got[:3], want[:3], mass, terms):
+        assert bool(((g.double() - x.double()).abs() <= 2 * n * 2.0**-24 * m).all())
+    assert torch.equal(got[3], want[3])
+
+
+@pytest.mark.parametrize("wr,shift", [(256, 0), (255, 0), (256, 1), (255, 3)])
+def test_fused_ingest_kernel_ors_into_a_given_bitmap(cuda, wr, shift):
+    """The second launch of an undirected sketch: the given bitmap is ORed
+    into (not zeroed) on the card, as the plain version does, also where
+    the bitmap is not 4-byte aligned (``shift``) or sized (d * wr odd), so
+    that its ends take byte stores; a new bitmap is zeroed first even over
+    a stale allocation."""
+    d, wc = 3, 128
+    rows, cols, w = _sorted_batch("runs", d, wr, wc, seed=9)
+    r, c, wt = (torch.from_numpy(x).cuda() for x in (rows, cols, w))
+    given = torch.rand((d, wr), generator=cuda, device="cuda") < 0.3
+    shifted = torch.zeros(d * wr + shift, dtype=torch.bool, device="cuda")[shift:].view(d, wr)
+    shifted.copy_(given)
+    state, ref_state = _fused_state(d, wr, wc, 9), _fused_state(d, wr, wc, 9)
+    got = fused_ops.fused_ingest(*state, r[:, :500], c[:, :500], wt[:500], shifted)
+    want = fused_ingest_ref(*ref_state, r[:, :500], c[:, :500], wt[:500], given.clone())
+    assert got[3] is shifted
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    for _ in range(3):  # fresh bitmaps over reused allocations hold only their batch's rows
+        fresh = fused_ops.fused_ingest(*state, r[:, :40], c[:, :40], wt[:40])[3]
+        assert torch.equal(fresh, fused_ingest_ref(*ref_state, r[:, :40], c[:, :40], wt[:40])[3])
+    empty = fused_ops.fused_ingest(*state, r[:, :0], c[:, :0], wt[:0])[3]
+    assert empty.shape == (d, wr) and not bool(empty.any())
+
+
+@pytest.mark.parametrize("offset", [0, 512])
+def test_ingest_kernel_bit_equal_on_int64_buckets_with_row_offset(cuda, offset):
+    d, wr, wc, b = 3, 512, 700, 20_000
+    base = torch.randint(0, 1000, (d, wr, wc), generator=cuda, device="cuda").float()
+    rows = torch.randint(-1, 3 * wr, (d, b), generator=cuda, device="cuda")  # int64; other shards' rows too
+    cols = torch.randint(0, wc, (d, b), generator=cuda, device="cuda")
+    w = torch.randint(0, 9, (b,), generator=cuda, device="cuda").float()
+    got = ingest_ops.ingest_scatter(base.clone(), rows, cols, w, row_offset=offset)
+    want = ingest_scatter_ref(base.clone(), rows, cols, w, row_offset=offset)
+    assert torch.equal(got, want)
+    assert torch.equal(ingest_ops.ingest_scatter(base.clone(), rows.int(), cols.int(), w, row_offset=offset), want)
+
+
+def test_ingest_wrappers_refuse_bad_buckets_on_the_card(cuda):
+    counters, rf, cf = _fused_state(2, 16, 16, 0)
+    i32 = torch.zeros(2, 8, dtype=torch.int32, device="cuda")
+    w = torch.ones(8, device="cuda")
+    bad = ((i32.float(), i32.float()), (i32.double(), i32.double()), (i32.short(), i32.short()),
+           (i32.to(torch.uint8), i32.to(torch.uint8)), (i32, i32.long()), (i32.long(), i32))
+    for rows, cols in bad:
+        with pytest.raises(ValueError, match="int32 or both int64"):
+            ingest_ops.ingest_scatter(counters, rows, cols, w)
+        with pytest.raises(ValueError, match="int32 or both int64"):
+            fused_ops.fused_ingest(counters, rf, cf, rows, cols, w)
+    with pytest.raises(ValueError, match="on cuda"):
+        ingest_ops.ingest_scatter(counters, i32.cpu(), i32, w)
+    with pytest.raises(ValueError, match="weights"):
+        fused_ops.fused_ingest(counters, rf, cf, i32, i32, w.double())
+
+
+def test_ingest_kernels_launch_on_the_current_stream(cuda):
+    """Both kernels, and the bitmap's zeroing, run on the caller's stream:
+    their weights are written behind a sleep on a side stream, so a launch
+    on another stream would read them before."""
+    d, wr, wc = 2, 256, 256
+    rows, cols, w = _sorted_batch("runs", d, wr, wc, seed=1)
+    r, c, wt = (torch.from_numpy(x).cuda() for x in (rows, cols, w))
+    state, ref_state = _fused_state(d, wr, wc, 1), _fused_state(d, wr, wc, 1)
+    scattered = ref_state[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(1_000_000)
+        wt += 1
+        got = fused_ops.fused_ingest(*state, r, c, wt)
+        ingest_ops.ingest_scatter(scattered, r, c, wt)
+    side.synchronize()
+    want = fused_ingest_ref(*ref_state, r, c, wt)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    assert torch.equal(scattered, want[0])
+
+
 @pytest.mark.parametrize("d,wr,wc", [(1, 64, 64), (4, 300, 200), (2, 1000, 70), (5, 1024, 8192)])
 def test_flows_kernel_bit_equals_plain_version(cuda, d, wr, wc):
     counters = torch.randint(0, 1000, (d, wr, wc), generator=cuda, device="cuda").float()

@@ -139,3 +139,51 @@ def test_host_helpers_match_reference():
         assert T.resolve_preagg(mode, b) == ref_ingest.resolve_preagg(mode, b)
     with pytest.raises(ValueError):
         T.resolve_preagg("sometimes")
+
+
+# Bucket dtypes the ingest kernels refuse, as (rows, cols) pairs: floats,
+# narrow integers, and rows and columns of different dtypes.
+BAD_INDEX_DTYPES = [
+    (torch.float32, torch.float32), (torch.float64, torch.float64), (torch.int16, torch.int16),
+    (torch.uint8, torch.uint8), (torch.int32, torch.int64), (torch.int64, torch.int32),
+]
+
+
+@pytest.mark.parametrize("rows_dtype,cols_dtype", BAD_INDEX_DTYPES, ids=lambda t: str(t)[6:])
+def test_wrapper_refuses_other_index_dtypes_on_the_cpu(rows_dtype, cols_dtype):
+    counters, rows, cols, w = _batch(np.random.default_rng(1), 2, 16, 16, 8, 0.0)
+    c = torch.from_numpy(counters.copy())
+    with pytest.raises(ValueError, match="int32 or both int64"):
+        ingest_scatter(c, torch.from_numpy(rows).to(rows_dtype), torch.from_numpy(cols).to(cols_dtype),
+                       torch.from_numpy(w))
+    np.testing.assert_array_equal(c.numpy(), counters)  # refused before any write
+
+
+def test_wrapper_refuses_non_float32_weights_and_counters():
+    counters, rows, cols, w = _batch(np.random.default_rng(2), 2, 16, 16, 8, 0.0)
+    r, c = torch.from_numpy(rows), torch.from_numpy(cols)
+    with pytest.raises(ValueError, match="weights"):
+        ingest_scatter(torch.from_numpy(counters), r, c, torch.from_numpy(w).double())
+    with pytest.raises(ValueError, match="weights"):
+        ingest_scatter(torch.from_numpy(counters), r, c, torch.from_numpy(w[:-1]))
+    with pytest.raises(ValueError, match="counters"):
+        ingest_scatter(torch.from_numpy(counters).double(), r, c, torch.from_numpy(w))
+    with pytest.raises(ValueError, match="counters"):
+        ingest_scatter(torch.from_numpy(counters).transpose(1, 2), r, c, torch.from_numpy(w))
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("offset", [0, 128])
+def test_wrapper_takes_int32_and_int64_buckets_as_ingest_pallas(index_dtype, offset):
+    """The wrapper on the CPU, on either bucket dtype, against the Pallas
+    kernel in interpret mode behind the reference engine's row-shard masking
+    (rows past the shard are inert)."""
+    counters, rows, cols, w = _batch(np.random.default_rng(7), 2, 256, 256, 512)
+    rows[rows >= 0] = rows[rows >= 0] * 3 // 2  # rows of the next shard too
+    want = ref_ingest.ingest(jnp.asarray(counters), jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(w),
+                             backend="pallas", row_offset=offset)
+    c = torch.from_numpy(counters.copy())
+    got = ingest_scatter(c, torch.from_numpy(rows).to(index_dtype), torch.from_numpy(cols).to(index_dtype),
+                         torch.from_numpy(w), row_offset=offset)
+    assert got.data_ptr() == c.data_ptr()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -270,3 +270,64 @@ def test_fused_session_keeps_one_bitmap_between_closure_syncs():
         union |= port.ingest(src, dst, w).touched_rows.numpy()
     assert len(port._touched) == 1
     np.testing.assert_array_equal(port._touched[0].numpy(), union)
+
+
+# Bucket dtypes the fused kernel refuses, as (rows, cols) pairs: floats,
+# narrow integers, and rows and columns of different dtypes.
+BAD_INDEX_DTYPES = [
+    (torch.float32, torch.float32), (torch.float64, torch.float64), (torch.int16, torch.int16),
+    (torch.uint8, torch.uint8), (torch.int32, torch.int64), (torch.int64, torch.int32),
+]
+
+
+@pytest.mark.parametrize("rows_dtype,cols_dtype", BAD_INDEX_DTYPES, ids=lambda t: str(t)[6:])
+def test_wrapper_refuses_other_index_dtypes_on_the_cpu(rows_dtype, cols_dtype):
+    arrays = hashed_batch(np.random.default_rng(4), 2, 16, 16, 8)
+    counters, rf, cf, rows, cols, w = torch_copies(*arrays)
+    with pytest.raises(ValueError, match="int32 or both int64"):
+        fused_ingest(counters, rf, cf, rows.to(rows_dtype), cols.to(cols_dtype), w)
+    for got, before in zip((counters, rf, cf), arrays[:3]):
+        np.testing.assert_array_equal(got.numpy(), before)  # refused before any write
+
+
+def test_wrapper_refuses_bad_weights_registers_and_bitmap():
+    counters, rf, cf, rows, cols, w = torch_copies(*hashed_batch(np.random.default_rng(5), 2, 16, 8, 8))
+    with pytest.raises(ValueError, match="weights"):
+        fused_ingest(counters, rf, cf, rows, cols, w.double())
+    with pytest.raises(ValueError, match="row_flows"):
+        fused_ingest(counters, rf.double(), cf, rows, cols, w)
+    with pytest.raises(ValueError, match="col_flows"):
+        fused_ingest(counters, rf, rf, rows, cols, w)  # (d, wr) where (d, wc) is due
+    for bad in (torch.zeros(2, 16, dtype=torch.uint8), torch.zeros(2, 8, dtype=torch.bool),
+                torch.zeros(16, 2, dtype=torch.bool).t()):
+        with pytest.raises(ValueError, match="touched"):
+            fused_ingest(counters, rf, cf, rows, cols, w, bad)
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+def test_wrapper_takes_int32_and_int64_buckets_as_fused_ingest_pallas(index_dtype):
+    arrays = hashed_batch(np.random.default_rng(8), 2, 256, 128, 512, inert_frac=0.1, zero_frac=0.1)
+    want = ref_fused_ingest(*(jnp.asarray(a) for a in arrays), interpret=True)
+    counters, rf, cf, rows, cols, w = torch_copies(*arrays)
+    got = fused_ingest(counters, rf, cf, rows.to(index_dtype), cols.to(index_dtype), w)
+    _assert_outputs_equal(got, want)
+
+
+@pytest.mark.parametrize("fn", [fused_ingest_ref, fused_ingest], ids=["plain", "wrapper-on-cpu"])
+def test_given_bitmap_is_ored_into_as_two_launches_of_the_reference(fn):
+    """The second launch of an undirected sketch ORs its rows into the first
+    launch's bitmap: the same bitmap as the reference's ``touched |
+    touched2``, in the same tensor, and the same counters and registers."""
+    rng = np.random.default_rng(11)
+    counters, rf, cf, rows, cols, w = hashed_batch(rng, 3, 64, 64, 300, inert_frac=0.2, zero_frac=0.1)
+    rows2 = rng.integers(-1, 64, rows.shape).astype(np.int32)
+    cols2 = rng.integers(0, 64, cols.shape).astype(np.int32)
+    a = ref_fused_ingest(*(jnp.asarray(x) for x in (counters, rf, cf, rows, cols, w)), interpret=True)
+    b = ref_fused_ingest(*a[:3], jnp.asarray(rows2), jnp.asarray(cols2), jnp.asarray(w), interpret=True)
+    state = torch_copies(counters, rf, cf)
+    *_, touched = fn(*state, *torch_copies(rows, cols, w))
+    first = touched.clone()
+    got = fn(*state, *torch_copies(rows2, cols2, w), touched)
+    assert got[3] is touched
+    assert bool((touched >= first).all())  # nothing the first launch marked is cleared
+    _assert_outputs_equal(got, (*b[:3], np.asarray(a[3]) | np.asarray(b[3])))
