@@ -24,8 +24,19 @@ length (65,020,416 elements into a 5 x 16,384 table), hashing in the kernel
 and on precomputed hashes, dense and 4,096-sparse (also at width 2^17, past
 the shared-memory limit), with the atomic instructions of its SASS; and the
 median decode of those tables (d=5 and d=4, and with NaN, +inf and -inf
-planted).  Each is timed with CUDA events and the profiler beside its plain
-version and one PyTorch library call where there is one.
+planted); and the port-only sequential kernel (serve BASE's first 50,000
+edges as they arrive, int64 and int32 buckets, both modes, on an empty
+sketch and on one holding the batch: bit-equal to the plain loop on 2,000
+edges and, once, over the whole batch; sequential mode bit-equal to the
+ingest scatter; conservative counters between their cellwise floor and the
+vanilla counters; the chain's floor with every edge on one cell).  Each is
+timed with CUDA events and the profiler beside its plain version and one
+PyTorch library call where there is one.
+
+A small session on the card is held against the same session on the CPU:
+its stream, answers and summary, and every function of the analytics path
+below (bit-equal, but the global triangle estimate and PageRank within rtol
+1e-5).
 
 Then it drives the main paths, each with the launch counts set to 0 just
 before and read just after:
@@ -49,6 +60,19 @@ before and read just after:
 - serve incremental, plain and fused: small batches, so the closure refreshes
   incrementally (from touched keys, and from the fused kernel's bitmap);
   each must equal the plain-backend run;
+- analytics BASE: one serve BASE session on the kernels, then on its
+  summary (TF32 checked off) the wildcard queries (four forms, 1,024 keys),
+  ``bound_wildcard_path2`` (1,024 pairs) and ``global_triangle_estimate``
+  against float64 on the card, 256 triangle queries against
+  ``subgraph_query_batch``, ``sketch_pagerank`` and ``GraphStream.pagerank``
+  (rows summing to 1, float64), ``k_hop_reach`` at k=1, 2, 3 (k=2 equal to
+  one closure step), ``heavy_hitter_buckets``, ``monitor_step`` on the
+  hottest destination, ``update_sequential`` and ``update_conservative`` on
+  the first batch (one ``sequential_update`` launch a call), and the four
+  baselines at equal space (CountMin, node CountMin, CountSketch, gSketch
+  with 8 partitions) fed the session's 500,000 edges, held to their
+  over-estimate and signed-error properties against numpy counts; each
+  function's time on the card;
 - train 100m: ``repro_torch.launch.train_lm --preset 100m --compress`` for
   10 steps at the example's batch 8 and sequence 64 (full width, random
   weights from a seed): countsketch launched twice a step and its decode
@@ -235,6 +259,24 @@ def query_host_breakdown(torch, counters, rows64, cols64):
     return times
 
 
+def serve_raw_batch(torch):
+    """Serve BASE's first ``--batch`` edges as they arrive (not aggregated),
+    hashed by the square BASE session's family into int64 buckets.  Returns
+    ``(src, dst, weights)`` as numpy, the family, ``rows``, ``cols`` and the
+    weights on the card."""
+    import numpy as np
+
+    from repro_torch.core.hashing import keys_to_tensor, make_hash_family
+    from repro_torch.data.graphs import edge_stream
+
+    data = edge_stream(flag(SERVE_BASE, "--nodes"), flag(SERVE_BASE, "--edges"), np.random.default_rng(0), zipf_a=1.2)
+    b = flag(SERVE_BASE, "--batch")
+    src, dst, wts = data["src"][:b], data["dst"][:b], data["weight"][:b]
+    family = make_hash_family(torch.Generator().manual_seed(0), BASE_DEPTH, BASE_WIDTH, "cuda")
+    rows, cols = family(keys_to_tensor(src, "cuda")), family(keys_to_tensor(dst, "cuda"))
+    return (src, dst, wts), family, rows, cols, torch.from_numpy(wts).cuda()
+
+
 def serve_first_batch(torch):
     """Serve BASE's first batch as a session hands it to an ingest kernel:
     the first ``--batch`` edges of ``launch/serve.py``'s traffic (zipf a=1.2
@@ -242,16 +284,11 @@ def serve_first_batch(torch):
     ``pad_bucket`` (key 0, weight 0) and hashed by the square BASE session's
     family (drawn as GraphStream seed 0 draws it) into int64 buckets.
     Returns ``(rows, cols, weights, pairs)``."""
-    import numpy as np
-
-    from repro_torch.core.hashing import keys_to_tensor, make_hash_family
+    from repro_torch.core.hashing import keys_to_tensor
     from repro_torch.core.ingest import pad_bucket, preaggregate_host
-    from repro_torch.data.graphs import edge_stream
 
-    data = edge_stream(flag(SERVE_BASE, "--nodes"), flag(SERVE_BASE, "--edges"), np.random.default_rng(0), zipf_a=1.2)
-    b = flag(SERVE_BASE, "--batch")
-    pre = preaggregate_host(data["src"][:b], data["dst"][:b], data["weight"][:b])
-    family = make_hash_family(torch.Generator().manual_seed(0), BASE_DEPTH, BASE_WIDTH, "cuda")
+    (src, dst, wts), family, *_ = serve_raw_batch(torch)
+    pre = preaggregate_host(src, dst, wts)
     rows = family(keys_to_tensor(pad_bucket(pre.src), "cuda"))
     cols = family(keys_to_tensor(pad_bucket(pre.dst), "cuda"))
     check(rows.dtype == torch.int64 and cols.dtype == torch.int64, f"the hash gave {rows.dtype} buckets")
@@ -1343,6 +1380,378 @@ def profile_ingest_batch(torch, session, counted, fused: bool):
         print(f"[chip_smoke]   {us / 1e3:10.4f} ms  x{count:<3d} {key[:110]}")
 
 
+# Edges of the sequential phase's bit-for-bit check against the plain loop
+# (about five launches an edge; the loop runs once over the whole batch, timed).
+SEQ_PLAIN_EDGES = 2_000
+
+
+def conservative_floor(torch, start, family, src, dst, wts):
+    """Cellwise lower bound of a conservative update of ``start`` by the batch:
+    every distinct pair p raises each of its d cells to at least
+    ``min_i start[i, cell_i(p)] + f(p)``, f(p) the pair's exact total weight
+    (numpy); a cell no pair touches keeps its value."""
+    from repro_torch.core.hashing import keys_to_tensor
+    from repro_torch.core.ingest import preaggregate_host
+    from repro_torch.kernels.query.ref import edge_query_min_ref
+
+    pre = preaggregate_host(src, dst, wts)
+    r, c = family(keys_to_tensor(pre.src, "cuda")), family(keys_to_tensor(pre.dst, "cuda"))
+    d, w, _ = start.shape
+    vals = edge_query_min_ref(start, r, c) + torch.from_numpy(pre.weights).cuda()
+    flat = (torch.arange(d, device="cuda")[:, None] * w + r) * w + c
+    floor = start.clone()
+    floor.view(-1).scatter_reduce_(0, flat.reshape(-1), vals.expand(d, -1).reshape(-1), reduce="amax")
+    return floor
+
+
+def once_ms(torch, fn) -> float:
+    """Milliseconds of one call between two CUDA events (no warm-up: for the
+    plain loop, whose every launch is already warm)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_sequential(torch, gen):
+    """The port-only sequential kernel on serve BASE's first batch of 50,000
+    edges as they arrive (not aggregated; int64 buckets from the BASE family
+    and their int32 copy), both modes, on an empty sketch and on one that
+    already holds the batch: bit-equal to the plain loop on the first 2,000
+    edges; over all 50,000, sequential mode bit-equal to B1's scatter and
+    conservative mode between the cellwise floor and the vanilla counters;
+    the plain loop once over the whole batch, bit-equal.  Times by CUDA
+    events and the profiler, the plain loop's per edge, and the chain's
+    floor: the same batch with every edge on one cell."""
+    from repro_torch.kernels.ingest.ops import ingest_scatter
+    from repro_torch.kernels.sequential.ops import sequential_update
+    from repro_torch.kernels.sequential.ref import sequential_update_ref
+
+    d, w = BASE_DEPTH, BASE_WIDTH
+    (src, dst, wts_np), family, rows, cols, wts = serve_raw_batch(torch)
+    b = rows.shape[1]
+    empty = torch.zeros((d, w, w), device="cuda")
+    held = ingest_scatter(empty.clone(), rows, cols, wts)
+    head = SEQ_PLAIN_EDGES
+    err = 0.0
+    for label, start in (("empty", empty), ("holding a batch", held)):
+        floor = conservative_floor(torch, start, family, src, dst, wts_np)
+        vanilla = ingest_scatter(start.clone(), rows, cols, wts)
+        for idx in (torch.int64, torch.int32):
+            r, c = rows.to(idx), cols.to(idx)
+            rh, ch, wh = r[:, :head].contiguous(), c[:, :head].contiguous(), wts[:head].contiguous()
+            for conservative in (False, True):
+                mode = "conservative" if conservative else "sequential"
+                got = sequential_update(start.clone(), rh, ch, wh, conservative)
+                want = sequential_update_ref(start.clone(), rh, ch, wh, conservative)
+                err = max(err, float((got - want).abs().max()))
+                check(torch.equal(got, want), f"sequential_update {mode} {idx} {label}: differs from the plain loop")
+                del got, want
+            seq = sequential_update(start.clone(), r, c, wts, False)
+            check(torch.equal(seq, vanilla), f"sequential_update {idx} {label}: differs from ingest_scatter")
+            del seq
+            cu = sequential_update(start.clone(), r, c, wts, True)
+            check(bool((cu <= vanilla).all()), f"conservative {idx} {label}: above the vanilla counters")
+            check(bool((cu >= floor).all()), f"conservative {idx} {label}: below the cellwise floor")
+            del cu
+        del floor, vanilla
+        torch.cuda.empty_cache()
+    # The plain loop once over the whole batch, timed, against the kernel.
+    want = held.clone()
+    plain_ms = once_ms(torch, lambda: sequential_update_ref(want, rows, cols, wts, True))
+    got = sequential_update(held.clone(), rows, cols, wts, True)
+    check(torch.equal(got, want), "conservative: differs from the plain loop over the whole batch")
+    del got, want
+    work = held
+    rows32, cols32 = rows.int(), cols.int()
+    ms = time_ms(lambda: sequential_update(work, rows, cols, wts, True), 5)
+    ms32 = time_ms(lambda: sequential_update(work, rows32, cols32, wts, True), 5)
+    seq_ms = time_ms(lambda: sequential_update(work, rows, cols, wts, False), 5)
+    dev_ms = device_ms(lambda: sequential_update(work, rows, cols, wts, True), 3, "sequential_update_kernel")
+    seq_dev = device_ms(lambda: sequential_update(work, rows, cols, wts, False), 3, "sequential_update_kernel")
+    one = torch.zeros_like(rows)
+    chain_ms = time_ms(lambda: sequential_update(work, one, one, wts, True), 3)
+    chain_dev = device_ms(lambda: sequential_update(work, one, one, wts, True), 3, "sequential_update_kernel")
+    bound_ms = (8 * d * b + 2 * d * b * rows.element_size() + 4 * b) / PEAK_BYTES_PER_S * 1e3
+    print(
+        f"[chip_smoke] sequential d={d} w={w} B={b} (serve BASE's first batch as it arrives, int64 and int32, "
+        f"both modes, empty and holding a batch): bit-equal to the plain loop on {head} edges and over the whole "
+        f"batch (conservative, int64), sequential bit-equal to ingest_scatter, conservative between its floor and "
+        f"vanilla; conservative wrapper {ms:.4f} ms (int32 {ms32:.4f}), device {_fmt(dev_ms)}; sequential "
+        f"wrapper {seq_ms:.4f} ms, device {_fmt(seq_dev)}; {1e6 * ms / b:.1f} ns an edge; chain floor (every "
+        f"edge on one cell, conservative) {chain_ms:.4f} ms, device {_fmt(chain_dev)}, {1e6 * chain_ms / b:.1f} ns "
+        f"an edge; plain loop {plain_ms:.1f} ms, {1e3 * plain_ms / b:.1f} us an edge; bound {bound_ms:.6f} ms "
+        f"(bytes: each cell read and written once, the buckets and weights read once)"
+    )
+    return dict(
+        name="sequential_update", route="cuda", source="src/repro_torch/csrc/sequential.cu",
+        replaces="src/repro/core/sketch.py:420", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+    )
+
+
+# The baselines at equal space to BASE: a 1-D row as wide as a BASE sketch
+# (8,192² counters), d=5; gSketch's partitions sampled from the first 5,000
+# sources (benchmarks/bench_accuracy.py:124-145 sizes them so).
+BASELINE_WIDTH = BASE_WIDTH * BASE_WIDTH
+GSKETCH_PARTITIONS, GSKETCH_SAMPLE = 8, 5_000
+
+
+def pagerank64(torch, counters, damping: float = 0.85, iters: int = 32):
+    """``queries.sketch_pagerank``'s algorithm in float64 (the yardstick)."""
+    m = counters.double()
+    out = m.sum(dim=2, keepdim=True)
+    p = torch.where(out > 0, m / out.clamp_min(1e-9), torch.zeros((), dtype=m.dtype, device=m.device))
+    w = m.shape[-1]
+    rank = torch.full((m.shape[0], 1, w), 1.0 / w, dtype=m.dtype, device=m.device)
+    for _ in range(iters):
+        step = torch.bmm(rank, p)
+        rank = damping * step + (1.0 - damping * step.sum(-1, keepdim=True)) / w
+    return rank[:, 0, :]
+
+
+def analytics_base(torch, serve):
+    """The analytics path at BASE: one serve BASE session on the kernels,
+    then on its live sketch every ported query-plane function beyond the
+    served families, the two order-dependent updates on the session's first
+    batch (one ``sequential_update`` launch each), and the four baselines at
+    equal space fed the session's 500,000 edges.  Checks each against an
+    independent computation (float64 on the card, numpy counts, a closure
+    kernel launch) and prints its time on the card.  Returns the number of
+    order-dependent update calls made."""
+    import numpy as np
+
+    from repro_torch.core import queries, reach
+    from repro_torch.core.hashing import keys_to_tensor, mix_keys
+    from repro_torch.core.ingest import preaggregate_host
+    from repro_torch.core.sketch import CountMin, CountSketch, GSketch, NodeCountMin
+    from repro_torch.data.graphs import edge_stream
+    from repro_torch.kernels.closure.ops import closure_step
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False and torch.get_float32_matmul_precision() == "highest",
+          "analytics: TF32 is on for float32 products")
+    sess, _, _ = serve.main(SERVE_BASE)
+    live = sess._live()
+    d, w = BASE_DEPTH, BASE_WIDTH
+    nodes, b = flag(SERVE_BASE, "--nodes"), flag(SERVE_BASE, "--batch")
+    data = edge_stream(nodes, flag(SERVE_BASE, "--edges"), np.random.default_rng(0), zipf_a=1.2)
+    keys = lambda x: keys_to_tensor(x, "cuda")  # noqa: E731
+    times = {}
+
+    def timed(name, fn, reps=3):
+        out = fn()
+        times[name] = time_ms(fn, reps)
+        return out
+
+    rng = np.random.default_rng(21)
+    qs, qd = keys(rng.integers(0, nodes, 1024).astype(np.uint32)), keys(rng.integers(0, nodes, 1024).astype(np.uint32))
+    total = float(data["weight"].sum())
+    forms = {"(x, y)": (qs, qd), "(x, *)": (qs, None), "(*, y)": (None, qd), "(*, *)": (None, None)}
+    want = {"(x, y)": queries.edge_query(live, qs, qd), "(x, *)": queries.node_out_flow(live, qs),
+            "(*, y)": queries.node_in_flow(live, qd), "(*, *)": torch.tensor([total], device="cuda")}
+    for form, args in forms.items():
+        got = timed(f"wildcard {form}", lambda: queries.wildcard_edge_query(live, *args), 20)
+        check(torch.equal(got, want[form]), f"analytics: wildcard {form} differs")
+
+    bw = timed("bound_wildcard_path2", lambda: queries.bound_wildcard_path2(live, qd, qs))
+    hb, hc = live.col_hash(qd), live.row_hash(qs)
+    d_idx = torch.arange(d, device="cuda")[:, None]
+    m64 = live.counters.double()
+    bw64 = (m64[d_idx, :, hb] * m64[d_idx, hc, :]).sum(-1).amin(dim=0)
+    check(bool(torch.isfinite(bw).all()) and torch.allclose(bw.double(), bw64, rtol=1e-4, atol=0),
+          "analytics: bound_wildcard_path2 differs from float64")
+
+    hot = np.argsort(np.bincount(data["src"], minlength=nodes))[::-1][:16].astype(np.uint32)
+    triples = rng.choice(hot, (256, 3)).astype(np.uint32)
+    ta, tb, tc = (keys(triples[:, j]) for j in range(3))
+    tri = timed("triangle_query x256", lambda: torch.stack(
+        [queries.triangle_query(live, ta[i], tb[i], tc[i]) for i in range(256)]), 1)
+    batch = queries.subgraph_query_batch(live, torch.stack([ta, tb, tc], 1), torch.stack([tb, tc, ta], 1),
+                                         torch.ones((256, 3), dtype=torch.bool, device="cuda"))
+    check(torch.equal(tri, batch), "analytics: triangle_query differs from subgraph_query_batch")
+
+    gt = timed("global_triangle_estimate", lambda: queries.global_triangle_estimate(live))
+    gt64 = (torch.bmm(m64, m64) * m64.transpose(1, 2)).sum(dim=(1, 2)).amin()
+    check(bool(torch.isclose(gt.double(), gt64, rtol=1e-4, atol=0)),
+          f"analytics: global_triangle_estimate {float(gt)} vs float64 {float(gt64)}")
+    del m64, bw64, gt64
+    torch.cuda.empty_cache()
+
+    pr = timed("sketch_pagerank", lambda: queries.sketch_pagerank(live))
+    check(float((pr.sum(dim=1) - 1).abs().max()) <= 1e-5, "analytics: PageRank rows do not sum to 1")
+    check(torch.allclose(pr.double(), pagerank64(torch, live.counters), rtol=1e-4, atol=0),
+          "analytics: sketch_pagerank differs from float64")
+    check(np.array_equal(sess.pagerank(), pr.cpu().numpy()), "analytics: GraphStream.pagerank differs")
+    times["GraphStream.pagerank"] = time_ms(sess.pagerank, 3)
+
+    hops = [timed(f"k_hop_reach k={k}", lambda: reach.k_hop_reach(live.counters, k)) for k in (1, 2, 3)]
+    eye = torch.eye(w, dtype=torch.bool, device="cuda")
+    check(torch.equal(hops[0], (live.counters > 0) | eye), "analytics: k_hop_reach k=1 differs from (a > 0) | I")
+    a = hops[0].view(torch.uint8)
+    step, _ = closure_step(a, a.transpose(1, 2).contiguous())
+    check(torch.equal(hops[1], step.view(torch.bool)), "analytics: k_hop_reach k=2 differs from one closure_step")
+    check(bool((hops[1] <= hops[2]).all()), "analytics: k_hop_reach k=3 lost a pair of k=2")
+    reached = [int(h.sum()) for h in hops]
+    del hops, a, step, eye
+    torch.cuda.empty_cache()
+
+    theta = 0.001 * total
+    rows_hh, cols_hh = timed("heavy_hitter_buckets", lambda: queries.heavy_hitter_buckets(live, theta), 20)
+    check(torch.equal(cols_hh, live.col_flows > theta) and torch.equal(rows_hh, live.row_flows > theta),
+          "analytics: heavy_hitter_buckets differ from the registers")
+    in_deg = np.bincount(data["dst"], weights=data["weight"], minlength=nodes)
+    watch = np.uint32(np.argmax(in_deg))
+    check(bool(cols_hh[d_idx[:, 0], live.col_hash(keys(np.atleast_1d(watch)))[:, 0]].all()),
+          "analytics: the hottest destination's buckets are not flagged")
+
+    s1, d1, w1 = keys(data["src"][:b]), keys(data["dst"][:b]), torch.from_numpy(data["weight"][:b]).cuda()
+    vanilla = live.update(s1, d1, w1)
+    inflow = float(queries.node_in_flow(live, keys(np.atleast_1d(watch)))[0])
+    hits = float(data["weight"][:b][data["dst"][:b] == watch].sum())
+    key = torch.tensor(int(watch), device="cuda")
+    for theta_m, want_alarm in ((inflow + hits - 1, True), (inflow + hits, False)):
+        alarm, new = queries.monitor_step(live, s1, d1, w1, key, theta_m)
+        check(bool(alarm) == want_alarm, f"analytics: monitor_step alarm {bool(alarm)} at theta {theta_m}")
+        check(torch.equal(new.counters, vanilla.counters), "analytics: monitor_step's sketch differs from update")
+        del new
+    times["monitor_step"] = time_ms(lambda: queries.monitor_step(live, s1, d1, w1, key, inflow), 3)
+
+    # The order-dependent updates: two calls each (checked, then timed), one
+    # sequential_update launch a call.
+    seq = live.update_sequential(s1, d1, w1)
+    for name in ("counters", "row_flows", "col_flows"):
+        check(torch.equal(getattr(seq, name), getattr(vanilla, name)), f"analytics: update_sequential {name} differs")
+    del seq
+    times["update_sequential"] = once_ms(torch, lambda: live.update_sequential(s1, d1, w1))
+    cu = live.update_conservative(s1, d1, w1)
+    check(bool((cu.counters <= vanilla.counters).all() and (cu.counters >= live.counters).all()),
+          "analytics: update_conservative outside [live, vanilla]")
+    check(torch.equal(cu.row_flows, cu.counters.sum(dim=2)), "analytics: update_conservative's registers")
+    del cu, vanilla
+    times["update_conservative"] = once_ms(torch, lambda: live.update_conservative(s1, d1, w1))
+    update_calls = 4
+    torch.cuda.empty_cache()
+
+    # The baselines at equal space, fed the session's 500,000 edges.
+    W = BASELINE_WIDTH
+    base = {
+        "CountMin": CountMin.empty(d, W, 1, "cuda"),
+        "NodeCountMin": NodeCountMin.empty(d, W, 4, "cuda"),
+        "CountSketch": CountSketch.empty(d, W, 3, "cuda"),
+        "GSketch": GSketch.from_sample(d, W, GSKETCH_PARTITIONS, data["src"][:GSKETCH_SAMPLE], 2, "cuda"),
+    }
+    n = data["src"].size
+    batches = [(keys(data["src"][i:i + b]), keys(data["dst"][i:i + b]), torch.from_numpy(data["weight"][i:i + b]).cuda())
+               for i in range(0, n, b)]
+    feed = {
+        "CountMin": lambda s, t, x: base["CountMin"].update_(s, t, x),
+        "NodeCountMin": lambda s, t, x: base["NodeCountMin"].update_(s, t, x),
+        "CountSketch": lambda s, t, x: base["CountSketch"].update_(mix_keys(s, t), x),
+        "GSketch": lambda s, t, x: base["GSketch"].update_(s, t, x),
+    }
+    for name, fn in feed.items():
+        times[f"{name} ingest (500,000 edges)"] = once_ms(torch, lambda: [fn(*bt) for bt in batches])
+    pre = preaggregate_host(data["src"], data["dst"], data["weight"])
+    ps, pd, pw = keys(pre.src), keys(pre.dst), torch.from_numpy(pre.weights).cuda()
+    est = {"CountMin": base["CountMin"].edge_query(ps, pd), "GSketch": base["GSketch"].edge_query(ps, pd)}
+    for name, e in est.items():
+        check(bool((e >= pw).all()), f"analytics: {name} under-estimates an edge")
+    ncm = base["NodeCountMin"]
+    check(bool((ncm.out_flow(keys(pre.src_unique)) >= torch.from_numpy(pre.src_totals).cuda()).all()
+               and (ncm.in_flow(keys(pre.dst_unique)) >= torch.from_numpy(pre.dst_totals).cuda()).all()),
+          "analytics: NodeCountMin under-estimates a flow")
+    cs = base["CountSketch"]
+    pk = mix_keys(ps, pd)
+    row_err = torch.gather(cs.counters, 1, cs.hash(pk)) * cs.hash.signs(pk).float() - pw
+    check(bool((row_err > 0).any() and (row_err < 0).any()), "analytics: CountSketch's row errors take one sign")
+    med_err = cs.query(pk) - pw
+    gb = sum(t.numel() * 4 for t in (base["CountMin"].counters, ncm.counters_out, ncm.counters_in, cs.counters,
+                                     base["GSketch"].partitions.counters)) / 1e9
+    print(
+        f"[chip_smoke] analytics BASE: TF32 off; wildcard (4 forms, 1,024 keys) equal to the served families and "
+        f"(*, *) to the stream's total {total:.0f}; bound_wildcard_path2 (1,024 pairs) and global triangle "
+        f"{float(gt):.6g} within rtol 1e-4 of float64; 256 triangle queries equal subgraph_query_batch "
+        f"({int((tri > 0).sum())} positive); PageRank rows sum to 1 within 1e-5, within rtol 1e-4 of float64, "
+        f"GraphStream.pagerank equal; k_hop_reach k=1,2,3 reach {reached} pairs, k=2 equal to one closure_step; "
+        f"heavy buckets at theta {theta:.0f}: {int(rows_hh.sum())} rows, {int(cols_hh.sum())} columns; "
+        f"monitor_step alarms at theta {inflow + hits - 1:.0f}, not at {inflow + hits:.0f}; update_sequential "
+        f"equal to update, update_conservative between live and vanilla"
+    )
+    print(
+        f"[chip_smoke] analytics BASE baselines at equal space (d={d}, {W:,} a row; gSketch widths "
+        f"{base['GSketch'].widths.tolist()}; {gb:.2f} GB): on {pre.n_pairs} distinct pairs CountMin, GSketch and "
+        f"NodeCountMin never under-estimate; CountSketch row errors of both signs ({int((row_err > 0).sum())} "
+        f"above, {int((row_err < 0).sum())} below), median errors nonzero on {int((med_err != 0).sum())} pairs"
+    )
+    print("[chip_smoke] analytics BASE times on the card (CUDA events, ms a call): "
+          + "; ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    return update_calls
+
+
+def check_small_analytics(torch, gs_cuda, gs_cpu, argv):
+    """Every function of the analytics path on the small session's summary,
+    on the card against the CPU: bit-equal, but for the global triangle
+    estimate and PageRank (float32 sums in another order, rtol 1e-5)."""
+    import numpy as np
+
+    from repro_torch.core import queries, reach
+    from repro_torch.core.hashing import keys_to_tensor, mix_keys
+    from repro_torch.core.ingest import preaggregate_edges
+    from repro_torch.core.sketch import CountMin, CountSketch, GSketch, NodeCountMin
+    from repro_torch.data.graphs import edge_stream
+
+    nodes = flag(argv, "--nodes")
+    data = edge_stream(nodes, flag(argv, "--edges"), np.random.default_rng(0), zipf_a=1.2)
+    rng = np.random.default_rng(5)
+    qs_np, qd_np = rng.integers(0, nodes, 256).astype(np.uint32), rng.integers(0, nodes, 256).astype(np.uint32)
+    b = flag(argv, "--batch")
+    width = flag(argv, "--width")
+    watch = np.uint32(np.argmax(np.bincount(data["dst"], minlength=nodes)))
+
+    def run(gs, dev):
+        live = gs._live()
+        k = lambda x: keys_to_tensor(x, dev)  # noqa: E731
+        qs, qd = k(qs_np), k(qd_np)
+        s1, d1, w1 = k(data["src"][:b]), k(data["dst"][:b]), torch.from_numpy(data["weight"][:b]).to(dev)
+        out = {f"wildcard {i}": queries.wildcard_edge_query(live, *args)
+               for i, args in enumerate(((qs, qd), (qs, None), (None, qd), (None, None)))}
+        out["bound_wildcard_path2"] = queries.bound_wildcard_path2(live, qd, qs)
+        out["triangle_query"] = torch.stack([queries.triangle_query(live, qs[i], qd[i], qs[i + 1]) for i in range(32)])
+        out["global_triangle_estimate"] = queries.global_triangle_estimate(live)
+        out["sketch_pagerank"] = queries.sketch_pagerank(live)
+        out["GraphStream.pagerank"] = torch.from_numpy(gs.pagerank())
+        for hop in (0, 1, 2, 3):
+            out[f"k_hop_reach {hop}"] = reach.k_hop_reach(live.counters, hop)
+        out["heavy rows"], out["heavy cols"] = queries.heavy_hitter_buckets(live, 50.0)
+        alarm, new = queries.monitor_step(live, s1, d1, w1, torch.tensor(int(watch), device=dev), 100.0)
+        out["monitor alarm"], out["monitor counters"] = alarm, new.counters
+        out["update_sequential"] = live.update_sequential(s1, d1, w1).counters
+        out["update_conservative"] = live.update_conservative(s1, d1, w1).counters
+        out["preaggregate_edges"] = torch.cat([x.reshape(-1).double() for x in preaggregate_edges(s1, d1, w1, 1024)])
+        cm = CountMin.empty(3, width * width, 1, dev).update_(s1, d1, w1)
+        ncm = NodeCountMin.empty(3, width * width, 4, dev).update_(s1, d1, w1)
+        cs = CountSketch.empty(4, width * width, 3, dev).update_(mix_keys(s1, d1), w1)
+        gsk = GSketch.from_sample(3, width * width, 8, data["src"][:5000], 2, dev).update_(s1, d1, w1)
+        out["CountMin"], out["GSketch"] = cm.edge_query(qs, qd), gsk.edge_query(qs, qd)
+        out["NodeCountMin"] = torch.stack([ncm.out_flow(qs), ncm.in_flow(qd)])
+        out["CountSketch"] = cs.query(mix_keys(qs, qd))
+        return {name: t.cpu() for name, t in out.items()}
+
+    card, host = run(gs_cuda, "cuda"), run(gs_cpu, "cpu")
+    for name, want in host.items():
+        got = card[name]
+        if name in ("global_triangle_estimate", "sketch_pagerank", "GraphStream.pagerank"):
+            same = got.shape == want.shape and torch.allclose(got, want, rtol=1e-5, atol=0)
+        else:
+            same = got.dtype == want.dtype and torch.equal(got, want)
+        check(same, f"small session: {name} differs between the card and the CPU")
+    print(f"[chip_smoke] small session: {len(host)} analytics results (queries, PageRank, k-hop, monitor, "
+          f"sequential and conservative updates, preaggregate_edges, four baselines) equal on the card and the "
+          f"CPU (global triangle and PageRank within rtol 1e-5)")
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -1366,6 +1775,7 @@ def main() -> int:
     from repro_torch.kernels.ingest import ops as ingest_ops
     from repro_torch.kernels.ingest_fused import ops as fused_ops
     from repro_torch.kernels.query import ops as query_ops
+    from repro_torch.kernels.sequential import ops as seq_ops
     from repro_torch.launch import serve
 
     smi = subprocess.run(
@@ -1386,7 +1796,8 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for phase in (phase_ingest, phase_queries, phase_closure, phase_fused_ingest, phase_flows, phase_countsketch):
+    for phase in (phase_ingest, phase_queries, phase_closure, phase_fused_ingest, phase_flows, phase_countsketch,
+                  phase_sequential):
         out = phase(torch, gen)
         for row in out if isinstance(out, list) else [out]:
             rows[row["name"]] = row
@@ -1400,6 +1811,8 @@ def main() -> int:
     check(torch.equal(gs_cuda._live().counters.cpu(), gs_cpu._live().counters), "small: counters differ from CPU")
     check(all(_same_results(a, b) for a, b in zip(ev_cuda, ev_cpu, strict=True)), "small: results differ from CPU")
     print("[chip_smoke] small session: CUDA and CPU runs identical")
+    check_small_analytics(torch, gs_cuda, gs_cpu, small)
+    del gs_cuda, gs_cpu
 
     counted = {
         "ingest_scatter": ingest_ops.ingest_scatter,
@@ -1410,6 +1823,7 @@ def main() -> int:
         "flows": flow_ops.flows,
         "countsketch": countsketch_ops.countsketch,
         "countsketch_median": countsketch_ops.countsketch_median,
+        "sequential_update": seq_ops.sequential_update,
     }
 
     def drive(kernel_names, fn):
@@ -1509,6 +1923,17 @@ def main() -> int:
         f"fused full={finc.engine.closure_refreshes} incremental={finc.engine.closure_incremental_refreshes}; "
         f"identical to the plain run"
     )
+
+    # The analytics path: a serve BASE session, then the query plane beyond
+    # the served families, the order-dependent updates (one sequential_update
+    # launch a call) and the four baselines on its summary.
+    del inc, plain, finc
+    torch.cuda.empty_cache()
+    update_calls = drive(("sequential_update",), lambda: analytics_base(torch, serve))
+    check(rows["sequential_update"]["launches"] == update_calls,
+          f"analytics BASE: {rows['sequential_update']['launches']} sequential_update launches for "
+          f"{update_calls} update calls")
+    torch.cuda.empty_cache()
 
     # The training path: countsketch twice and its decode once per
     # compressed step.

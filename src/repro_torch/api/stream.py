@@ -50,6 +50,7 @@ from repro_torch.api.query import (
     validate_theta,
 )
 from repro_torch.api.subscription import DEFAULT_MAX_PENDING, Subscription, SubscriptionEvent
+from repro_torch.core import queries as queries_mod
 from repro_torch.core.hashing import keys_to_tensor
 from repro_torch.core.ingest import (
     pad_bucket,
@@ -563,6 +564,14 @@ class GraphStream:
         self.ingest(src, dst, weights)
         sub.poll()  # the wrapper consumes its events; last_event remains
         return bool(sub.last_event.alarm)
+
+    def pagerank(self, damping: float = 0.85, iters: int = 32) -> np.ndarray:
+        """PageRank run directly on the summary-as-a-graph (Section 3.3
+        Remark; reference ``GraphStream.pagerank``,
+        ``src/repro/api/stream.py:1118``): flushes, then returns the (d, w)
+        bucket ranks as numpy."""
+        self.flush()
+        return queries_mod.sketch_pagerank(self._live(), damping, iters).cpu().numpy()
 
     # -- convenience wrappers (vectorized) --------------------------------------
 

@@ -8,6 +8,11 @@ the sketch is non-square).  :func:`sketch_from_arrays` builds the port's
 both sides hash identically; ``GraphStream.open(sketch=...)`` opens a
 session on it.
 
+The four baselines convert from their leaves too
+(:func:`countmin_from_arrays`, :func:`node_countmin_from_arrays`,
+:func:`countsketch_from_arrays`, :func:`gsketch_from_arrays`): counters,
+hash coefficients, and gSketch's widths and partition hash.
+
 The training side converts the same way: a transformer's parameter tree
 (:func:`transformer_params_from_arrays`), an AdamW state
 (:func:`adamw_state_from_arrays`) and a gradient compressor's state
@@ -23,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.hashing import HashFamily
-from repro_torch.core.sketch import GLavaSketch, SketchConfig
+from repro_torch.core.sketch import CountMin, CountSketch, GLavaSketch, GSketch, NodeCountMin, SketchConfig
 from repro_torch.models.transformer import TransformerConfig, param_shapes
 from repro_torch.train.compression import CompressorConfig, CompressorState
 from repro_torch.train.optimizer import AdamWConfig, AdamWState
@@ -62,6 +67,55 @@ def sketch_from_arrays(
         return torch.from_numpy(np.array(x, np.float32, copy=True)).to(device)
 
     return GLavaSketch(f32(counters), row_hash, col_hash, config, f32(row_flows), f32(col_flows))
+
+
+def _family(a, b, w: int, depth: int, device) -> HashFamily:
+    if np.shape(a) != (depth,) or np.shape(b) != (depth,):
+        raise ValueError(f"hash coefficients must be ({depth},), got {np.shape(a)}, {np.shape(b)}")
+    return HashFamily.from_host(a, b, w, device)
+
+
+def countmin_from_arrays(counters, hash_a, hash_b, device: Optional[torch.device] = None) -> CountMin:
+    """A port CountMin from the reference's (d, w) counters and hash
+    coefficients (d,)."""
+    d, w = np.shape(counters)
+    return CountMin(_tensor(counters, torch.float32, device), _family(hash_a, hash_b, w, d, device))
+
+
+def node_countmin_from_arrays(counters_out, counters_in, hash_a, hash_b,
+                              device: Optional[torch.device] = None) -> NodeCountMin:
+    """A port NodeCountMin from the reference's two (d, w) counters (copied
+    into two tensors) and hash coefficients."""
+    if np.shape(counters_out) != np.shape(counters_in):
+        raise ValueError(f"counters differ in shape: {np.shape(counters_out)}, {np.shape(counters_in)}")
+    d, w = np.shape(counters_out)
+    return NodeCountMin(
+        _tensor(counters_out, torch.float32, device),
+        _tensor(counters_in, torch.float32, device),
+        _family(hash_a, hash_b, w, d, device),
+    )
+
+
+def countsketch_from_arrays(counters, hash_a, hash_b, device: Optional[torch.device] = None) -> CountSketch:
+    """A port CountSketch from the reference's (d, w) counters and hash
+    coefficients."""
+    d, w = np.shape(counters)
+    return CountSketch(_tensor(counters, torch.float32, device), _family(hash_a, hash_b, w, d, device))
+
+
+def gsketch_from_arrays(counters, hash_a, hash_b, widths, part_a, part_b,
+                        device: Optional[torch.device] = None) -> GSketch:
+    """A port GSketch from the reference's (k, d, w_max) partition counters,
+    the partitions' hash coefficients (d,), the (k,) widths and the
+    one-deep partition hash's coefficients (1,)."""
+    k, d, w_max = np.shape(counters)
+    if np.shape(widths) != (k,) or int(np.max(widths)) > w_max:
+        raise ValueError(f"widths must be ({k},) and at most {w_max}, got {np.asarray(widths)}")
+    return GSketch(
+        CountMin(_tensor(counters, torch.float32, device), _family(hash_a, hash_b, w_max, d, device)),
+        torch.from_numpy(np.asarray(widths).astype(np.int32)).to(device),
+        _family(part_a, part_b, k, 1, device),
+    )
 
 
 def _tensor(x, dtype: torch.dtype, device) -> torch.Tensor:

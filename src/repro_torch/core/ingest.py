@@ -25,9 +25,9 @@ Ingest-backend selection
 ``auto``     ``cuda`` for counters on a CUDA device, ``scatter`` on the CPU.
              There is no environment override.
 
-The reference's ``onehot`` backend (an MXU formulation) is not ported, and
-neither is the in-jit ``preaggregate_edges``: sessions collapse batches on
-the host (:func:`preaggregate_host`).
+The reference's ``onehot`` backend (an MXU formulation) is not ported.
+Sessions collapse batches on the host (:func:`preaggregate_host`);
+:func:`preaggregate_edges` is the device-side, static-shape collapse.
 """
 from __future__ import annotations
 
@@ -121,6 +121,41 @@ def resolve_preagg(mode: Optional[str] = None, batch: Optional[int] = None) -> b
     if mode in ("off", "0", "false"):
         return False
     raise ValueError(f"unknown preagg mode: {mode!r} (want auto/on/off)")
+
+
+def preaggregate_edges(src, dst, weights, out_size: int):
+    """Collapse duplicate (src, dst) pairs on the device with static shapes
+    (reference ``preaggregate_edges``, ``src/repro/core/ingest.py:271``).
+
+    A STABLE sort on the 32-bit mixed pair key (as ``lax.sort_key_val``'s,
+    so two colliding pairs keep their stream order and the runs are the
+    reference's), run boundaries by neighbour compare on the sorted (src,
+    dst) themselves (a key collision splits a run, never merges two pairs),
+    and segment sums as differences of one cumulative sum (no scatter).
+
+    Returns ``(s_rep, d_rep, w_agg, n_seg)``, the first three of shape
+    ``(out_size,)``: representative keys and summed weights of the first
+    ``min(n_seg, out_size)`` segments; slots past ``n_seg`` carry weight 0.0
+    and a duplicated real key.  ``n_seg`` is a 0-d int32 tensor; when it
+    exceeds ``out_size`` the collapse did not fit and the caller takes the
+    raw batch."""
+    from repro_torch.core.hashing import mix_keys
+
+    b = src.shape[0]
+    order = torch.sort(mix_keys(src, dst), stable=True).indices
+    s2, d2, w2 = src[order], dst[order], weights[order]
+    first = torch.ones(b, dtype=torch.bool, device=src.device)
+    first[1:] = (s2[1:] != s2[:-1]) | (d2[1:] != d2[:-1])
+    seg = torch.cumsum(first, 0, dtype=torch.int32) - 1  # (B,) non-decreasing
+    n_seg = seg[-1] + 1
+    csum = torch.cat([w2.new_zeros(1), torch.cumsum(w2, 0)])
+    starts = torch.searchsorted(
+        seg, torch.arange(out_size, dtype=torch.int32, device=src.device), side="left"
+    )
+    ends = torch.cat([starts[1:], starts.new_full((1,), b)])
+    w_agg = csum[ends] - csum[starts]
+    reps = starts.clamp(0, b - 1)
+    return s2[reps], d2[reps], w_agg, n_seg
 
 
 @dataclasses.dataclass(frozen=True)

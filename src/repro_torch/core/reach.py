@@ -33,6 +33,21 @@ def transitive_closure(adj: torch.Tensor, include_self: bool = True) -> torch.Te
     return a
 
 
+def k_hop_reach(adj: torch.Tensor, k: int) -> torch.Tensor:
+    """Nodes reachable within at most ``k`` hops (reference ``k_hop_reach``,
+    ``src/repro/core/reach.py:110``), bool, batched over the leading dims:
+    ``(adj > 0) | I``, then ``k - 1`` steps ``out | (out · a > 0)``.  The
+    0/1 product runs in bfloat16 (``torch.matmul``, float32 accumulation on
+    the card): a sum of non-negative products is positive exactly when one
+    product is, so the answer is exact at any width."""
+    a = adj > 0
+    out = a | torch.eye(adj.shape[-1], dtype=torch.bool, device=adj.device)
+    ab = a.to(torch.bfloat16)
+    for _ in range(max(0, k - 1)):
+        out = out | (torch.matmul(out.to(torch.bfloat16), ab) > 0)
+    return out
+
+
 def closure_refresh(
     closure: torch.Tensor, counters: torch.Tensor, rows: torch.Tensor
 ) -> torch.Tensor:

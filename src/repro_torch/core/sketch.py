@@ -1,8 +1,10 @@
 """gLava graph sketches.
 
-Port of ``src/repro/core/sketch.py`` (the :class:`GLavaSketch` core and its
-one-pass fused update; the baselines CountMin, NodeCountMin, CountSketch and
-gSketch, and the conservative and sequential updates, are not ported yet).
+Port of ``src/repro/core/sketch.py``: the :class:`GLavaSketch` core, its
+one-pass fused update and its order-dependent sequential and conservative
+updates, and the four baselines the paper measures gLava against
+(:class:`CountMin`, :class:`NodeCountMin`, :class:`CountSketch`,
+:class:`GSketch`).  ``scatter_stacked`` (the fleet's) is not ported yet.
 
 :class:`GLavaSketch` holds ``d`` independent graph sketches, each a
 ``w_r × w_c`` weighted adjacency matrix over hashed node buckets (paper
@@ -11,7 +13,8 @@ sums of the counters) that point, flow and heavy-hitter queries read.
 
 The reference is functional: every update returns a new sketch.  The port
 updates IN PLACE through the trailing-underscore methods (``update_``,
-``update_preaggregated_``, ``update_fused_``, ``delete_``), which is its
+``update_preaggregated_``, ``update_fused_``, ``update_sequential_``,
+``update_conservative_``, ``delete_``), which is its
 counterpart of the reference's buffer donation; the plain-named methods keep
 the reference's functional meaning by updating a clone.  ``merge`` and ``scale`` return new
 tensors, so no result aliases an operand.
@@ -24,9 +27,11 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.core.hashing import HashFamily, make_hash_family
+from repro_torch.core.hashing import HashFamily, keys_to_tensor, make_hash_family, mix_keys
 from repro_torch.core.ingest import IngestEngine
+from repro_torch.kernels.countsketch.ref import median_ref
 from repro_torch.kernels.ingest_fused.ops import fused_ingest
+from repro_torch.kernels.sequential.ops import sequential_update
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,13 +71,21 @@ class SketchConfig:
         return eps, delta
 
 
+def _weights(src: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """Float32 weights of a batch; ones when none are given."""
+    if weights is None:
+        return torch.ones(src.shape, dtype=torch.float32, device=src.device)
+    return weights.to(torch.float32)
+
+
 def scatter_register(register: torch.Tensor, buckets: torch.Tensor, weights: torch.Tensor):
-    """Scatter-add ``weights`` (B,) into one (d, w) flow register at per-depth
+    """Scatter-add ``weights`` ((B,), or (d, B) per depth) into one (d, w)
+    register (a flow register, or a baseline's counters) at per-depth
     ``buckets`` (d, B), in place; returns the register."""
     d, w = register.shape
     d_idx = torch.arange(d, device=register.device)[:, None]
     flat = (d_idx * w + buckets.long()).reshape(-1)
-    vals = weights.to(register.dtype)[None, :].expand(buckets.shape).reshape(-1)
+    vals = weights.to(register.dtype).expand(buckets.shape).reshape(-1)
     register.view(-1).index_add_(0, flat, vals)
     return register
 
@@ -179,9 +192,7 @@ class GLavaSketch:
         """Ingest a batch of stream elements (x, y; w) in place: counters
         through the :class:`IngestEngine`, both registers by scatter, and the
         mirrored edge too for undirected sketches (paper Section 6.1.1)."""
-        if weights is None:
-            weights = torch.ones(src.shape, dtype=torch.float32, device=src.device)
-        weights = weights.to(torch.float32)
+        weights = _weights(src, weights)
         engine = IngestEngine(backend)
         r, c = self.hash_edges(src, dst)
         engine(self.counters, r, c, weights)
@@ -237,9 +248,7 @@ class GLavaSketch:
         ``QueryEngine.refresh_closure``.  Undirected sketches make a second
         launch for the mirrored edges, which ORs its rows into the first
         launch's bitmap."""
-        if weights is None:
-            weights = torch.ones(src.shape, dtype=torch.float32, device=src.device)
-        weights = weights.to(torch.float32)
+        weights = _weights(src, weights)
         r, c = self.hash_edges(src, dst)
         *_, touched = fused_ingest(self.counters, self.row_flows, self.col_flows, r, c, weights)
         if not self.config.directed:
@@ -247,12 +256,43 @@ class GLavaSketch:
             fused_ingest(self.counters, self.row_flows, self.col_flows, r2, c2, weights, touched)
         return self, touched
 
+    def update_sequential_(self, src, dst, weights=None) -> "GLavaSketch":
+        """Strictly sequential per-edge ingest in place, the paper's literal
+        Step 2 (reference ``update_sequential``, ``src/repro/core/sketch.py:399``):
+        the edges are added one after another in stream order
+        (``kernels/sequential``, one launch), the mirrored batch of an
+        undirected sketch through the batched ingest, and the registers are
+        recomputed from the counters."""
+        weights = _weights(src, weights)
+        r, c = self.hash_edges(src, dst)
+        sequential_update(self.counters, r, c, weights, conservative=False)
+        if not self.config.directed:
+            r2, c2 = self.hash_edges(dst, src)
+            IngestEngine("auto")(self.counters, r2, c2, weights)
+        return self._recompute_registers()
+
+    def update_conservative_(self, src, dst, weights=None) -> "GLavaSketch":
+        """Conservative update (Estan–Varghese) in place (reference
+        ``update_conservative``, ``src/repro/core/sketch.py:420``): edge by
+        edge in stream order, each of the edge's d cells is raised to
+        ``max(cell, min of the d cells + w)`` (``kernels/sequential``, one
+        launch); the update is non-linear, so the registers are recomputed
+        from the counters.  Undirected edges are not mirrored, as in the
+        reference."""
+        weights = _weights(src, weights)
+        r, c = self.hash_edges(src, dst)
+        sequential_update(self.counters, r, c, weights, conservative=True)
+        return self._recompute_registers()
+
+    def _recompute_registers(self) -> "GLavaSketch":
+        torch.sum(self.counters, dim=2, out=self.row_flows)
+        torch.sum(self.counters, dim=1, out=self.col_flows)
+        return self
+
     def delete_(self, src, dst, weights=None, backend: str = "auto") -> "GLavaSketch":
         """Turnstile deletion (paper Section 6.1.1) in place: a
         negative-weight update."""
-        if weights is None:
-            weights = torch.ones(src.shape, dtype=torch.float32, device=src.device)
-        return self.update_(src, dst, -weights.to(torch.float32), backend=backend)
+        return self.update_(src, dst, -_weights(src, weights), backend=backend)
 
     # -- functional forms (the reference's semantics) ----------------------------
 
@@ -265,6 +305,16 @@ class GLavaSketch:
     def update_fused(self, src, dst, weights=None):
         """``(new_sketch, touched)``; this sketch is left as it was."""
         return self.clone().update_fused_(src, dst, weights)
+
+    def update_sequential(self, src, dst, weights=None) -> "GLavaSketch":
+        """Reference ``update_sequential`` (``src/repro/core/sketch.py:399``):
+        :meth:`update_sequential_` on a copy."""
+        return self.clone().update_sequential_(src, dst, weights)
+
+    def update_conservative(self, src, dst, weights=None) -> "GLavaSketch":
+        """Reference ``update_conservative`` (``src/repro/core/sketch.py:420``):
+        :meth:`update_conservative_` on a copy."""
+        return self.clone().update_conservative_(src, dst, weights)
 
     def delete(self, src, dst, weights=None, backend: str = "auto") -> "GLavaSketch":
         return self.clone().delete_(src, dst, weights, backend=backend)
@@ -303,3 +353,184 @@ class GLavaSketch:
         return self.row_hash.same_values(other.row_hash) and self.col_hash.same_values(
             other.col_hash
         )
+
+
+# ---------------------------------------------------------------------------
+# Baselines: CountMin (edge-keyed), node-stream CountMin, CountSketch, gSketch
+# ---------------------------------------------------------------------------
+#
+# Port of the reference's baselines (``src/repro/core/sketch.py:490-658``).
+# Each takes an explicit ``device`` and a CPU ``torch.Generator`` (or an int
+# seed) where the reference takes a JAX key; their hash draws are PyTorch's,
+# so parity tests carry the reference's state across with ``convert.py``.
+# The scatters are the reference's ``.at[].add`` (no Pallas kernel), done by
+# :func:`scatter_register` (``index_add_``) and, for gSketch's stacked
+# partitions, ``index_put_(accumulate=True)``.  As for GLavaSketch,
+# ``update_`` updates in place and ``update`` returns a new sketch.
+
+
+def _generator(generator: Union[torch.Generator, int]) -> torch.Generator:
+    if isinstance(generator, torch.Generator):
+        return generator
+    return torch.Generator().manual_seed(int(generator))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CountMin:
+    """Classic CountMin over EDGE keys (``mix_keys(src, dst)``), the Example-2
+    baseline (reference ``CountMin``, ``src/repro/core/sketch.py:490``): it
+    treats each stream element on its own, so it answers edge frequencies and
+    nothing that needs connectivity."""
+
+    counters: torch.Tensor  # (d, w) float32
+    hash: HashFamily
+
+    @staticmethod
+    def empty(depth: int, width: int, generator: Union[torch.Generator, int] = 0,
+              device: Optional[torch.device] = None) -> "CountMin":
+        fam = make_hash_family(_generator(generator), depth, width, device)
+        return CountMin(torch.zeros((depth, width), dtype=torch.float32, device=device), fam)
+
+    def update_(self, src, dst, weights=None) -> "CountMin":
+        scatter_register(self.counters, self.hash(mix_keys(src, dst)), _weights(src, weights))
+        return self
+
+    def update(self, src, dst, weights=None) -> "CountMin":
+        return dataclasses.replace(self, counters=self.counters.clone()).update_(src, dst, weights)
+
+    def edge_query(self, src, dst) -> torch.Tensor:
+        h = self.hash(mix_keys(src, dst))  # (d, Q)
+        return torch.gather(self.counters, 1, h).amin(dim=0)
+
+    def merge(self, other: "CountMin") -> "CountMin":
+        return dataclasses.replace(self, counters=self.counters + other.counters)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NodeCountMin:
+    """CountMin over the node stream (paper Section 5.2's reduction; reference
+    ``NodeCountMin``, ``src/repro/core/sketch.py:526``): one CountMin keyed by
+    each edge's source, one by its destination; the point-query baseline.
+    The two counters are separate tensors (the reference may share one zero
+    array between them; the port updates in place)."""
+
+    counters_out: torch.Tensor  # (d, w) keyed by src
+    counters_in: torch.Tensor   # (d, w) keyed by dst
+    hash: HashFamily
+
+    @staticmethod
+    def empty(depth: int, width: int, generator: Union[torch.Generator, int] = 0,
+              device: Optional[torch.device] = None) -> "NodeCountMin":
+        fam = make_hash_family(_generator(generator), depth, width, device)
+        zeros = lambda: torch.zeros((depth, width), dtype=torch.float32, device=device)  # noqa: E731
+        return NodeCountMin(zeros(), zeros(), fam)
+
+    def update_(self, src, dst, weights=None) -> "NodeCountMin":
+        w = _weights(src, weights)
+        scatter_register(self.counters_out, self.hash(src), w)
+        scatter_register(self.counters_in, self.hash(dst), w)
+        return self
+
+    def update(self, src, dst, weights=None) -> "NodeCountMin":
+        return dataclasses.replace(
+            self, counters_out=self.counters_out.clone(), counters_in=self.counters_in.clone()
+        ).update_(src, dst, weights)
+
+    def out_flow(self, keys) -> torch.Tensor:
+        return torch.gather(self.counters_out, 1, self.hash(keys)).amin(dim=0)
+
+    def in_flow(self, keys) -> torch.Tensor:
+        return torch.gather(self.counters_in, 1, self.hash(keys)).amin(dim=0)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CountSketch:
+    """Signed sketch (AMS/CountSketch) over keys, an unbiased estimator with a
+    median merge (reference ``CountSketch``, ``src/repro/core/sketch.py:566``).
+    The median follows ``jnp.median``: the midpoint of the two middle values
+    for an even depth, NaN where any value is NaN
+    (``kernels/countsketch/ref.py::median_ref``)."""
+
+    counters: torch.Tensor  # (d, w) float32
+    hash: HashFamily
+
+    @staticmethod
+    def empty(depth: int, width: int, generator: Union[torch.Generator, int] = 0,
+              device: Optional[torch.device] = None) -> "CountSketch":
+        fam = make_hash_family(_generator(generator), depth, width, device)
+        return CountSketch(torch.zeros((depth, width), dtype=torch.float32, device=device), fam)
+
+    def update_(self, keys, weights) -> "CountSketch":
+        s = self.hash.signs(keys).to(torch.float32)  # (d, B) ±1
+        scatter_register(self.counters, self.hash(keys), s * weights.to(torch.float32)[None, :])
+        return self
+
+    def update(self, keys, weights) -> "CountSketch":
+        return dataclasses.replace(self, counters=self.counters.clone()).update_(keys, weights)
+
+    def query(self, keys) -> torch.Tensor:
+        h = self.hash(keys)
+        s = self.hash.signs(keys).to(torch.float32)
+        return median_ref(torch.gather(self.counters, 1, h) * s)
+
+    def merge(self, other: "CountSketch") -> "CountSketch":
+        return dataclasses.replace(self, counters=self.counters + other.counters)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GSketch:
+    """gSketch (Zhao et al., PVLDB'11; reference ``GSketch``,
+    ``src/repro/core/sketch.py:598``): CountMin partitioned by a data sample,
+    so hot regions of the stream get proportionally wider partitions.  A
+    one-deep hash of the edge's source routes it to one of ``k`` CountMin
+    partitions stacked as ``(k, d, w_max)`` counters, partition p using its
+    first ``widths[p]`` columns."""
+
+    partitions: CountMin     # counters (k, d, w_max)
+    widths: torch.Tensor     # (k,) int32 — active width per partition
+    part_hash: HashFamily    # 1-deep hash onto [0, k)
+
+    @staticmethod
+    def allocate_widths(part_hash: HashFamily, sample_src, k: int, total_width: int) -> np.ndarray:
+        """Partition widths proportional to the sample's mass per partition,
+        exactly as the reference's ``from_sample`` computes them (numpy,
+        ``bincount + 1``, at least 8 each, int64)."""
+        part_of = part_hash(keys_to_tensor(sample_src, part_hash.device)).cpu().numpy()[0]
+        mass = np.bincount(part_of, minlength=k).astype(np.float64) + 1.0
+        return np.maximum(8, (total_width * mass / mass.sum()).astype(np.int64))
+
+    @staticmethod
+    def from_sample(depth: int, total_width: int, k: int, sample_src,
+                    generator: Union[torch.Generator, int] = 0,
+                    device: Optional[torch.device] = None) -> "GSketch":
+        """Reference ``GSketch.from_sample`` (``src/repro/core/sketch.py:612``):
+        the partition hash, then the widths from the sample, then the
+        partitions' family over the widest width."""
+        gen = _generator(generator)
+        part_hash = make_hash_family(gen, 1, k, device)
+        widths = GSketch.allocate_widths(part_hash, sample_src, k, total_width)
+        w_max = int(widths.max())
+        fam = make_hash_family(gen, depth, w_max, device)
+        counters = torch.zeros((k, depth, w_max), dtype=torch.float32, device=device)
+        return GSketch(
+            CountMin(counters, fam), torch.from_numpy(widths.astype(np.int32)).to(device), part_hash
+        )
+
+    def _cells(self, src, dst):
+        part = self.part_hash(src)[0]                                  # (B,)
+        h = self.partitions.hash(mix_keys(src, dst)) % self.widths[part][None, :]  # (d, B)
+        d_idx = torch.arange(h.shape[0], device=h.device)[:, None].expand(h.shape)
+        return part[None, :].expand(h.shape), d_idx, h
+
+    def update_(self, src, dst, weights=None) -> "GSketch":
+        cells = self._cells(src, dst)
+        w = _weights(src, weights)[None, :].expand(cells[2].shape)
+        self.partitions.counters.index_put_(cells, w, accumulate=True)
+        return self
+
+    def update(self, src, dst, weights=None) -> "GSketch":
+        parts = dataclasses.replace(self.partitions, counters=self.partitions.counters.clone())
+        return dataclasses.replace(self, partitions=parts).update_(src, dst, weights)
+
+    def edge_query(self, src, dst) -> torch.Tensor:
+        return self.partitions.counters[self._cells(src, dst)].amin(dim=0)

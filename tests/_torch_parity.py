@@ -32,6 +32,46 @@ def to_port(sk, device="cpu"):
     )
 
 
+def countmin_to_port(cm, device="cpu"):
+    from repro_torch.convert import countmin_from_arrays
+
+    return countmin_from_arrays(np.asarray(cm.counters), np.asarray(cm.hash.a), np.asarray(cm.hash.b), device)
+
+
+def node_countmin_to_port(ncm, device="cpu"):
+    from repro_torch.convert import node_countmin_from_arrays
+
+    return node_countmin_from_arrays(
+        np.asarray(ncm.counters_out), np.asarray(ncm.counters_in),
+        np.asarray(ncm.hash.a), np.asarray(ncm.hash.b), device,
+    )
+
+
+def countsketch_to_port(cs, device="cpu"):
+    from repro_torch.convert import countsketch_from_arrays
+
+    return countsketch_from_arrays(np.asarray(cs.counters), np.asarray(cs.hash.a), np.asarray(cs.hash.b), device)
+
+
+def gsketch_to_port(gs, device="cpu"):
+    from repro_torch.convert import gsketch_from_arrays
+
+    return gsketch_from_arrays(
+        np.asarray(gs.partitions.counters), np.asarray(gs.partitions.hash.a),
+        np.asarray(gs.partitions.hash.b), np.asarray(gs.widths),
+        np.asarray(gs.part_hash.a), np.asarray(gs.part_hash.b), device,
+    )
+
+
+def keys_pair(*arrays):
+    """Each numpy uint32 key array as a (jnp array, port int64 tensor) pair."""
+    import jax.numpy as jnp
+
+    from repro_torch.core.hashing import keys_to_tensor
+
+    return [(jnp.asarray(a, jnp.uint32), keys_to_tensor(a)) for a in arrays]
+
+
 def open_pair(cfg, seed=0, **kwargs):
     """A reference session and a port session (on the CPU) holding the same
     sketch; ``kwargs`` (e.g. ``ingest_backend``) go to both."""

@@ -21,6 +21,8 @@ from repro_torch.kernels.ingest_fused import ops as fused_ops
 from repro_torch.kernels.ingest_fused.ref import fused_ingest_ref
 from repro_torch.kernels.query import ops as query_ops
 from repro_torch.kernels.query.ref import edge_query_cells_ref, edge_query_min_ref
+from repro_torch.kernels.sequential import ops as seq_ops
+from repro_torch.kernels.sequential.ref import sequential_update_ref
 from repro_torch.launch import serve, train_lm
 
 pytestmark = pytest.mark.gpu
@@ -575,3 +577,112 @@ def test_tiny_compressed_train_step_on_card_close_to_cpu(cuda):
     p_card = card.result.state["params"]["layers"]["wq"].cpu()
     p_host = host.result.state["params"]["layers"]["wq"]
     torch.testing.assert_close(p_card, p_host, rtol=1e-4, atol=1e-4)
+
+
+# -- the order-dependent updates (port-only kernel) and the analytics plane ---------
+
+
+def _seq_batch(d, wr, wc, b, index_dtype, pattern, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    counters = torch.randint(0, 50, (d, wr, wc), generator=g, device="cuda").float()
+    if pattern == "repeats":  # few cells, so edges revisit cells within the batch
+        rows = torch.randint(0, 3, (d, b), generator=g, device="cuda")
+        cols = torch.randint(0, 3, (d, b), generator=g, device="cuda")
+    else:
+        rows = torch.randint(0, wr, (d, b), generator=g, device="cuda")
+        cols = torch.randint(0, wc, (d, b), generator=g, device="cuda")
+    w = torch.randint(1, 9, (b,), generator=g, device="cuda").float()
+    return counters, rows.to(index_dtype), cols.to(index_dtype), w
+
+
+@pytest.mark.parametrize("pattern", ["uniform", "repeats"])
+@pytest.mark.parametrize("conservative", [False, True], ids=["sequential", "conservative"])
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("d", [1, 5, 8])
+def test_sequential_kernel_bit_equals_plain_loop(cuda, d, index_dtype, conservative, pattern):
+    counters, rows, cols, w = _seq_batch(d, 64, 48, 333, index_dtype, pattern, d)
+    before = seq_ops.sequential_update.launches
+    got = seq_ops.sequential_update(counters.clone(), rows, cols, w, conservative)
+    assert seq_ops.sequential_update.launches == before + 1
+    want = sequential_update_ref(counters.clone(), rows, cols, w, conservative)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("conservative", [False, True], ids=["sequential", "conservative"])
+def test_sequential_kernel_float_weights_bit_equal(cuda, conservative):
+    counters, rows, cols, _ = _seq_batch(5, 16, 16, 2000, torch.int64, "repeats", 7)
+    w = torch.randn(2000, generator=cuda, device="cuda") * 3.7
+    counters = counters + torch.rand(counters.shape, generator=cuda, device="cuda")
+    got = seq_ops.sequential_update(counters.clone(), rows, cols, w, conservative)
+    want = sequential_update_ref(counters.clone(), rows, cols, w, conservative)
+    assert torch.equal(got, want)
+
+
+def test_sequential_kernel_matches_ingest_in_the_counting_regime(cuda):
+    counters, rows, cols, w = _seq_batch(5, 512, 512, 50_000, torch.int64, "uniform", 3)
+    got = seq_ops.sequential_update(counters.clone(), rows, cols, w, False)
+    assert torch.equal(got, ingest_scatter_ref(counters.clone(), rows, cols, w))
+
+
+def test_sequential_kernel_refuses_bad_operands_on_the_card(cuda):
+    idx = torch.zeros(33, 4, dtype=torch.int64, device="cuda")
+    with pytest.raises(ValueError, match="at most 32"):
+        seq_ops.sequential_update(torch.zeros(33, 8, 8, device="cuda"), idx, idx, torch.ones(4, device="cuda"), True)
+    idx = idx[:3]
+    for rows, cols in ((idx.float(), idx.float()), (idx, idx.int())):
+        with pytest.raises(ValueError):
+            seq_ops.sequential_update(torch.zeros(3, 8, 8, device="cuda"), rows, cols, torch.ones(4, device="cuda"), True)
+    # An edge with a bucket out of range is left out on the card.
+    rows = torch.tensor([[0, 9, 1]], device="cuda")
+    got = seq_ops.sequential_update(torch.zeros(1, 8, 8, device="cuda"), rows, rows.clone(), torch.ones(3, device="cuda"), False)
+    assert float(got.sum()) == 2 and float(got[0, 0, 0]) == 1 and float(got[0, 1, 1]) == 1
+
+
+def test_sequential_kernel_launches_on_the_current_stream(cuda):
+    counters, rows, cols, w = _seq_batch(5, 256, 256, 20_000, torch.int32, "uniform", 4)
+    side = torch.cuda.Stream()
+    work = counters.clone()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        seq_ops.sequential_update(work, rows, cols, w, True)
+        after = work.clone()
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(after, sequential_update_ref(counters.clone(), rows, cols, w, True))
+
+
+def test_analytics_functions_on_card_equal_cpu(cuda):
+    from repro_torch.core import queries
+    from repro_torch.core.hashing import keys_to_tensor, mix_keys
+    from repro_torch.core.ingest import preaggregate_edges
+    from repro_torch.core.sketch import CountMin, CountSketch, GSketch, NodeCountMin
+
+    argv = ["--nodes", "2000", "--edges", "20000", "--batch", "5000", "--width", "128", "--depth", "4"]
+    gpu, _, _ = serve.main(argv)
+    cpu, _, _ = serve.main(argv + ["--device", "cpu"])
+    rng = np.random.default_rng(0)
+    qs_np, qd_np = rng.integers(0, 2000, 300).astype(np.uint32), rng.integers(0, 2000, 300).astype(np.uint32)
+
+    def run(gs, dev):
+        live = gs._live()
+        qs, qd = keys_to_tensor(qs_np, dev), keys_to_tensor(qd_np, dev)
+        w = torch.arange(300, device=dev).float() % 7 + 1
+        out = [queries.wildcard_edge_query(live, *a) for a in ((qs, qd), (qs, None), (None, qd), (None, None))]
+        out += [queries.bound_wildcard_path2(live, qd, qs), queries.triangle_query(live, qs[0], qs[1], qs[2])]
+        out += list(queries.heavy_hitter_buckets(live, 40.0))
+        out += [reach.k_hop_reach(live.counters, k) for k in range(4)]
+        alarm, new = queries.monitor_step(live, qs, qd, w, qd[0], 30.0)
+        out += [alarm, new.counters, live.update_sequential(qs, qd, w).counters,
+                live.update_conservative(qs, qd, w).counters]
+        out += list(preaggregate_edges(qs, qd, w, 512))
+        out += [CountMin.empty(3, 4096, 1, dev).update_(qs, qd, w).edge_query(qs, qd),
+                NodeCountMin.empty(3, 4096, 1, dev).update_(qs, qd, w).in_flow(qd),
+                CountSketch.empty(4, 4096, 1, dev).update_(mix_keys(qs, qd), w).query(mix_keys(qs, qd)),
+                GSketch.from_sample(3, 4096, 4, qs_np, 1, dev).update_(qs, qd, w).edge_query(qs, qd)]
+        close = [queries.global_triangle_estimate(live), queries.sketch_pagerank(live), torch.from_numpy(gs.pagerank())]
+        return [t.cpu() for t in out], [t.cpu() for t in close]
+
+    (exact_g, close_g), (exact_c, close_c) = run(gpu, "cuda"), run(cpu, "cpu")
+    for i, (g, c) in enumerate(zip(exact_g, exact_c, strict=True)):
+        assert g.dtype == c.dtype and torch.equal(g, c), i
+    for g, c in zip(close_g, close_c, strict=True):
+        torch.testing.assert_close(g, c, rtol=1e-5, atol=1e-7)
