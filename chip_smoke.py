@@ -73,6 +73,22 @@ before and read just after:
   with 8 partitions) fed the session's 500,000 edges, held to their
   over-estimate and signed-error properties against numpy counts; each
   function's time on the card;
+- durable window serve BASE: ``serve.main(SERVE_BASE + --window-slices 4
+  --slice-width 1.0 --max-lateness 1.0 --wal-dir DIR)`` (10 slices of event
+  time through a ring of 4), then the first batch again at event time 0
+  (every edge late, retracted), on the kernels and on the plain backends:
+  identical ring, registers, watermark tracker, counts and transcript, and
+  ``ingest_scatter`` launched exactly once per (batch, slot) group plus once
+  per retraction, as counted on the host from the timestamps; a fresh
+  session's genesis replay of the WAL (``seek(0)``, ``recover()``) equal to
+  it; the window's sum and advance, one slot group's ingest kernel and the
+  WAL's appends timed beside their bounds; a plain BASE session with a WAL
+  and checkpoints (5 batches, ``checkpoint()``, 5 more, dropped,
+  ``recover()``) equal to the uninterrupted run, with save, restore and
+  recovery seconds; the small durable windowed session on the card against
+  the CPU, its card checkpoint restored and its WAL replayed on the CPU; the
+  tiny trainer on the card crashed at step 11 and resumed from step 10
+  (uncompressed: the same losses bit for bit; compressed: rtol 1e-4);
 - train 100m: ``repro_torch.launch.train_lm --preset 100m --compress`` for
   10 steps at the example's batch 8 and sequence 64 (full width, random
   weights from a seed): countsketch launched twice a step and its decode
@@ -1233,8 +1249,7 @@ def check_same(torch, a, ev_a, b, ev_b, label):
     for name in ("counters", "row_flows", "col_flows"):
         check(torch.equal(getattr(ka, name), getattr(kb, name)), f"{label}: {name} differ")
     check(bool(torch.isfinite(ka.counters).all()), f"{label}: non-finite counters")
-    check(len(ev_a) == len(ev_b) and len(ev_a) > 0, f"{label}: {len(ev_a)} vs {len(ev_b)} events")
-    check(all(_same_results(x, y) for x, y in zip(ev_a, ev_b)), f"{label}: subscription results differ")
+    same_events(ev_a, ev_b, label)
 
 
 def profile_serve(torch, serve, argv, label):
@@ -1752,6 +1767,375 @@ def check_small_analytics(torch, gs_cuda, gs_cpu, argv):
           f"CPU (global triangle and PageRank within rtol 1e-5)")
 
 
+# The durable window serve BASE cell: serve BASE's traffic with event time
+# (one slice of event time a batch, each edge lagging by up to --max-lateness)
+# through a ring of 4 slices (lead 1 slice), logged to a WAL.
+EVENT_TIME = ["--window-slices", "4", "--slice-width", "1.0", "--max-lateness", "1.0"]
+SERVE_WINDOW = SERVE_BASE + EVENT_TIME
+SMALL = ["--depth", "3", "--width", "256", "--nodes", "2000", "--edges", "20000", "--batch", "5000"]
+
+
+def eventtime_launches(ts_batches, k: int, width: float, lateness: float) -> int:
+    """The ingest-kernel launches an event-time session on a ring of ``k``
+    slices makes for these batches of event times (directed sketch, retract
+    policy, one source): one per distinct slice a batch's edges land in
+    after the late ones are clamped to the oldest live slice, plus one per
+    batch holding late edges (their retraction).  Counted on the host from
+    the timestamps alone, by the watermark rule the session documents."""
+    import math
+
+    import numpy as np
+
+    lead = math.ceil(lateness / width)
+    seen_max = watermark = -math.inf
+    head = None
+    launches = 0
+    for ts in ts_batches:
+        promised = watermark
+        seen_max = max(seen_max, float(ts.max()))
+        watermark = max(watermark, seen_max - lateness)
+        b = np.floor_divide(ts, width).astype(np.int64)
+        late = ts < promised
+        target = math.floor(watermark / width) + lead
+        if not late.all():
+            target = max(target, int(b[~late].max()))
+        head = target if head is None else max(head, target)
+        floor_slice = head - k + 1
+        late |= b < floor_slice
+        launches += len(np.unique(np.where(late, floor_slice, b))) + int(late.any())
+    return launches
+
+
+def same_window(torch, a, b, label, stats=True):
+    """Two windowed event-time sessions hold the same ring, tracker and epoch
+    (and, with ``stats``, the same count of auto-advances: a restored session
+    starts its stats afresh)."""
+    for name in ("slices", "row_flows", "col_flows"):
+        check(torch.equal(getattr(a._window, name).cpu(), getattr(b._window, name).cpu()), f"{label}: {name} differ")
+    check(a._window.current == b._window.current and a._head_slice == b._head_slice, f"{label}: ring positions differ")
+    check(a._tracker.state() == b._tracker.state() and a.epoch == b.epoch, f"{label}: trackers or epochs differ")
+    check(not stats or a.stats.auto_advances == b.stats.auto_advances, f"{label}: auto-advances differ")
+
+
+def same_events(ev_a, ev_b, label):
+    check(len(ev_a) == len(ev_b) and len(ev_a) > 0, f"{label}: {len(ev_a)} vs {len(ev_b)} events")
+    check(all(_same_results(x, y) for x, y in zip(ev_a, ev_b)), f"{label}: subscription results differ")
+
+
+def phase_durable_window(torch, serve, counted):
+    """The durable window serve BASE cell and its checks: (a) the windowed
+    event-time serve on the kernels and on the plain backends, plus one late
+    batch; (b) genesis replay of its WAL; (c) checkpoint plus WAL suffix on a
+    plain BASE session; (d) the small durable windowed session, card against
+    CPU; (e) the trainer's resume on the card."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-durable-"))
+    try:
+        kern, kev = window_serve(torch, serve, counted, tmp)
+        window_replay(torch, serve, kern, kev, tmp)
+        window_times(torch, serve, kern, tmp)
+        del kern, kev
+        torch.cuda.empty_cache()
+        checkpoint_suffix(torch, serve, tmp)
+        torch.cuda.empty_cache()
+        small_durable(torch, serve, tmp)
+        trainer_resume(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def window_serve(torch, serve, counted, tmp):
+    """(a) ``serve.main(SERVE_WINDOW + --wal-dir)`` on the kernels (counts
+    from this run only) and on the plain backends, each followed by serve
+    BASE's first batch sent again at event time 0 (below the watermark:
+    every edge late, retracted); the two must be identical, and the ingest
+    kernel must launch once per (batch, slot) group plus once per
+    retraction."""
+    import numpy as np
+
+    from repro_torch.kernels.closure.ops import closure_steps
+
+    args = serve.build_parser().parse_args(SERVE_WINDOW)
+    data, ts_all, _ = serve.traffic(args)
+    b, n = args.batch, args.edges
+    late = (data["src"][:b], data["dst"][:b], data["weight"][:b])
+
+    def run(argv):
+        t0 = time.time()
+        stream, sub, events = serve.main(argv)
+        stream.ingest(*late, timestamps=np.zeros(b))
+        events = events + sub.poll()
+        torch.cuda.synchronize()
+        return stream, events, time.time() - t0
+
+    for f in counted.values():
+        f.launches = 0
+    kern, kev, kern_s = run(SERVE_WINDOW + ["--wal-dir", str(tmp / "wal-kernels")])
+    launches = {name: counted[name].launches for name in ("ingest_scatter", "edge_query_min", "closure_step")}
+    for name, count in launches.items():
+        check(count > 0, f"durable window serve BASE: {name} was not launched")
+    plain, pev, plain_s = run(SERVE_WINDOW + PLAIN_BACKENDS + ["--wal-dir", str(tmp / "wal-plain")])
+    same_window(torch, kern, plain, "durable window serve BASE vs plain")
+    same_events(kev, pev, "durable window serve BASE vs plain")
+    batches = [ts_all[lo:lo + b] for lo in range(0, n, b)] + [np.zeros(b)]
+    want = eventtime_launches(batches, flag(EVENT_TIME, "--window-slices"), 1.0, 1.0)
+    check(launches["ingest_scatter"] == want,
+          f"durable window serve BASE: {launches['ingest_scatter']} ingest launches, the host counts {want} "
+          f"(batch, slot) groups and retractions")
+    check(kern.late_retracted == b and kern.late_dropped == 0,
+          f"durable window serve BASE: {kern.late_retracted} retracted, {kern.late_dropped} dropped")
+    check(launches["closure_step"] == kern.engine.closure_refreshes * closure_steps(BASE_WIDTH),
+          f"durable window serve BASE: {launches['closure_step']} closure launches")
+    check(launches["edge_query_min"] == len(kev), f"durable window serve BASE: {launches['edge_query_min']} edge-query "
+          f"launches for {len(kev)} ticks")
+    print(
+        f"[chip_smoke] durable window serve BASE (K=4, slice 1.0, lateness 1.0, WAL, then the first batch again "
+        f"at event time 0): kernels {kern_s:.3f} s, plain {plain_s:.3f} s (host wall clock); {len(kev)} ticks, "
+        f"{kern.stats.auto_advances} auto-advances, watermark {kern.watermark}, {kern.late_retracted} retracted; "
+        f"launches: ingest_scatter {launches['ingest_scatter']} (host count of groups and retractions {want}), "
+        f"edge_query_min {launches['edge_query_min']}, closure_step {launches['closure_step']} "
+        f"({kern.engine.closure_refreshes} full rebuilds); the window materialized {kern.window_sums} times; "
+        f"ring, registers, tracker and transcript identical to the plain run"
+    )
+    return kern, kev
+
+
+def window_replay(torch, serve, kern, kev, tmp):
+    """(b) A fresh session with the same flags subscribes, seeks to 0 and
+    recovers from the kernels run's WAL alone: bit-identical to (a)."""
+    args = serve.build_parser().parse_args(SERVE_WINDOW + ["--wal-dir", str(tmp / "wal-kernels")])
+    fresh = serve.open_stream(args)
+    sub = fresh.subscribe(serve.traffic(args)[2], every=args.every, name="mixed-workload")
+    sub.seek(0)
+    t0 = time.time()
+    report = fresh.recover()
+    torch.cuda.synchronize()
+    replay_s = time.time() - t0
+    n_batches = -(-args.edges // args.batch)
+    check(report.step is None and report.mutations_replayed == n_batches + 1,
+          f"genesis replay: step {report.step}, {report.mutations_replayed} mutations")
+    same_window(torch, fresh, kern, "genesis replay vs the live run")
+    same_events(sub.poll(), kev, "genesis replay vs the live run")
+    wal_mb = sum(p.stat().st_size for p in (tmp / "wal-kernels").glob("wal-*.seg")) / 1e6
+    print(
+        f"[chip_smoke] genesis replay of the durable window run: {report.mutations_replayed} mutations "
+        f"({wal_mb:.2f} MB of WAL) in {replay_s:.3f} s (host wall clock); ring, registers, tracker and "
+        f"transcript identical"
+    )
+
+
+def window_times(torch, serve, kern, tmp):
+    """Times of the window's own operations at BASE, K=4 (CUDA events), one
+    slot group's ingest kernel (profiler) and the WAL's appends (host
+    clock), each beside its bound.  Run after the comparisons: it changes
+    the ring."""
+    import numpy as np
+
+    from repro_torch.core.hashing import keys_to_tensor
+    from repro_torch.core.ingest import pad_bucket
+    from repro_torch.kernels.ingest.ops import ingest_scatter
+    from repro_torch.stream.wal import RECORD_SIZE, WriteAheadLog
+
+    win = kern._window
+    k, d, wr, wc = win.slices.shape
+    reg = d * (wr + wc) * 4
+    sum_ms = time_ms(win.window_sketch, 10)
+    sum_bound = ((k + 1) * d * wr * wc * 4 + (k + 1) * reg) / PEAK_BYTES_PER_S * 1e3
+    adv_ms = time_ms(win.advance_, 20)
+    adv_bound = (d * wr * wc * 4 + reg) / PEAK_BYTES_PER_S * 1e3
+    # One slot group as the session hands it over: batch 2's edges of its
+    # lower slice, padded, hashed into int64 buckets.
+    args = serve.build_parser().parse_args(SERVE_WINDOW)
+    data, ts_all, _ = serve.traffic(args)
+    lo, hi = args.batch, 2 * args.batch
+    ts = ts_all[lo:hi]
+    group = np.floor_divide(ts, 1.0) == np.floor_divide(ts, 1.0).min()
+    s, dd, w = (pad_bucket(x[lo:hi][group]) for x in (data["src"], data["dst"], data["weight"]))
+    rows = win.template.row_hash(keys_to_tensor(s, "cuda"))
+    cols = win.template.col_hash(keys_to_tensor(dd, "cuda"))
+    wt = torch.from_numpy(w).cuda()
+    slot = win.slices[win.current]
+    grp_dev = device_ms(lambda: ingest_scatter(slot, rows, cols, wt), 20, "ingest_scatter_kernel")
+    grp_bound = ingest_bound_bytes(rows, wt) / PEAK_BYTES_PER_S * 1e3
+    wal = WriteAheadLog(tmp / "wal-timing")
+    append_ms = []
+    for a in range(0, args.edges, args.batch):
+        b = a + args.batch
+        t0 = time.perf_counter()
+        wal.append_edges(data["src"][a:b], data["dst"][a:b], data["weight"][a:b], ts_all[a:b])
+        append_ms.append((time.perf_counter() - t0) * 1e3)
+    wal.close()
+    print(
+        f"[chip_smoke] durable window BASE times on the card (K={k}, d={d}, {wr}x{wc}): window_sketch "
+        f"{sum_ms:.3f} ms a call (bound {sum_bound:.3f} ms, {100 * sum_bound / sum_ms:.1f}%), advance "
+        f"{adv_ms:.3f} ms (bound {adv_bound:.3f} ms, {100 * adv_bound / adv_ms:.1f}%) by CUDA events; "
+        f"one slot group's ingest kernel ({int(group.sum())} edges padded to {rows.shape[1]}) device "
+        f"{_fmt(grp_dev)} (bound {grp_bound:.5f} ms); WAL append of a {args.batch}-edge batch "
+        f"({(args.batch + 1) * RECORD_SIZE / 1e6:.2f} MB, fsync each) median {float(np.median(append_ms)):.2f} ms, "
+        f"max {max(append_ms):.2f} ms (host clock)"
+    )
+
+
+def checkpoint_suffix(torch, serve, tmp):
+    """(c) A plain BASE session with a WAL and checkpoints: 5 batches,
+    checkpoint(), 5 more, the session dropped, then recover() in a fresh one:
+    equal to the uninterrupted run.  Save, restore and recovery seconds and
+    the checkpoint's bytes."""
+    from repro_torch.api import GraphStream
+    from repro_torch.configs.glava import BASE
+
+    args = serve.build_parser().parse_args(SERVE_BASE)
+    data, _, workload = serve.traffic(args)
+    dirs = dict(wal_dir=str(tmp / "wal-ckpt"), checkpoint_dir=str(tmp / "ckpt"))
+
+    def durable():
+        gs = GraphStream.open(BASE, device="cuda", **dirs)
+        return gs, gs.subscribe(workload, every=args.every, name="mixed-workload")
+
+    gs, sub = durable()
+    for i, lo in enumerate(range(0, args.edges, args.batch)):
+        hi = lo + args.batch
+        gs.ingest(data["src"][lo:hi], data["dst"][lo:hi], data["weight"][lo:hi])
+        if i == 4:
+            gs.flush()
+            t0 = time.time()
+            step = gs.checkpoint()
+            save_s = time.time() - t0
+    want = gs.sketch
+    consumed = sub.ticks
+    ckpt_bytes = sum(p.stat().st_size for p in (tmp / "ckpt" / f"step_{step:010d}").iterdir())
+    del gs, sub
+    torch.cuda.empty_cache()
+    probe = GraphStream.open(BASE, device="cuda", checkpoint_dir=dirs["checkpoint_dir"])
+    t0 = time.time()
+    probe.restore()
+    torch.cuda.synchronize()
+    restore_s = time.time() - t0
+    del probe
+    torch.cuda.empty_cache()
+    gs, sub = durable()
+    sub.seek(consumed)
+    t0 = time.time()
+    report = gs.recover()
+    torch.cuda.synchronize()
+    recover_s = time.time() - t0
+    check(report.step == step and report.mutations_replayed == 5,
+          f"checkpoint + suffix: step {report.step}, {report.mutations_replayed} mutations replayed")
+    got = gs.sketch
+    for name in ("counters", "row_flows", "col_flows"):
+        check(torch.equal(getattr(got, name), getattr(want, name)), f"checkpoint + suffix: {name} differ")
+    check(sub.ticks == consumed and sub.events_deduped == 1 and not sub.poll(),
+          f"checkpoint + suffix: {sub.ticks} ticks, {sub.events_deduped} deduplicated")
+    print(
+        f"[chip_smoke] checkpoint + WAL suffix, plain BASE session: checkpoint at epoch {step} of "
+        f"{ckpt_bytes / 1e9:.3f} GB saved in {save_s:.2f} s, restored in {restore_s:.2f} s, recovered "
+        f"(restore + {report.mutations_replayed} batches replayed) in {recover_s:.2f} s (host wall clock); "
+        f"counters and registers equal to the uninterrupted run, the replayed tick deduplicated"
+    )
+
+
+def small_durable(torch, serve, tmp):
+    """(d) The small windowed, event-time, durable session on the card and
+    on the CPU: identical; a checkpoint written from the card restores on the
+    CPU, and the card's WAL replays there, with equal state."""
+    from repro_torch.api import GraphStream
+    from repro_torch.core.sketch import SketchConfig
+
+    cfg = SketchConfig(depth=flag(SMALL, "--depth"), width_rows=flag(SMALL, "--width"), width_cols=flag(SMALL, "--width"))
+    opts = dict(window_slices=4, slice_width=1.0, max_lateness=1.0)
+    runs = {}
+    for side, dev in (("card", "cuda"), ("host", "cpu")):
+        args = serve.build_parser().parse_args(SMALL + EVENT_TIME + ["--device", dev])
+        gs = GraphStream.open(cfg, device=dev, wal_dir=str(tmp / f"wal-small-{side}"),
+                              checkpoint_dir=str(tmp / f"ckpt-small-{side}"), **opts)
+        runs[side] = serve.drive(gs, args)
+    (card, _, card_ev), (host, _, host_ev) = runs["card"], runs["host"]
+    same_window(torch, card, host, "small durable session, card vs CPU")
+    same_events(card_ev, host_ev, "small durable session, card vs CPU")
+    step = card.checkpoint()
+    back = GraphStream.open(cfg, seed=7, device="cpu", checkpoint_dir=str(tmp / "ckpt-small-card"), **opts)
+    check(back.restore() == step, "small: the card's checkpoint did not restore on the CPU")
+    same_window(torch, back, host, "small: card checkpoint restored on the CPU", stats=False)
+    replay = GraphStream.open(cfg, device="cpu", wal_dir=str(tmp / "wal-small-card"), **opts)
+    replay.recover()
+    same_window(torch, replay, host, "small: card WAL replayed on the CPU")
+    print(f"[chip_smoke] small durable windowed session: card and CPU identical ({card.stats.auto_advances} "
+          f"auto-advances); the card's checkpoint restores and its WAL replays on the CPU with equal state")
+
+
+def trainer_resume(torch, tmp):
+    """(e) The tiny preset on the card, uncompressed and compressed: 12
+    steps straight, then the same with a failure injected at step 11 and a
+    resume from the step-10 checkpoint.  Uncompressed, the resumed losses
+    must equal the straight run's bit for bit.  Compressed, B7's float
+    atomics add in any order from run to run, and a top-k selection can flip
+    a coordinate within rounding of its threshold, which moves one parameter
+    by about the learning rate: the losses agree to rtol 1e-4, the bound the
+    tiny card-against-CPU check uses."""
+    import numpy as np
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.lm import MarkovTokens
+    from repro_torch.launch.train_lm import COMPRESSOR, PRESETS
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import compression as comp
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import trainer
+    from repro_torch.tree import tree_leaves
+
+    cfg = PRESETS["tiny"]
+    steps, every, fail = 12, 5, 11
+    gen, rng = MarkovTokens(cfg.vocab, seed=0), np.random.default_rng(0)
+    batches = [{"tokens": gen.batch(8, 65, rng)} for _ in range(steps)]
+    opt_cfg = opt_mod.AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=steps)
+
+    def loss_fn(params, batch):
+        return tfm.loss_fn(cfg, params, batch["tokens"])
+
+    def plain_step(state, batch):
+        (loss, _), grads = trainer.value_and_grad(loss_fn, state["params"], batch)
+        p, o, om = opt_mod.apply_adamw(opt_cfg, state["opt"], state["params"], grads)
+        return {"params": p, "opt": o}, {"loss": loss, **om}
+
+    for compressed in (False, True):
+        def init_state(generator):
+            params = tfm.init_params(cfg, generator, "cuda")
+            state = {"params": params, "opt": opt_mod.init_adamw(opt_cfg, params)}
+            if compressed:
+                n = sum(x.numel() for x in tree_leaves(params))
+                state["comp"] = comp.init_compressor(COMPRESSOR, n, torch.Generator().manual_seed(1), "cuda")
+            return state
+
+        step = trainer.compressed_data_parallel_step(loss_fn, opt_cfg, COMPRESSOR) if compressed else plain_step
+        tag = "compressed" if compressed else "uncompressed"
+
+        def config(name, **kw):
+            return trainer.TrainerConfig(total_steps=steps, checkpoint_every=every, log_every=0,
+                                         checkpoint_dir=str(tmp / f"train-{tag}-{name}"), **kw)
+
+        straight = trainer.train_loop(init_state, step, iter(batches), config("straight"))
+        try:
+            trainer.train_loop(init_state, step, iter(batches), config("crashed", fail_at_step=fail))
+            check(False, f"trainer {tag}: the injected failure did not fire")
+        except RuntimeError as e:
+            check("injected failure" in str(e), f"trainer {tag}: {e}")
+        start = CheckpointManager(tmp / f"train-{tag}-crashed").latest_step()
+        check(start == 10, f"trainer {tag}: latest checkpoint {start}, not 10")
+        resumed = trainer.train_loop(init_state, step, iter(batches[start:]), config("crashed"))
+        got = [h["loss"] for h in resumed.history]
+        want = [h["loss"] for h in straight.history[start:]]
+        diff = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        check(resumed.resumed_from == start and len(got) == steps - start, f"trainer {tag}: resumed {got}")
+        if compressed:
+            check(np.allclose(got, want, rtol=1e-4, atol=0), f"trainer {tag}: resumed losses {got} vs {want}")
+        else:
+            check(got == want, f"trainer {tag}: resumed losses {got} differ from the straight run's {want}")
+        print(f"[chip_smoke] trainer resume on the card, tiny {tag}: failure at step {fail}, resumed from step "
+              f"{start}; resumed losses {got} vs straight {want} (max rel diff {diff:.3g})")
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -1805,13 +2189,12 @@ def main() -> int:
 
     # A small session on the card against the same session on the CPU (the
     # plain versions): the same stream, answers and summary.
-    small = ["--depth", "3", "--width", "256", "--nodes", "2000", "--edges", "20000", "--batch", "5000"]
-    gs_cuda, _, ev_cuda = serve.main(small)
-    gs_cpu, _, ev_cpu = serve.main(small + ["--device", "cpu"])
+    gs_cuda, _, ev_cuda = serve.main(SMALL)
+    gs_cpu, _, ev_cpu = serve.main(SMALL + ["--device", "cpu"])
     check(torch.equal(gs_cuda._live().counters.cpu(), gs_cpu._live().counters), "small: counters differ from CPU")
     check(all(_same_results(a, b) for a, b in zip(ev_cuda, ev_cpu, strict=True)), "small: results differ from CPU")
     print("[chip_smoke] small session: CUDA and CPU runs identical")
-    check_small_analytics(torch, gs_cuda, gs_cpu, small)
+    check_small_analytics(torch, gs_cuda, gs_cpu, SMALL)
     del gs_cuda, gs_cpu
 
     counted = {
@@ -1933,6 +2316,13 @@ def main() -> int:
     check(rows["sequential_update"]["launches"] == update_calls,
           f"analytics BASE: {rows['sequential_update']['launches']} sequential_update launches for "
           f"{update_calls} update calls")
+    torch.cuda.empty_cache()
+
+    # The durable, windowed serving plane: the windowed event-time serve at
+    # BASE (ingest_scatter once per slot group and retraction), its genesis
+    # replay, a checkpoint plus WAL suffix, the small session against the
+    # CPU, and the trainer's resume.
+    phase_durable_window(torch, serve, counted)
     torch.cuda.empty_cache()
 
     # The training path: countsketch twice and its decode once per

@@ -1,6 +1,7 @@
 """`repro_torch.api` — the public API of the port (port of ``src/repro/api``).
 
-:class:`GraphStream` is the session facade; :class:`Query` /
+:class:`GraphStream` is the session facade (ingest, queries, sliding
+windows, event time, checkpoints, WAL recovery); :class:`Query` /
 :class:`QueryBatch` / :class:`QueryResult` the typed query IR;
 :class:`Subscription` / :class:`SubscriptionEvent` the standing-query plane.
 """
@@ -15,11 +16,13 @@ from repro_torch.api.query import (
     error_bound_for,
     validate_theta,
 )
-from repro_torch.api.stream import GraphStream, IngestReceipt, StreamStats
+from repro_torch.api.stream import GraphStream, IngestReceipt, RecoveryReport, StreamStats
 from repro_torch.api.subscription import Subscription, SubscriptionEvent
 from repro_torch.core.hashing import fnv1a_labels
 from repro_torch.core.sketch import SketchConfig
 from repro_torch.stream.events import EventFeed, EventOverflowError
+from repro_torch.stream.wal import WriteAheadLog
+from repro_torch.stream.watermark import WatermarkTracker
 
 __all__ = [
     "FAMILIES",
@@ -32,10 +35,13 @@ __all__ = [
     "Query",
     "QueryBatch",
     "QueryResult",
+    "RecoveryReport",
     "SketchConfig",
     "StreamStats",
     "Subscription",
     "SubscriptionEvent",
+    "WatermarkTracker",
+    "WriteAheadLog",
     "compile_batch",
     "encode_label",
     "encode_labels",

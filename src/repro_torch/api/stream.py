@@ -23,23 +23,39 @@ the one-pass fused ingest (``GLavaSketch.update_fused_``), which updates the
 counters, both registers and a (d, w_r) touched-row bitmap on the device, so
 the incremental closure refresh needs no host pass over the keys.
 
-Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: sliding windows (``window_slices``, A4), the WAL and event time
-(``wal_dir``, ``slice_width``, ``max_lateness``), checkpoints
-(``checkpoint_dir``, ``checkpoint``, ``restore``, ``recover``; all A7) and
-the distributed plane (``mesh``, A9).
+``window_slices=K`` opens a windowed session over a ring of K slices
+(:class:`~repro_torch.core.window.SlidingWindowSketch`): ingest lands in the
+active slice IN PLACE (the ingest kernel scatters straight into the ring's
+slot), ``advance_window`` expires the oldest slice, and queries read the
+materialized window (the sum of the live slices, computed once per
+mutation).  ``slice_width=``/``max_lateness=`` make it an event-time
+session: each ingest carries per-edge ``timestamps``, a watermark tracker
+(:mod:`repro_torch.stream.watermark`) drives the window's advances, late but
+in-bound edges land in the slice their time belongs to (one ingest dispatch
+per distinct slot), and too-late edges are dropped or retracted per
+``late_policy``.
+
+Durability: ``wal_dir=`` appends every logical mutation to the write-ahead
+log (:mod:`repro_torch.stream.wal`, the reference's byte format) BEFORE any
+device dispatch; ``checkpoint_dir=`` enables :meth:`GraphStream.checkpoint`
+and :meth:`GraphStream.restore` (:mod:`repro_torch.checkpoint.manager`, the
+reference's file format); :meth:`GraphStream.recover` restores the newest
+checkpoint and replays the WAL suffix, with exactly-once subscription
+delivery.  The distributed plane (``mesh``, ROADMAP A9) is not ported and
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import time
 from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.api.codec import encode_labels
+from repro_torch.api.codec import encode_label, encode_labels
 from repro_torch.api.planner import execute
 from repro_torch.api.query import (
     ErrorBound,
@@ -49,7 +65,13 @@ from repro_torch.api.query import (
     error_bound_for,
     validate_theta,
 )
-from repro_torch.api.subscription import DEFAULT_MAX_PENDING, Subscription, SubscriptionEvent
+from repro_torch.api.subscription import (
+    DEFAULT_MAX_PENDING,
+    Subscription,
+    SubscriptionEvent,
+    sub_progress_key,
+)
+from repro_torch.checkpoint.manager import CheckpointCorruptError, CheckpointManager
 from repro_torch.core import queries as queries_mod
 from repro_torch.core.hashing import keys_to_tensor
 from repro_torch.core.ingest import (
@@ -61,11 +83,16 @@ from repro_torch.core.ingest import (
 )
 from repro_torch.core.query_engine import QueryEngine
 from repro_torch.core.sketch import GLavaSketch, SketchConfig
+from repro_torch.core.window import SlidingWindowSketch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.stream.events import EventFeed
+from repro_torch.stream.wal import AdvanceMutation, EdgeMutation, WriteAheadLog
+from repro_torch.stream.watermark import DEFAULT_SOURCE, WatermarkTracker, slice_of, slices_of
 
 # Session-wide event feed bound (per-subscription queues have their own).
 EVENT_LOG_MAXLEN = 4096
+
+LATE_POLICIES = ("retract", "drop")
 
 
 @dataclasses.dataclass
@@ -80,6 +107,7 @@ class StreamStats:
     closure_refreshes: int = 0
     closure_incremental_refreshes: int = 0
     subscription_ticks: int = 0
+    auto_advances: int = 0
 
     def summary(self) -> Dict[str, float]:
         return {
@@ -90,6 +118,7 @@ class StreamStats:
             "closure_refreshes": self.closure_refreshes,
             "closure_incremental_refreshes": self.closure_incremental_refreshes,
             "subscription_ticks": self.subscription_ticks,
+            "auto_advances": self.auto_advances,
         }
 
 
@@ -110,6 +139,30 @@ class IngestReceipt:
     n_edges: int
     touched_keys: Optional[np.ndarray]
     touched_rows: Optional[torch.Tensor] = None
+    # Event-time plane (None / 0 for arrival-ordered sessions): the batch's
+    # event-time span, the session watermark after folding it, how many
+    # edges the lateness policy dropped/retracted, how many slice advances
+    # the watermark drove, and the batch's durable WAL commit seq (None
+    # when the session has no WAL).
+    event_time_min: Optional[float] = None
+    event_time_max: Optional[float] = None
+    watermark: Optional[float] = None
+    late_dropped: int = 0
+    late_retracted: int = 0
+    auto_advances: int = 0
+    wal_seq: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class RecoveryReport:
+    """What :meth:`GraphStream.recover` did: the checkpoint step it
+    restored (None = no checkpoint, full-genesis replay), how many WAL
+    mutations it replayed, and the session epoch / WAL position after."""
+
+    step: Optional[int]
+    mutations_replayed: int
+    epoch: int
+    wal_seq: int
 
 
 def _preset(name: str) -> SketchConfig:
@@ -142,45 +195,98 @@ class GraphStream:
         *,
         seed: int = 0,
         device: DeviceLike = None,
-        sketch: Optional[GLavaSketch] = None,
+        sketch: Union[GLavaSketch, SlidingWindowSketch, None] = None,
         window_slices: Optional[int] = None,
         ingest_backend: str = "auto",
         query_backend: str = "auto",
         checkpoint_dir: Optional[str] = None,
+        keep: int = 3,
         mesh=None,
         double_buffer: bool = True,
         max_inflight: int = 2,
         preagg: str = "auto",
         wal_dir: Optional[str] = None,
+        wal_fsync_every: int = 1,
         slice_width: Optional[float] = None,
         max_lateness: Optional[float] = None,
+        late_policy: str = "retract",
         events_policy: str = "drop_oldest",
     ):
-        if window_slices:
-            raise _not_ported("window_slices (sliding-window sessions)", "A4")
-        if wal_dir is not None:
-            raise _not_ported("wal_dir (write-ahead log)", "A7")
-        if slice_width is not None or max_lateness is not None:
-            raise _not_ported("slice_width/max_lateness (event time)", "A7")
-        if checkpoint_dir is not None:
-            raise _not_ported("checkpoint_dir (checkpoints)", "A7")
+        if isinstance(sketch, SlidingWindowSketch):
+            if window_slices not in (None, sketch.n_slices):
+                raise ValueError(f"window_slices={window_slices} but the window has {sketch.n_slices} slices")
+            window_slices = sketch.n_slices
+        elif sketch is not None and window_slices:
+            raise ValueError("a windowed session opens on a SlidingWindowSketch, not a GLavaSketch")
+        if mesh is not None and window_slices:
+            raise ValueError("windowed + distributed sessions are not supported yet")
         if mesh is not None:
             raise _not_ported("mesh (distributed sessions)", "A9")
+        # Event-time plane: slice_width maps event times onto the window
+        # ring; max_lateness bounds out-of-orderness (how far behind the
+        # per-source maximum the watermark trails).
+        if late_policy not in LATE_POLICIES:
+            raise ValueError(f"unknown late_policy {late_policy!r} (want one of {LATE_POLICIES})")
+        self._late_policy = late_policy
+        self._tracker: Optional[WatermarkTracker] = None
+        self._slice_width: Optional[float] = None
+        self._lead = 0
+        self._head_slice: Optional[int] = None
+        # Host mirror of the ring's current slot: slot(b) for an absolute
+        # slice b is (b - head_slice + ring_pos) % K, an invariant because
+        # the head and the ring only ever advance together.
+        self._ring_pos = 0
+        if max_lateness is not None and slice_width is None:
+            raise ValueError("max_lateness needs slice_width= (event-time slicing)")
+        if slice_width is not None:
+            if not window_slices:
+                raise ValueError("slice_width needs window_slices= (a sliding window)")
+            slice_width = float(slice_width)
+            if not (slice_width > 0.0) or not math.isfinite(slice_width):
+                raise ValueError(f"slice_width must be finite and > 0, got {slice_width}")
+            lateness = float(max_lateness) if max_lateness is not None else 0.0
+            self._tracker = WatermarkTracker(lateness)
+            self._slice_width = slice_width
+            # Head slices the ring must keep open AHEAD of the watermark: an
+            # in-bound edge (t >= W) from the watermark-defining source sits
+            # at most max_lateness past W, i.e. <= lead slices ahead.
+            self._lead = int(math.ceil(lateness / slice_width))
+            if self._lead + 1 > window_slices:
+                raise ValueError(
+                    f"max_lateness={lateness:g} spans {self._lead} slices of "
+                    f"width {slice_width:g} — it must fit inside the "
+                    f"window ring (window_slices={window_slices}); widen the "
+                    f"slices or deepen the window"
+                )
         if device is None and sketch is not None:
             device = sketch.device
         self.device = resolve_device(device)
-        if sketch is not None:
-            if sketch.config != config:
-                raise ValueError(f"sketch config {sketch.config} != session config {config}")
-            # The session mutates its summary in place: take a private copy.
+        self.config = config
+        if sketch is not None and sketch.config != config:
+            raise ValueError(f"sketch config {sketch.config} != session config {config}")
+        # The session mutates its summary in place: take a private copy.
+        self._sketch: Optional[GLavaSketch] = None
+        self._window: Optional[SlidingWindowSketch] = None
+        if window_slices:
+            self._window = (
+                sketch.to(self.device) if sketch is not None
+                else SlidingWindowSketch.empty(config, window_slices, seed, self.device)
+            )
+            self._ring_pos = self._window.current
+        elif sketch is not None:
             self._sketch = sketch.to(self.device)
         else:
             self._sketch = GLavaSketch.empty(config, seed, self.device)
-        self.config = config
+        # The materialized window (sum of the live slices), computed at most
+        # once per mutation: every write to the ring clears it.
+        self._window_sum: Optional[GLavaSketch] = None
+        self.window_sums = 0
         # "fused" is a session-level mode, not an IngestEngine backend: the
         # one-pass kernel updates counters, registers and the touched-row
-        # bitmap together.
+        # bitmap together, which only a plain local session can consume.
         self._fused = ingest_backend == "fused"
+        if self._fused and window_slices:
+            raise ValueError("fused ingest needs a plain local session")
         self.ingest_backend = (
             "fused" if self._fused else resolve_backend(ingest_backend, self.device)
         )
@@ -204,6 +310,11 @@ class GraphStream:
         # one; one CUDA event per batch bounds how many may be outstanding.
         self._max_inflight = max_inflight if double_buffer else 0
         self._inflight: collections.deque = collections.deque()
+        # Durability: the WAL (appended before any dispatch) and checkpoints.
+        self._wal = WriteAheadLog(wal_dir, fsync_every=wal_fsync_every) if wal_dir is not None else None
+        self._replaying = False
+        self._last_restore_meta: Dict = {}
+        self._ckpt = CheckpointManager(checkpoint_dir, keep=keep) if checkpoint_dir is not None else None
 
     # -- construction ---------------------------------------------------------
 
@@ -214,15 +325,17 @@ class GraphStream:
         *,
         epsilon: Optional[float] = None,
         delta: Optional[float] = None,
-        sketch: Optional[GLavaSketch] = None,
+        sketch: Union[GLavaSketch, SlidingWindowSketch, None] = None,
         **kwargs,
     ) -> "GraphStream":
         """Open a session from a :class:`SketchConfig`, a preset name
         ("smoke" / "base" / "web" / "nonsquare"), a target (ε, δ) pair sized
         per paper Thm 1 / Lemma 5.2, or an existing ``sketch`` (for example
-        one converted from the reference by ``repro_torch.convert``).
-        Remaining kwargs go to the constructor (seed, device,
-        ingest_backend, query_backend, ...).  The device defaults to CUDA."""
+        one converted from the reference by ``repro_torch.convert``; a
+        :class:`SlidingWindowSketch` opens a windowed session on its ring).
+        Remaining kwargs go to the constructor (seed, device, window_slices,
+        ingest_backend, query_backend, checkpoint_dir, wal_dir, ...).  The
+        device defaults to CUDA."""
         if isinstance(config, str):
             config = _preset(config)
         elif config is None:
@@ -244,18 +357,52 @@ class GraphStream:
         return self._epoch
 
     @property
+    def watermark(self) -> Optional[float]:
+        """The event-time low watermark (None on arrival-ordered sessions;
+        -inf before the first timestamped batch)."""
+        return None if self._tracker is None else self._tracker.watermark
+
+    @property
+    def late_dropped(self) -> int:
+        """Too-late edges dropped by ``late_policy="drop"`` (monotone)."""
+        return 0 if self._tracker is None else self._tracker.late_dropped
+
+    @property
+    def late_retracted(self) -> int:
+        """Too-late edges backed out via the turnstile-delete path by
+        ``late_policy="retract"`` (monotone)."""
+        return 0 if self._tracker is None else self._tracker.late_retracted
+
+    @property
     def events_dropped(self) -> int:
         """Session-feed events lost to the overflow policy (monotone)."""
         return self._event_log.dropped
 
     @property
+    def wal_seq(self) -> Optional[int]:
+        """The WAL's last durable record seq (None without a WAL)."""
+        return None if self._wal is None else self._wal.last_seq
+
+    @property
     def sketch(self) -> GLavaSketch:
-        """A SNAPSHOT of the summary: a copy that later ingests do not touch."""
+        """A SNAPSHOT of the summary (for a windowed session, of the
+        materialized window): a copy that later ingests do not touch."""
         self.flush()
-        return self._sketch.clone()
+        return self._live().clone()
 
     def _live(self) -> GLavaSketch:
-        return self._sketch
+        """The summary queries read: the live sketch, or the window's sum,
+        materialized once after each write to the ring."""
+        if self._window is None:
+            return self._sketch
+        if self._window_sum is None:
+            self._window_sum = self._window.window_sketch()
+            self.window_sums += 1
+        return self._window_sum
+
+    def _ring_written(self) -> None:
+        """Drop the materialized window after a write to the ring."""
+        self._window_sum = None
 
     def error_bound(self, family: str = "edge") -> ErrorBound:
         """The (ε, δ) annotation this session attaches to ``family`` results."""
@@ -279,12 +426,20 @@ class GraphStream:
         while len(self._inflight) > self._max_inflight:
             self._inflight.popleft().synchronize()
 
-    def ingest(self, src, dst, weights=None) -> IngestReceipt:
+    def ingest(self, src, dst, weights=None, *, timestamps=None, source=None) -> IngestReceipt:
         """Fold one edge batch into the summary.  ``src``/``dst`` are label
         batches (str or int, encoded here by the key codec).  Returns as
         soon as the batch is launched — UNLESS a subscription comes due on
         this mutation, in which case the standing queries re-evaluate
-        before returning."""
+        before returning.
+
+        ``timestamps`` is the per-edge EVENT-TIME column (float seconds).
+        An event-time session (opened with ``slice_width=``) requires it:
+        the watermark tracker folds the batch, advances the window when the
+        watermark crosses a slice boundary, routes late-but-in-bound edges
+        into their slice, and drops or retracts too-late edges per
+        ``late_policy``.  ``source`` names the emitting stream for the
+        per-source low-watermark merge."""
         s_np = np.atleast_1d(encode_labels(src))
         d_np = np.atleast_1d(encode_labels(dst))
         if s_np.shape != d_np.shape:
@@ -295,7 +450,45 @@ class GraphStream:
             if weights is None
             else np.atleast_1d(np.asarray(weights, np.float32))
         )
+        ts_np = None
+        if timestamps is not None:
+            ts_np = np.atleast_1d(np.asarray(timestamps, np.float64))
+            if ts_np.shape != s_np.shape:
+                raise ValueError(f"timestamps/src shape mismatch: {ts_np.shape} vs {s_np.shape}")
+            if ts_np.size and not np.all(np.isfinite(ts_np)):
+                raise ValueError("event timestamps must be finite")
+        elif self._tracker is not None:
+            raise ValueError(
+                "event-time session (opened with slice_width=/max_lateness=) "
+                "requires timestamps= on every ingest"
+            )
+        source_key = DEFAULT_SOURCE if source is None else int(encode_label(source))
+        return self._ingest_encoded(s_np, d_np, w_np, ts_np, source_key)
+
+    def _ingest_encoded(
+        self,
+        s_np: np.ndarray,
+        d_np: np.ndarray,
+        w_np: np.ndarray,
+        ts_np: Optional[np.ndarray],
+        source_key: int,
+    ) -> IngestReceipt:
+        """Post-codec ingest, the path WAL replay re-enters (keys are
+        already uint32, the source label already hashed).  Appends to the
+        WAL FIRST, before any device dispatch, so an acknowledged batch is
+        always recoverable."""
         t0 = time.time()
+        n_edges = int(s_np.shape[0])
+        wal_seq = None
+        if self._wal is not None and not self._replaying:
+            wal_seq = self._wal.append_edges(s_np, d_np, w_np, ts_np, source_key=source_key)
+        ev_min = ev_max = None
+        if ts_np is not None and n_edges:
+            ev_min, ev_max = float(ts_np.min()), float(ts_np.max())
+        if self._tracker is not None:
+            return self._ingest_eventtime(
+                t0, s_np, d_np, w_np, ts_np, source_key, ev_min=ev_min, ev_max=ev_max, wal_seq=wal_seq
+            )
         additive = not bool(np.any(w_np < 0))
         # Heavy-tail fast path: collapse duplicate (src, dst) pairs on the
         # host, so the device scatters one slot per distinct pair and the
@@ -322,6 +515,9 @@ class GraphStream:
                     s_np, None if self.config.directed else d_np, cap=self.config.width_rows
                 )
         touched_rows = None
+        # The summary the batch lands in: the plain sketch, or the window
+        # (whose active slice is a view of the ring).
+        live = self._sketch if self._window is None else self._window
         if self._fused:
             if pre is not None:
                 # Collapsed pairs through the kernel.  The padding slots
@@ -336,7 +532,7 @@ class GraphStream:
         elif pre is not None:
             # Arrays are padded to power-of-two buckets (zero weights are the
             # identity), so batch shapes stay on a short ladder.
-            self._sketch.update_preaggregated_(
+            live.update_preaggregated_(
                 *(self._tensor(pad_bucket(x)) for x in (
                     pre.src, pre.dst, pre.weights,
                     pre.src_unique, pre.src_totals, pre.dst_unique, pre.dst_totals,
@@ -344,28 +540,150 @@ class GraphStream:
                 backend=self.ingest_backend,
             )
         else:
-            self._sketch.update_(
+            live.update_(
                 self._tensor(s_np), self._tensor(d_np), self._tensor(w_np),
                 backend=self.ingest_backend,
             )
+        self._ring_written()
         self._mark_inflight()
         self.stats.edges_ingested += n_edges
         self.stats.ingest_s += time.time() - t0
         self._epoch += 1
         self._note_touched(touched_rows if self._fused else touched)
         receipt = IngestReceipt(
-            epoch=self._epoch, n_edges=n_edges, touched_keys=touched, touched_rows=touched_rows
+            epoch=self._epoch,
+            n_edges=n_edges,
+            touched_keys=touched,
+            touched_rows=touched_rows,
+            event_time_min=ev_min,
+            event_time_max=ev_max,
+            wal_seq=wal_seq,
         )
         self._after_mutation()
         return receipt
 
-    def delete(self, src, dst, weights=None) -> IngestReceipt:
+    def _dispatch_update_slice(self, s_np, d_np, w_np, slot: int) -> None:
+        """One event-time dispatch into ring slot ``slot``: the slot's view
+        through the ingest engine (one ingest-kernel launch on the card, a
+        second for an undirected sketch's mirrored edges).  Arrays are
+        padded to power-of-two buckets (zero weights are the identity)."""
+        self._window.update_at_(
+            slot, *(self._tensor(pad_bucket(x)) for x in (s_np, d_np, w_np)), backend=self.ingest_backend
+        )
+        self._ring_written()
+
+    def _ingest_eventtime(
+        self,
+        t0: float,
+        s_np: np.ndarray,
+        d_np: np.ndarray,
+        w_np: np.ndarray,
+        ts_np: np.ndarray,
+        source_key: int,
+        *,
+        ev_min: Optional[float],
+        ev_max: Optional[float],
+        wal_seq: Optional[int],
+    ) -> IngestReceipt:
+        """Event-time ingest: watermark fold -> auto-advance -> slice
+        routing -> late-edge policy, all driven by the batch's event-time
+        column.  Deterministic given the mutation sequence, which is what
+        makes WAL replay bit-identical."""
+        K = self._window.n_slices
+        width = self._slice_width
+        late_dropped = late_retracted = auto_adv = 0
+        watermark = None
+        additive = not bool(np.any(w_np < 0))
+        late_mask = None
+        floor_slot = 0
+        if n_edges := int(s_np.shape[0]):
+            # Lateness is judged against the watermark PROMISED before this
+            # batch arrived: the batch's own maximum must not retroactively
+            # declare its earlier edges late, or an in-order batch spanning
+            # more than max_lateness would retract its own head.
+            promised = self._tracker.watermark
+            watermark = self._tracker.observe(source_key, ev_max)
+            b = slices_of(ts_np, width)
+            late_mask = ts_np < promised
+            # New ring head: the watermark keeps `lead` slices open past
+            # itself; an in-bound burst ahead of a lagging source can push
+            # the head further.  Monotone by construction.
+            target = slice_of(watermark, width) + self._lead
+            if not late_mask.all():
+                target = max(target, int(b[~late_mask].max()))
+            prev = self._head_slice if self._head_slice is not None else target
+            target = max(target, prev)
+            auto_adv = target - prev
+            self._head_slice = target
+            for _ in range(auto_adv):
+                self._advance_once()
+            self.stats.auto_advances += auto_adv
+            # Oldest live slice after the advances; in-bound-by-watermark
+            # edges that still land below the ring (a fast source far ahead
+            # of a slow one) are operationally late too.  Ring slots are
+            # addressed RELATIVE to the head.
+            slot_off = (self._ring_pos - self._head_slice) % K
+            floor_slice = self._head_slice - K + 1
+            floor_slot = int((floor_slice + slot_off) % K)
+            late_mask = late_mask | (b < floor_slice)
+            n_late = int(late_mask.sum())
+            if n_late and self._late_policy == "drop":
+                keep = ~late_mask
+                s_np, d_np, w_np, b = s_np[keep], d_np[keep], w_np[keep], b[keep]
+                late_dropped = n_late
+                self._tracker.late_dropped += n_late
+            elif n_late:
+                # Retract path: the whole batch lands (late edges clamped to
+                # the oldest live slice), then the late subset is backed out
+                # through the turnstile-delete path: same slot, negated
+                # weights.
+                b = np.where(late_mask, floor_slice, b)
+                late_retracted = n_late
+                self._tracker.late_retracted += n_late
+            touched = None
+            if self._touched is not None and additive and late_retracted == 0:
+                touched = touched_row_keys(
+                    s_np, None if self.config.directed else d_np, cap=self.config.width_rows
+                )
+            slots = (b + slot_off) % K
+            for slot in np.unique(slots):
+                m = slots == slot
+                self._dispatch_update_slice(s_np[m], d_np[m], w_np[m], int(slot))
+            if late_retracted:
+                m = late_mask
+                self._dispatch_update_slice(s_np[m], d_np[m], -w_np[m], floor_slot)
+                additive = False  # the retraction is a turnstile delete
+            self._mark_inflight()
+        else:
+            touched = np.zeros(0, np.uint32) if self._touched is not None else None
+        self.stats.edges_ingested += n_edges
+        self.stats.ingest_s += time.time() - t0
+        self._epoch += 1
+        self._note_touched(touched if additive else None)
+        receipt = IngestReceipt(
+            epoch=self._epoch,
+            n_edges=n_edges,
+            touched_keys=touched if additive else None,
+            event_time_min=ev_min,
+            event_time_max=ev_max,
+            watermark=watermark,
+            late_dropped=late_dropped,
+            late_retracted=late_retracted,
+            auto_advances=auto_adv,
+            wal_seq=wal_seq,
+        )
+        self._after_mutation()
+        return receipt
+
+    def delete(self, src, dst, weights=None, *, timestamps=None, source=None) -> IngestReceipt:
         """Turnstile deletion: negative-weight ingest (paper Section 6.1.1).
         Not additions-only, so the receipt's touched set is ``None`` and any
-        cached reachability closure rebuilds from scratch on next use."""
+        cached reachability closure rebuilds from scratch on next use.
+        Event-time sessions route the retraction into the slice the original
+        edge's ``timestamps`` place it in."""
         if weights is None:
             weights = np.ones(len(np.atleast_1d(np.asarray(src))), np.float32)
-        return self.ingest(src, dst, -np.asarray(weights))
+        return self.ingest(src, dst, -np.asarray(weights), timestamps=timestamps, source=source)
 
     def flush(self) -> None:
         """Block until every launched ingest batch has landed on the device."""
@@ -415,7 +733,8 @@ class GraphStream:
         overflow: str = "drop_oldest",
     ) -> Subscription:
         """Register a standing query batch, compiled ONCE and re-evaluated
-        after every ``every``-th mutation (ingest / delete / merge), emitting
+        after every ``every``-th mutation (ingest / delete / advance_window /
+        merge), emitting
         :class:`SubscriptionEvent`\\ s through ``Subscription.poll()``, the
         session-wide :meth:`events` feed and ``on_result``.  ``alarm`` is a
         predicate over the request-ordered results whose value rides on
@@ -527,8 +846,11 @@ class GraphStream:
                 results=tuple(results),
                 alarm=None if sub.alarm is None else bool(sub.alarm(results)),
             )
-            sub._deliver(event)
-            self._event_log.push(event)
+            if sub._deliver(event):
+                # Deduplicated re-emissions (the exactly-once replay floor)
+                # still advance the subscription's progress, but never
+                # re-enter the feeds or callbacks.
+                self._event_log.push(event)
             self.stats.subscription_ticks += 1
             self._count_served(results)
         self.stats.query_s += time.time() - t0
@@ -596,10 +918,43 @@ class GraphStream:
 
     # -- lifecycle ------------------------------------------------------------
 
+    def advance_window(self) -> None:
+        """Move the sliding window to the next time slice (expiring the
+        oldest slice); no-op for non-windowed sessions.  Counts as a
+        mutation for subscriptions; expiry removes edges, so any cached
+        reachability closure rebuilds from scratch on next use.
+
+        On an event-time session this also moves the ring head one slice
+        forward (an explicit advance DECLARES a new open slice; the
+        watermark keeps driving automatic ones).  Explicit advances are
+        WAL-logged; watermark-driven ones are not: replay re-derives them
+        from the logged event times."""
+        if self._window is None:
+            return
+        if self._wal is not None and not self._replaying:
+            self._wal.append_advance()
+        if self._head_slice is not None:
+            self._head_slice += 1
+        self._advance_once()
+
+    def _advance_once(self) -> None:
+        """One ring advance in place: expiry + epoch bump + subscription
+        tick.  Shared by explicit ``advance_window`` and the
+        watermark-driven automatic path (which is NOT WAL-logged)."""
+        self.flush()
+        self._window.advance_()
+        self._ring_written()
+        self._ring_pos = (self._ring_pos + 1) % self._window.n_slices
+        self._epoch += 1
+        self._note_touched(None)
+        self._after_mutation()
+
     def merge(self, other: "GraphStream") -> "GraphStream":
         """Merge another session's summary into this one (linearity; the
         paper's distributed merge-by-add).  Both must share a hash family.
         The merged summary is a new tensor: neither operand is aliased."""
+        if self._window is not None or other._window is not None:
+            raise ValueError("merge() runs on non-windowed sessions")
         self.flush()
         other.flush()
         if not self._sketch.same_family(other._sketch):
@@ -607,6 +962,11 @@ class GraphStream:
                 "cannot merge sketches with different hash families "
                 "(open both sessions with the same config and seed)"
             )
+        if self._wal is not None and not self._replaying:
+            # The merged-in state never went through this WAL: log a barrier
+            # replay refuses to cross, and checkpoint() right after so
+            # recovery never needs to.
+            self._wal.append_merge_barrier()
         self._sketch = self._sketch.merge(other._sketch)
         self.stats.edges_ingested += other.stats.edges_ingested
         self._epoch += 1
@@ -615,13 +975,143 @@ class GraphStream:
         return self
 
     def checkpoint(self, step: Optional[int] = None) -> int:
-        raise _not_ported("checkpoint()", "A7")
+        """Durably save the session state (requires ``checkpoint_dir``).
+        Returns the step the checkpoint was saved under.
+
+        With a WAL attached, the checkpoint also records its durable WAL
+        position (``wal_seq``), the watermark-tracker state and each active
+        subscription's tick progress (everything :meth:`recover` needs for
+        exactly-once replay), then rotates the WAL segment and drops the
+        segments every retained checkpoint already covers."""
+        if self._ckpt is None:
+            raise ValueError("open the session with checkpoint_dir= to checkpoint")
+        self.flush()
+        step = self._epoch if step is None else step
+        state = self._window if self._window is not None else self._sketch
+        meta: Dict = {"epoch": self._epoch}
+        if self._wal is not None:
+            self._wal.sync()
+            meta["wal_seq"] = self._wal.last_seq
+        if self._tracker is not None:
+            meta["watermark"] = self._tracker.state()
+            meta["head_slice"] = self._head_slice
+        subs = {
+            sub_progress_key(s): {"ticks": s.ticks, "pending": s._mutations_pending}
+            for s in self._subs.values()
+            if s.active
+        }
+        if subs:
+            meta["subs"] = subs
+        self._ckpt.save(step, state, metadata=meta)
+        if self._wal is not None:
+            # Rotation keyed to the checkpoint step: the next mutation opens
+            # a fresh segment, so no segment straddles the boundary and GC
+            # can reason per whole segment.
+            self._wal.rotate()
+            covered = None
+            for s in self._ckpt.all_steps():
+                try:
+                    seq = int(self._ckpt.read_metadata(s).get("wal_seq", 0))
+                except CheckpointCorruptError:
+                    seq = 0  # unreadable manifest: assume it covers nothing
+                covered = seq if covered is None else min(covered, seq)
+            if covered:
+                self._wal.gc(covered)
+        return step
 
     def restore(self, step: Optional[int] = None) -> int:
-        raise _not_ported("restore()", "A7")
+        """Restore session state from the checkpoint directory (latest step
+        by default; a checkpoint written by either package).  A checkpoint
+        without flow registers restores through the fill-missing path and
+        its registers are rebuilt from the counters.  Returns the step."""
+        if self._ckpt is None:
+            raise ValueError("open the session with checkpoint_dir= to restore")
+        self.flush()
+        like = self._window if self._window is not None else self._sketch
+        state, meta = self._ckpt.restore(step, like=like, fill_missing=True)
+        if meta.get("filled_leaves"):
+            # Registers absent from an old checkpoint: rebuild from counters.
+            if isinstance(state, GLavaSketch):
+                state = state.with_counters(state.counters)
+            else:
+                state.row_flows = torch.sum(state.slices, dim=3)
+                state.col_flows = torch.sum(state.slices, dim=2)
+        if self._window is not None:
+            self._window = state
+            self._ring_written()
+            # Re-sync the host ring-position mirror with the restored ring
+            # (the head-relative slot mapping depends on it).
+            self._ring_pos = state.current
+        else:
+            self._sketch = state
+        self._epoch = int(meta.get("epoch", meta["step"]))
+        if self._tracker is not None:
+            wm_state = meta.get("watermark")
+            if wm_state is not None:
+                self._tracker = WatermarkTracker.from_state(wm_state)
+                head = meta.get("head_slice")
+                self._head_slice = None if head is None else int(head)
+            else:
+                # Pre-event-time checkpoint: start the tracker fresh.
+                self._tracker = WatermarkTracker(self._tracker.max_lateness)
+                self._head_slice = None
+        subs_meta = meta.get("subs") or {}
+        for sub in self._subs.values():
+            m = subs_meta.get(sub_progress_key(sub))
+            if m is not None:
+                sub.ticks = int(m["ticks"])
+                sub._mutations_pending = int(m["pending"])
+        self.engine.invalidate()  # any cached closure predates the restore
+        self._touched = []
+        self._touched_count = 0
+        self._last_restore_meta = meta
+        return int(meta["step"])
 
-    def recover(self, step: Optional[int] = None):
-        raise _not_ported("recover()", "A7")
+    def recover(self, step: Optional[int] = None) -> RecoveryReport:
+        """Crash recovery (requires ``wal_dir``): restore the newest usable
+        checkpoint (falling back past a corrupt one, or starting from the
+        empty summary when none exists), then replay the WAL suffix through
+        the normal mutation path (no re-append).  Subscriptions registered
+        BEFORE calling this re-evaluate during replay exactly as the
+        pre-crash session did: ticks resume from the checkpointed progress,
+        and events a consumer already processed are deduplicated by
+        (subscription, tick) via :meth:`Subscription.seek`: together,
+        exactly-once delivery."""
+        if self._wal is None:
+            raise ValueError("open the session with wal_dir= to recover")
+        restored_step = None
+        after_seq = 0
+        if self._ckpt is not None:
+            try:
+                restored_step = self.restore(step)
+                after_seq = int(self._last_restore_meta.get("wal_seq", 0))
+            except FileNotFoundError:
+                restored_step = None  # genesis replay over the empty summary
+        self._replaying = True
+        replayed = 0
+        try:
+            for mut in self._wal.replay(after_seq=after_seq):
+                if isinstance(mut, EdgeMutation):
+                    self._ingest_encoded(mut.src, mut.dst, mut.weights, mut.timestamps, mut.source_key)
+                elif isinstance(mut, AdvanceMutation):
+                    self.advance_window()
+                else:  # MergeMutation: state entered outside this log
+                    raise RuntimeError(
+                        f"WAL suffix crosses a merge barrier (seq {mut.seq}): "
+                        f"the merged-in summary never went through this log. "
+                        f"checkpoint() immediately after merge() so recovery "
+                        f"never needs to replay past it"
+                    )
+                replayed += 1
+        finally:
+            self._replaying = False
+        self.flush()
+        return RecoveryReport(
+            step=restored_step,
+            mutations_replayed=replayed,
+            epoch=self._epoch,
+            wal_seq=self._wal.last_seq,
+        )
 
     def summary(self) -> Dict[str, float]:
         """Flushed session stats — the only honest read of ingest throughput
@@ -629,5 +1119,8 @@ class GraphStream:
         self.flush()
         out = self.stats.summary()
         out["events_dropped"] = self.events_dropped
+        if self._tracker is not None:
+            out["watermark"] = self._tracker.watermark
+            out["late_dropped"] = self._tracker.late_dropped
+            out["late_retracted"] = self._tracker.late_retracted
         return out
-

@@ -18,7 +18,8 @@ lesson: summaries serve a *known* query workload):
 A :class:`Subscription` owns the batch compiled ONCE by the planner
 (:class:`~repro_torch.api.planner.CompiledPlan`) and a bounded event
 queue; the session (:class:`~repro_torch.api.stream.GraphStream`) drives
-re-evaluation after every ``every``-th mutation (ingest / delete / merge),
+re-evaluation after every ``every``-th mutation (ingest / delete /
+advance_window / merge),
 refreshing the reach family's cached transitive closure INCREMENTALLY
 from the rows the mutations touched (``QueryEngine.refresh_closure``)
 instead of re-squaring from scratch.
@@ -41,6 +42,14 @@ from repro_torch.stream.events import EventFeed
 # policy applies (default drop_oldest — monitoring workloads care about
 # the newest state) and ``events_dropped`` counts the loss.
 DEFAULT_MAX_PENDING = 1024
+
+
+def sub_progress_key(sub: "Subscription") -> str:
+    """Stable identity for checkpointed subscription progress: named
+    subscriptions match by name across a process restart; anonymous ones
+    match by registration-order id (deterministic when the recovering
+    process re-subscribes in the same order)."""
+    return f"name:{sub.name}" if sub.name else f"id:{sub.id}"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +112,10 @@ class Subscription:
         self.last_event: Optional[SubscriptionEvent] = None
         self._mutations_pending = 0
         self._events = EventFeed(max_pending, overflow)
+        # Exactly-once replay floor: events with tick <= _seen_tick were
+        # already consumed before a crash and are deduplicated on re-emit.
+        self._seen_tick = 0
+        self.events_deduped = 0
 
     # -- event plane ---------------------------------------------------------
 
@@ -124,6 +137,13 @@ class Subscription:
         explicit replacement for the old silent ``deque(maxlen)`` loss)."""
         return self._events.dropped
 
+    def seek(self, tick: int) -> None:
+        """Exactly-once consumption floor: after :meth:`GraphStream.recover`
+        re-emits the replayed event stream, events with ``tick <=`` this
+        value are deduplicated (they were delivered before the crash).
+        Call with the last tick the consumer durably processed."""
+        self._seen_tick = max(self._seen_tick, int(tick))
+
     def cancel(self) -> None:
         """Deregister: no further evaluations or events (idempotent)."""
         if self.active:
@@ -137,14 +157,21 @@ class Subscription:
         self._mutations_pending += 1
         return self._mutations_pending >= self.every
 
-    def _deliver(self, event: SubscriptionEvent) -> None:
-        """Accept one evaluation: queue it and fire the callback."""
+    def _deliver(self, event: SubscriptionEvent) -> bool:
+        """Accept one evaluation.  Returns False when the event was
+        deduplicated by the exactly-once floor (already consumed before a
+        crash): progress counters still advance, but nothing is queued, no
+        callback fires, and the session feed skips it too."""
         self._mutations_pending = 0
         self.ticks = event.tick
+        if event.tick <= self._seen_tick:
+            self.events_deduped += 1
+            return False
         self.last_event = event
         self._events.push(event)
         if self.on_result is not None:
             self.on_result(event)
+        return True
 
     def __repr__(self) -> str:  # pragma: no cover — debugging sugar
         tag = f" {self.name!r}" if self.name else ""

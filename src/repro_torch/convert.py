@@ -6,7 +6,11 @@ coefficients ``row_hash.a``/``row_hash.b`` (plus ``col_hash.a``/``.b`` when
 the sketch is non-square).  :func:`sketch_from_arrays` builds the port's
 :class:`~repro_torch.core.sketch.GLavaSketch` from exactly those arrays, so
 both sides hash identically; ``GraphStream.open(sketch=...)`` opens a
-session on it.
+session on it.  A reference ``SlidingWindowSketch`` converts the same way
+(:func:`window_from_arrays`: the ring, its registers, the current slot and
+the template's hash coefficients), and so does a checkpoint, whose hash
+leaves are uint32 on disk (``checkpoint/manager.py`` loads sketches and
+windows through these two functions).
 
 The four baselines convert from their leaves too
 (:func:`countmin_from_arrays`, :func:`node_countmin_from_arrays`,
@@ -29,6 +33,7 @@ import torch
 
 from repro_torch.core.hashing import HashFamily
 from repro_torch.core.sketch import CountMin, CountSketch, GLavaSketch, GSketch, NodeCountMin, SketchConfig
+from repro_torch.core.window import SlidingWindowSketch
 from repro_torch.models.transformer import TransformerConfig, param_shapes
 from repro_torch.train.compression import CompressorConfig, CompressorState
 from repro_torch.train.optimizer import AdamWConfig, AdamWState
@@ -52,21 +57,60 @@ def sketch_from_arrays(
     d, wr, wc = config.depth, config.width_rows, config.width_cols
     if np.shape(counters) != (d, wr, wc):
         raise ValueError(f"counters shape {np.shape(counters)} != {(d, wr, wc)}")
-    row_hash = HashFamily.from_host(row_a, row_b, wr, device)
+    row_hash, col_hash = _sketch_families(config, row_a, row_b, col_a, col_b, device)
+    return GLavaSketch(
+        _tensor(counters, torch.float32, device), row_hash, col_hash, config,
+        _tensor(row_flows, torch.float32, device), _tensor(col_flows, torch.float32, device),
+    )
+
+
+def _sketch_families(config: SketchConfig, row_a, row_b, col_a, col_b, device):
+    """The (row, col) hash families of a gLava sketch from its coefficients;
+    a square config shares one family."""
+    row_hash = HashFamily.from_host(row_a, row_b, config.width_rows, device)
     if config.is_square:
         for given, want in ((col_a, row_a), (col_b, row_b)):
             if given is not None and not np.array_equal(np.asarray(given), np.asarray(want)):
                 raise ValueError("a square sketch shares one hash family for rows and columns")
-        col_hash = row_hash
-    else:
-        if col_a is None or col_b is None:
-            raise ValueError("a non-square sketch needs col_a and col_b")
-        col_hash = HashFamily.from_host(col_a, col_b, wc, device)
+        return row_hash, row_hash
+    if col_a is None or col_b is None:
+        raise ValueError("a non-square sketch needs col_a and col_b")
+    return row_hash, HashFamily.from_host(col_a, col_b, config.width_cols, device)
 
-    def f32(x):
-        return torch.from_numpy(np.array(x, np.float32, copy=True)).to(device)
 
-    return GLavaSketch(f32(counters), row_hash, col_hash, config, f32(row_flows), f32(col_flows))
+def window_from_arrays(
+    config: SketchConfig,
+    slices: np.ndarray,
+    current,
+    row_flows: np.ndarray,
+    col_flows: np.ndarray,
+    row_a: np.ndarray,
+    row_b: np.ndarray,
+    col_a: Optional[np.ndarray] = None,
+    col_b: Optional[np.ndarray] = None,
+    device: Optional[torch.device] = None,
+) -> SlidingWindowSketch:
+    """A port sliding window on ``device`` from the reference's leaves: the
+    (K, d, w_r, w_c) ring, the current slot (a 0-d int), the per-slice
+    registers and the template's hash coefficients (the template's own
+    counters are zeros and are not read)."""
+    k = np.shape(slices)[0]
+    d, wr, wc = config.depth, config.width_rows, config.width_cols
+    if np.shape(slices) != (k, d, wr, wc):
+        raise ValueError(f"slices shape {np.shape(slices)} != {(k, d, wr, wc)}")
+    if np.shape(row_flows) != (k, d, wr) or np.shape(col_flows) != (k, d, wc):
+        raise ValueError(f"register shapes {np.shape(row_flows)}, {np.shape(col_flows)} do not fit the ring")
+    slot = int(np.asarray(current))
+    if not 0 <= slot < k:
+        raise ValueError(f"current slot {slot} outside the ring of {k}")
+    row_hash, col_hash = _sketch_families(config, row_a, row_b, col_a, col_b, device)
+    return SlidingWindowSketch(
+        _tensor(slices, torch.float32, device),
+        slot,
+        SlidingWindowSketch.template_for(config, row_hash, col_hash, device),
+        _tensor(row_flows, torch.float32, device),
+        _tensor(col_flows, torch.float32, device),
+    )
 
 
 def _family(a, b, w: int, depth: int, device) -> HashFamily:

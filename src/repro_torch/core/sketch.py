@@ -134,13 +134,7 @@ class GLavaSketch:
         ``torch.Generator``, or an int seed for a fresh one).  Square configs
         share ONE family between rows and columns (the paper default, needed
         for graph algorithms on the sketch)."""
-        if not isinstance(generator, torch.Generator):
-            generator = torch.Generator().manual_seed(int(generator))
-        row_hash = make_hash_family(generator, config.depth, config.width_rows, device)
-        if config.is_square:
-            col_hash = row_hash
-        else:
-            col_hash = make_hash_family(generator, config.depth, config.width_cols, device)
+        row_hash, col_hash = GLavaSketch.hash_families(config, generator, device)
         return GLavaSketch(
             torch.zeros(
                 (config.depth, config.width_rows, config.width_cols),
@@ -152,6 +146,21 @@ class GLavaSketch:
             torch.zeros((config.depth, config.width_rows), dtype=torch.float32, device=device),
             torch.zeros((config.depth, config.width_cols), dtype=torch.float32, device=device),
         )
+
+    @staticmethod
+    def hash_families(
+        config: SketchConfig,
+        generator: Union[torch.Generator, int] = 0,
+        device: Optional[torch.device] = None,
+    ):
+        """The ``(row_hash, col_hash)`` pair :meth:`empty` draws from
+        ``generator``; one shared family for a square config."""
+        if not isinstance(generator, torch.Generator):
+            generator = torch.Generator().manual_seed(int(generator))
+        row_hash = make_hash_family(generator, config.depth, config.width_rows, device)
+        if config.is_square:
+            return row_hash, row_hash
+        return row_hash, make_hash_family(generator, config.depth, config.width_cols, device)
 
     def clone(self) -> "GLavaSketch":
         """A copy with its own counters and registers (hash families are

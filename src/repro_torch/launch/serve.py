@@ -6,9 +6,13 @@ throughput stats.
 
 Port of ``src/repro/launch/serve.py`` (single-session mode, same flags plus
 ``--device``).  The session runs on the CUDA device unless ``--device cpu``
-is given.  ``--tenants`` (ROADMAP A8), ``--window-slices`` (A4),
-``--wal-dir`` and ``--slice-width``/``--max-lateness`` (A7) raise
-``NotImplementedError`` until their slices are ported."""
+is given.  ``--window-slices K`` serves a sliding window of K slices;
+``--slice-width`` (with ``--window-slices``) gives the stream per-edge event
+times, drawn as the reference draws them, so the watermark drives the
+window's advances and late edges are routed or retracted;
+``--max-lateness`` bounds their out-of-orderness; ``--wal-dir`` logs every
+batch before its dispatch.  ``--tenants`` (fleet mode, ROADMAP A8) raises
+``NotImplementedError``."""
 from __future__ import annotations
 
 import argparse
@@ -51,21 +55,35 @@ def build_parser() -> argparse.ArgumentParser:
         "plain torch on the CPU",
     )
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    ap.add_argument("--tenants", type=int, default=0, help="not ported yet")
-    ap.add_argument("--wal-dir", default=None, help="not ported yet")
-    ap.add_argument("--slice-width", type=float, default=0.0, help="not ported yet")
-    ap.add_argument("--max-lateness", type=float, default=0.0, help="not ported yet")
+    ap.add_argument("--tenants", type=int, default=0, help="fleet mode: not ported yet")
+    ap.add_argument(
+        "--wal-dir",
+        default=None,
+        help="write-ahead-log directory: every batch is durably logged before its device dispatch",
+    )
+    ap.add_argument(
+        "--slice-width",
+        type=float,
+        default=0.0,
+        help="event-time slice width: with --window-slices, the stream carries per-edge "
+        "timestamps and the watermark drives advances",
+    )
+    ap.add_argument(
+        "--max-lateness",
+        type=float,
+        default=0.0,
+        help="bounded out-of-orderness: edges older than the watermark minus this are late "
+        "(retracted via the turnstile-delete path)",
+    )
     return ap
 
 
-def run(args: argparse.Namespace) -> Tuple[GraphStream, Subscription, List[SubscriptionEvent]]:
-    """Drive one session: open, subscribe the standing workload, ingest the
-    stream batch by batch.  Returns the session, the subscription and the
-    events it emitted (in tick order)."""
+def open_stream(args: argparse.Namespace) -> GraphStream:
+    """The session the flags describe (no traffic yet)."""
     if args.tenants:
         raise NotImplementedError("--tenants (fleet mode) is not ported yet (ROADMAP A8)")
     cfg = SketchConfig(depth=args.depth, width_rows=args.width, width_cols=args.width)
-    stream = GraphStream.open(
+    return GraphStream.open(
         cfg,
         device=args.device,
         window_slices=args.window_slices or None,
@@ -75,9 +93,22 @@ def run(args: argparse.Namespace) -> Tuple[GraphStream, Subscription, List[Subsc
         slice_width=args.slice_width or None,
         max_lateness=args.max_lateness if args.slice_width else None,
     )
+
+
+def traffic(args: argparse.Namespace) -> Tuple[dict, Optional[np.ndarray], QueryBatch]:
+    """The edge stream, its event times (None without ``--slice-width``) and
+    the standing workload, drawn from one seeded generator in the
+    reference's order."""
     rng = np.random.default_rng(0)
     data = edge_stream(args.nodes, args.edges, rng, zipf_a=1.2)
-
+    ts_all = None
+    if args.slice_width:
+        # Synthetic event time: one slice per ingest batch, with bounded
+        # out-of-orderness (uniform lag within --max-lateness), so the
+        # watermark path and late routing run.
+        base = np.arange(args.edges, dtype=np.float64) * (args.slice_width / args.batch)
+        ts_all = base - rng.uniform(0.0, max(args.max_lateness, 0.0), args.edges)
+        ts_all = np.maximum(ts_all, 0.0)
     # The monitoring workload is STANDING: the same mixed batch re-asked
     # after every ingest batch, compiled once by the planner.
     qs = rng.integers(0, args.nodes, 1024).astype(np.uint32)
@@ -90,11 +121,30 @@ def run(args: argparse.Namespace) -> Tuple[GraphStream, Subscription, List[Subsc
             Query.reach(qs[:64], qd[:64]),
         ]
     )
-    sub = stream.subscribe(workload, every=args.every, name="mixed-workload")
+    return data, ts_all, workload
 
+
+def run(args: argparse.Namespace) -> Tuple[GraphStream, Subscription, List[SubscriptionEvent]]:
+    """Drive one session: open, subscribe the standing workload, ingest the
+    stream batch by batch.  Returns the session, the subscription and the
+    events it emitted (in tick order)."""
+    return drive(open_stream(args), args)
+
+
+def drive(stream: GraphStream, args: argparse.Namespace) -> Tuple[GraphStream, Subscription, List[SubscriptionEvent]]:
+    """Subscribe the standing workload on ``stream`` and ingest the flags'
+    traffic into it, batch by batch (``run`` on a session opened
+    elsewhere, e.g. with a checkpoint directory)."""
+    data, ts_all, workload = traffic(args)
+    sub = stream.subscribe(workload, every=args.every, name="mixed-workload")
     for lo in range(0, args.edges, args.batch):
         hi = min(args.edges, lo + args.batch)
-        stream.ingest(data["src"][lo:hi], data["dst"][lo:hi], data["weight"][lo:hi])
+        stream.ingest(
+            data["src"][lo:hi],
+            data["dst"][lo:hi],
+            data["weight"][lo:hi],
+            timestamps=None if ts_all is None else ts_all[lo:hi],
+        )
     return stream, sub, sub.poll()
 
 

@@ -6,8 +6,8 @@ gLava session alongside.
 Port of ``examples/train_lm.py``, run as ``python -m
 repro_torch.launch.train_lm`` with the same flags plus ``--device``.  It
 trains on the CUDA device unless ``--device cpu`` is given.
-``--checkpoint-dir`` raises ``NotImplementedError`` until checkpointing is
-ported (ROADMAP A7)."""
+``--checkpoint-dir`` saves a checkpoint every ``max(10, steps // 4)`` steps
+and resumes from the newest one it finds there."""
 from __future__ import annotations
 
 import argparse
@@ -64,14 +64,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--compress", action="store_true",
                     help="sketched gradient all-reduce (FetchSGD-style)")
-    ap.add_argument("--checkpoint-dir", default=None, help="not ported yet")
+    ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
 
 
 def run(args: argparse.Namespace) -> TrainRun:
-    if args.checkpoint_dir:
-        raise NotImplementedError("--checkpoint-dir is not ported yet (ROADMAP A7)")
     device = resolve_device(args.device)
     cfg = PRESETS[args.preset]
     print(f"[train_lm] {cfg.name}: {cfg.param_count()/1e6:.1f}M params")
@@ -124,12 +122,14 @@ def run(args: argparse.Namespace) -> TrainRun:
         init_state, step, stream,
         TrainerConfig(
             total_steps=args.steps,
+            checkpoint_dir=args.checkpoint_dir,
             checkpoint_every=max(10, args.steps // 4),
             log_every=max(1, args.steps // 10),
         ),
     )
     losses = [h["loss"] for h in res.history]
-    print(f"[train_lm] loss {losses[0]:.3f} -> {losses[-1]:.3f} over {len(losses)} steps")
+    if losses:
+        print(f"[train_lm] loss {losses[0]:.3f} -> {losses[-1]:.3f} over {len(losses)} steps")
     # The sketch earning its keep: bigram-frequency estimates.
     toks = gen.batch(4, 65, rng)
     bs = bigram_stream(toks)

@@ -1,16 +1,18 @@
-"""Train loop: microbatch accumulation, straggler watchdog, optional
-sketched gradient compression, and failure injection for FT tests.
+"""Train loop: microbatch accumulation, periodic async checkpoints,
+crash-exact resume, straggler watchdog, optional sketched gradient
+compression, and failure injection for FT tests.
 
 Port of ``src/repro/train/trainer.py``.  A step is a plain function
 ``step(state, batch) -> (state, metrics)`` over trees of tensors; gradients
 come from ``torch.autograd.grad`` on detached copies of the parameter leaves
 (the counterpart of ``jax.value_and_grad``), and microbatches run in a
 Python loop in place of ``lax.scan``.  ``train_loop`` puts each batch on
-the device of the state's tensors.
+the device of the state's tensors.  Checkpoints are
+:class:`~repro_torch.checkpoint.manager.CheckpointManager` saves in the
+reference's format.
 
-Not ported yet: checkpointing and resume (``checkpoint_dir``, ROADMAP A7)
-and the all-reduce across workers (``axis_name``, ROADMAP A9); both raise
-``NotImplementedError``.
+Not ported yet: the all-reduce across workers (``axis_name``, ROADMAP A9),
+which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.train import compression as comp_mod
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -95,17 +98,32 @@ def train_loop(
     seed: int = 0,
 ) -> TrainResult:
     """Run to total_steps.  ``init_state`` receives a CPU
-    ``torch.Generator`` seeded with ``seed``."""
-    if cfg.checkpoint_dir:
-        raise NotImplementedError("checkpoint_dir (checkpoint and resume) is not ported yet (ROADMAP A7)")
+    ``torch.Generator`` seeded with ``seed``.  With ``checkpoint_dir``, a
+    checkpoint found there is resumed EXACTLY (step counter, optimizer
+    state, parameters): ``batches`` must then start at the resumed step."""
+    mgr = (
+        CheckpointManager(cfg.checkpoint_dir, keep=cfg.keep_checkpoints)
+        if cfg.checkpoint_dir
+        else None
+    )
     state = init_state(torch.Generator().manual_seed(seed))
+    start_step = 0
+    resumed_from = None
+    if mgr is not None and mgr.latest_step() is not None:
+        state, meta = mgr.restore(like=state)
+        start_step = meta["step"]
+        resumed_from = start_step
     device = next(x for x in tree_leaves(state) if isinstance(x, torch.Tensor)).device
     history = []
     stragglers = []
     durations = []
-    for step in range(cfg.total_steps):
+    for step in range(start_step, cfg.total_steps):
         batch = next(batches)
         if cfg.fail_at_step is not None and step == cfg.fail_at_step:
+            # Simulated preemption: checkpoints begun on earlier steps are
+            # durable by the time a later step dies (join the writer).
+            if mgr is not None:
+                mgr.wait()
             raise RuntimeError(f"injected failure at step {step}")
         t0 = time.time()
         batch = tree_map(lambda x: torch.as_tensor(x).to(device, non_blocking=True), batch)
@@ -119,7 +137,12 @@ def train_loop(
         history.append({"step": step, "duration_s": dt, **metrics})
         if cfg.log_every and step % cfg.log_every == 0:
             print(f"[train] step {step}: loss={metrics.get('loss', float('nan')):.4f} {dt*1e3:.0f}ms")
-    return TrainResult(state, history, stragglers, None)
+        next_step = step + 1
+        if mgr is not None and (next_step % cfg.checkpoint_every == 0 or next_step == cfg.total_steps):
+            mgr.save_async(next_step, state, {"step": next_step})
+    if mgr is not None:
+        mgr.wait()
+    return TrainResult(state, history, stragglers, resumed_from)
 
 
 def compressed_data_parallel_step(

@@ -32,6 +32,62 @@ def to_port(sk, device="cpu"):
     )
 
 
+def window_to_port(win, device="cpu"):
+    """The port's SlidingWindowSketch holding the reference window ``win``'s
+    leaves."""
+    from repro_torch.convert import window_from_arrays
+
+    t = win.template
+    square = t.config.is_square
+    return window_from_arrays(
+        port_config(t.config),
+        np.asarray(win.slices),
+        np.asarray(win.current),
+        np.asarray(win.row_flows),
+        np.asarray(win.col_flows),
+        np.asarray(t.row_hash.a),
+        np.asarray(t.row_hash.b),
+        None if square else np.asarray(t.col_hash.a),
+        None if square else np.asarray(t.col_hash.b),
+        device=device,
+    )
+
+
+def port_session(cfg, seed=0, window_slices=None, **kwargs):
+    """A port session (on the CPU) whose hash family is the one a reference
+    session opened with ``cfg`` and ``seed`` draws: an empty reference
+    sketch (or window of ``window_slices``) carried across; ``kwargs`` go to
+    the port's ``GraphStream.open``."""
+    import jax
+    from repro.core.sketch import GLavaSketch as RefSketch
+    from repro.core.window import SlidingWindowSketch as RefWindow
+    from repro_torch.api import GraphStream
+
+    key = jax.random.key(seed)
+    if window_slices:
+        sk = window_to_port(RefWindow.empty(cfg, window_slices, key))
+    else:
+        sk = to_port(RefSketch.empty(cfg, key))
+    return GraphStream.open(sketch=sk, device="cpu", **kwargs)
+
+
+def head_relative(gs):
+    """A windowed session's (slices, row_flows, col_flows) as numpy in
+    HEAD-RELATIVE slot order, plus the head slice (or the current slot for
+    an arrival-ordered window), for either package: two runs of one logical
+    stream may rotate the ring differently while holding the same slices."""
+    gs.flush()
+    w = gs._window
+    slices, rows, cols = (np.asarray(x) for x in (w.slices, w.row_flows, w.col_flows))
+    head = gs._head_slice
+    if head is not None:
+        k = w.n_slices
+        slot_off = (gs._ring_pos - head) % k
+        order = [(head - k + 1 + rel + slot_off) % k for rel in range(k)]
+        slices, rows, cols = slices[order], rows[order], cols[order]
+    return slices, rows, cols, head if head is not None else int(w.current)
+
+
 def countmin_to_port(cm, device="cpu"):
     from repro_torch.convert import countmin_from_arrays
 

@@ -686,3 +686,91 @@ def test_analytics_functions_on_card_equal_cpu(cuda):
         assert g.dtype == c.dtype and torch.equal(g, c), i
     for g, c in zip(close_g, close_c, strict=True):
         torch.testing.assert_close(g, c, rtol=1e-5, atol=1e-7)
+
+
+# -- the durable, windowed serving plane ----------------------------------------
+
+
+@pytest.mark.parametrize("slot", [0, 3])
+def test_ingest_kernel_scatters_into_a_ring_slot(cuda, slot):
+    """B1 on a ring slot's view (slots 0 and K-1 of K=4) against the plain
+    scatter on the same view: bit-equal, and the other slots untouched."""
+    from repro_torch.core.window import SlidingWindowSketch
+    from repro_torch.core.sketch import SketchConfig
+
+    win = SlidingWindowSketch.empty(SketchConfig(depth=3, width_rows=300, width_cols=200), 4, 0, "cuda")
+    win.slices.copy_(torch.randint(0, 1000, win.slices.shape, generator=cuda, device="cuda").float())
+    ref = win.slices.clone()
+    rows = torch.randint(0, 300, (3, 5000), generator=cuda, device="cuda")
+    cols = torch.randint(0, 200, (3, 5000), generator=cuda, device="cuda")
+    w = torch.randint(0, 9, (5000,), generator=cuda, device="cuda").float()
+    view = win.slice_at(slot).counters
+    assert view.is_contiguous() and view.data_ptr() == win.slices[slot].data_ptr()
+    before = ingest_ops.ingest_scatter.launches
+    ingest_ops.ingest_scatter(view, rows, cols, w)
+    assert ingest_ops.ingest_scatter.launches == before + 1
+    ingest_scatter_ref(ref[slot], rows, cols, w)
+    assert torch.equal(win.slices, ref)
+
+
+def test_update_at_every_slot_on_card_equals_cpu(cuda):
+    """``update_at_`` into each slot of a ring on the card (one B1 launch a
+    call) and on the CPU; then the window sum and an advance."""
+    from repro_torch.core.hashing import keys_to_tensor
+    from repro_torch.core.sketch import SketchConfig
+    from repro_torch.core.window import SlidingWindowSketch
+
+    cfg = SketchConfig(depth=3, width_rows=256, width_cols=128)
+    wins = {dev: SlidingWindowSketch.empty(cfg, 5, 3, dev) for dev in ("cuda", "cpu")}
+    rng = np.random.default_rng(0)
+    before = ingest_ops.ingest_scatter.launches
+    for slot in range(5):
+        s, d = rng.integers(0, 10_000, 3000).astype(np.uint32), rng.integers(0, 10_000, 3000).astype(np.uint32)
+        w = rng.integers(1, 9, 3000).astype(np.float32)
+        for dev, win in wins.items():
+            win.update_at_(slot, keys_to_tensor(s, dev), keys_to_tensor(d, dev), torch.from_numpy(w).to(dev))
+    assert ingest_ops.ingest_scatter.launches == before + 5
+    for dev in wins:
+        wins[dev].advance_().advance_()
+    for name in ("slices", "row_flows", "col_flows"):
+        assert torch.equal(getattr(wins["cuda"], name).cpu(), getattr(wins["cpu"], name))
+    got, want = wins["cuda"].window_sketch(), wins["cpu"].window_sketch()
+    assert torch.equal(got.counters.cpu(), want.counters) and wins["cuda"].current == 2
+
+
+def test_durable_windowed_session_on_card_equals_cpu(cuda, tmp_path):
+    """The small windowed event-time durable session on the card and on the
+    CPU: the same ring, tracker and transcript; a checkpoint written from the
+    card restores on the CPU; the card's WAL replays on the CPU."""
+    from repro_torch.api import GraphStream
+    from repro_torch.core.sketch import SketchConfig
+
+    argv = ["--depth", "3", "--width", "256", "--nodes", "2000", "--edges", "20000", "--batch", "5000",
+            "--window-slices", "4", "--slice-width", "1.0", "--max-lateness", "1.0"]
+    cfg = SketchConfig(depth=3, width_rows=256, width_cols=256)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        args = serve.build_parser().parse_args(argv + ["--device", dev])
+        gs = GraphStream.open(cfg, device=dev, window_slices=4, slice_width=1.0, max_lateness=1.0,
+                              wal_dir=str(tmp_path / f"wal-{dev}"), checkpoint_dir=str(tmp_path / f"ckpt-{dev}"))
+        runs[dev] = serve.drive(gs, args)
+    (gpu, _, gpu_events), (cpu, _, cpu_events) = runs["cuda"], runs["cpu"]
+    for name in ("slices", "row_flows", "col_flows"):
+        assert torch.equal(getattr(gpu._window, name).cpu(), getattr(cpu._window, name))
+    assert gpu._tracker.state() == cpu._tracker.state() and gpu.stats.auto_advances == cpu.stats.auto_advances > 0
+    assert [(e.tick, e.epoch) for e in gpu_events] == [(e.tick, e.epoch) for e in cpu_events]
+    for a, b in zip(gpu_events, cpu_events):
+        for ra, rb in zip(a.results, b.results):
+            va = ra.value if isinstance(ra.value, tuple) else (ra.value,)
+            vb = rb.value if isinstance(rb.value, tuple) else (rb.value,)
+            assert all(np.array_equal(x, y) for x, y in zip(va, vb))
+    step = gpu.checkpoint()
+    back = GraphStream.open(cfg, seed=5, device="cpu", window_slices=4, slice_width=1.0, max_lateness=1.0,
+                            checkpoint_dir=str(tmp_path / "ckpt-cuda"))
+    assert back.restore() == step and back.epoch == gpu.epoch and back.watermark == gpu.watermark
+    for name in ("slices", "row_flows", "col_flows"):
+        assert torch.equal(getattr(back._window, name), getattr(cpu._window, name))
+    replay = GraphStream.open(cfg, device="cpu", window_slices=4, slice_width=1.0, max_lateness=1.0,
+                              wal_dir=str(tmp_path / "wal-cuda"))
+    replay.recover()
+    assert torch.equal(replay._window.slices, cpu._window.slices)

@@ -186,19 +186,17 @@ def test_open_presets_and_unported_options_raise():
         GraphStream.open("nope", device="cpu")
     with pytest.raises(ValueError):
         GraphStream.open()
-    for kwargs, item in [
-        (dict(window_slices=4), "A4"),
-        (dict(wal_dir="w"), "A7"),
-        (dict(slice_width=1.0), "A7"),
-        (dict(checkpoint_dir="c"), "A7"),
-        (dict(mesh=object()), "A9"),
-    ]:
-        with pytest.raises(NotImplementedError, match=item):
-            GraphStream.open("smoke", device="cpu", **kwargs)
+    # Only the distributed plane is left to port.
+    with pytest.raises(NotImplementedError, match="A9"):
+        GraphStream.open("smoke", device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="windowed"):
+        GraphStream.open("smoke", device="cpu", mesh=object(), window_slices=4)
     # The fused session mode is ported: it opens and keeps its mode name.
     assert GraphStream.open("smoke", device="cpu", ingest_backend="fused").ingest_backend == "fused"
-    for method in ("checkpoint", "restore", "recover"):
-        with pytest.raises(NotImplementedError, match="A7"):
+    assert GraphStream.open("smoke", device="cpu", window_slices=4)._window.n_slices == 4
+    # Durability is ported: without its directory each method says which.
+    for method, option in (("checkpoint", "checkpoint_dir"), ("restore", "checkpoint_dir"), ("recover", "wal_dir")):
+        with pytest.raises(ValueError, match=option):
             getattr(gs, method)()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -215,6 +213,10 @@ def test_serve_runs_on_cpu_and_refuses_unported_modes(capsys):
     plain, _, plain_events = serve.main(argv + ["--ingest-backend", "scatter", "--query-backend", "torch"])
     assert torch.equal(plain._live().counters, stream._live().counters)
     _assert_same_events(plain_events, events)
-    for extra in (["--tenants", "4"], ["--window-slices", "2"], ["--wal-dir", "x"], ["--slice-width", "1"]):
-        with pytest.raises(NotImplementedError):
-            serve.main(argv + extra)
+    with pytest.raises(NotImplementedError, match="A8"):
+        serve.main(argv + ["--tenants", "4"])
+    # --slice-width without --window-slices is refused as in the reference.
+    with pytest.raises(ValueError, match="window_slices"):
+        serve.main(argv + ["--slice-width", "1"])
+    windowed, _, windowed_events = serve.main(argv + ["--window-slices", "2"])
+    assert windowed._window.n_slices == 2 and len(windowed_events) == 2
