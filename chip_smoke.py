@@ -29,7 +29,11 @@ edges as they arrive, int64 and int32 buckets, both modes, on an empty
 sketch and on one holding the batch: bit-equal to the plain loop on 2,000
 edges and, once, over the whole batch; sequential mode bit-equal to the
 ingest scatter; conservative counters between their cellwise floor and the
-vanilla counters; the chain's floor with every edge on one cell).  Each is
+vanilla counters; the chain's floor with every edge on one cell); and the
+port-only stacked ingest of the fleet (serve BASE's first batch routed to 16
+tenants, grouped by slot, into the (80, 5, 8192, 8192) stack of 16 BASE
+tenants, past 2^31 cells: counters and both registers bit-equal plane by
+plane, with the three ``index_put_`` on precomputed offsets beside it).  Each is
 timed with CUDA events and the profiler beside its plain version and one
 PyTorch library call where there is one.
 
@@ -89,6 +93,19 @@ before and read just after:
   the CPU, its card checkpoint restored and its WAL replayed on the CPU; the
   tiny trainer on the card crashed at step 11 and resumed from step 10
   (uncompressed: the same losses bit for bit; compressed: rtol 1e-4);
+- fleet serve BASE: ``serve.main(SERVE_BASE + --tenants 16)``, 16 BASE
+  tenants resident (21.5 GB), the serve traffic tagged with zipf tenant ids
+  and tenants 0-2 subscribed, on the kernels and on the plain backends:
+  identical stacks, cursors and transcripts; the stacked ingest launched
+  once a batch and the closure kernel 13 times a batched build of the hot
+  tenants' closures; tenants 0, 1, 2 and the tenant of slot 15 (past 2^31
+  cells) equal to standalone sessions fed their sub-streams; one batched
+  build at S=3 timed;
+- fleet residency BASE: 6 tenants through 4 slots with checkpoint and WAL
+  directories (3 evictions, 1 fault-in), then a fresh fleet's ``recover()``:
+  every tenant equal to its standalone session; then a windowed fleet (4
+  tenants, rings of 4 slices, 21.5 GB, the hot tenants advanced every 2
+  batches) on the kernels and on the plain backends, identical;
 - train 100m: ``repro_torch.launch.train_lm --preset 100m --compress`` for
   10 steps at the example's batch 8 and sequence 64 (full width, random
   weights from a seed): countsketch launched twice a step and its decode
@@ -2136,6 +2153,347 @@ def trainer_resume(torch, tmp):
               f"{start}; resumed losses {got} vs straight {want} (max rel diff {diff:.3g})")
 
 
+# -- the multi-tenant fleet ---------------------------------------------------------
+
+# The serve BASE traffic tagged with zipf tenant ids, 16 BASE tenants resident
+# (21.5 GB of counters, 80 planes: past 2^31 cells); the residency cell (6
+# tenants through 4 slots, a batch each, the first back at the end); the
+# windowed fleet (4 tenants, rings of 4 slices, 21.5 GB).
+FLEET_TENANTS = 16
+FLEET_BASE = SERVE_BASE + ["--tenants", str(FLEET_TENANTS)]
+FLEET_RESIDENCY_ORDER = (0, 1, 2, 3, 4, 5, 0)
+FLEET_WINDOW = SERVE_BASE + ["--tenants", "4", "--window-slices", "4"]
+STACKED_NAMES = ("counters", "row_flows", "col_flows")
+
+
+def release(torch) -> float:
+    """Free what is no longer referenced, cycles included (a session and its
+    subscriptions, a fleet and its tenant sessions refer to each other, so
+    their tensors wait for the cycle collector), and return the GiB still
+    allocated on the card."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def fleet_first_batch(torch):
+    """Serve BASE's first batch routed to 16 tenants as the fleet hands it to
+    the stacked kernel: the first ``--batch`` edges of the fleet traffic and
+    their tenant ids, grouped by slot (a stable sort; tenant t holds slot t,
+    as the fleet admits them), hashed by the BASE fleet's family (seed 0)
+    into int64 buckets, the slot lane int32.  Returns ``(plane, rows, cols,
+    weights)`` on the card."""
+    from repro_torch.core.hashing import keys_to_tensor
+    from repro_torch.core.sketch import GLavaSketch
+    from repro_torch.fleet import group_stream
+    from repro_torch.launch import serve
+
+    args = serve.build_parser().parse_args(FLEET_BASE)
+    data, ids, _ = serve.fleet_traffic(args)
+    b = args.batch
+    slots, src, dst, wts, *_ = group_stream(
+        ids[:b].astype("int32"), data["src"][:b], data["dst"][:b], data["weight"][:b]
+    )
+    row_hash, col_hash = GLavaSketch.hash_families(serve._config(args), 0, "cuda")
+    rows, cols = row_hash(keys_to_tensor(src, "cuda")), col_hash(keys_to_tensor(dst, "cuda"))
+    return torch.from_numpy(slots).cuda(), rows, cols, torch.from_numpy(wts).cuda()
+
+
+def stacked_bound_bytes(torch, plane, rows, cols, wts, shape) -> int:
+    """Bytes a stacked-ingest batch needs: a 32-byte sector read and written
+    for every distinct counter and register sector its weighted valid slots
+    add into, the (d, B) rows and columns, the (B,) plane and weights read
+    once."""
+    from repro_torch.kernels.ingest_stacked.ref import stacked_offsets
+
+    d, b = rows.shape
+    valid, *flats = stacked_offsets(tuple(shape), plane, rows, cols)
+    adds = valid & (wts != 0)[None, :]
+    sectors = sum(int(torch.unique(flat[adds] // 8).numel()) for flat in flats)
+    return sectors * 64 + d * b * 2 * rows.element_size() + b * (plane.element_size() + wts.element_size())
+
+
+def phase_stacked_ingest(torch, gen):
+    """The port-only stacked ingest on the fleet's BASE stack (16 tenants,
+    (80, 5, 8192, 8192), 64-bit offsets) and serve BASE's first batch routed
+    to them: counters and both registers bit-equal to the plain version plane
+    by plane; wrapper ms by CUDA events, host us, device ms beside the bound,
+    with a cold L2; the plain version; the three ``index_put_`` on
+    precomputed flat int64 offsets by device time; the SASS atomics."""
+    from repro_torch.kernels.ingest_stacked.ops import stacked_ingest
+    from repro_torch.kernels.ingest_stacked.ref import stacked_ingest_ref, stacked_offsets
+
+    n, d, w = FLEET_TENANTS, BASE_DEPTH, BASE_WIDTH
+    plane, rows, cols, wts = fleet_first_batch(torch)
+
+    def stack():
+        return (torch.zeros((n, d, w, w), device="cuda"), torch.zeros((n, d, w), device="cuda"),
+                torch.zeros((n, d, w), device="cuda"))
+
+    got = stacked_ingest(*stack(), plane, rows, cols, wts)
+    want = stacked_ingest_ref(*stack(), plane, rows, cols, wts)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, x in zip(STACKED_NAMES, got, want):
+        for p in range(n):
+            err = max(err, float((g[p] - x[p]).abs().max()))
+            check(torch.equal(g[p], x[p]), f"stacked ingest: {name} of plane {p} differs from its plain version")
+    check(float(got[0][n - 1].sum()) > 0, "stacked ingest: the last plane (past 2^31 cells) got nothing")
+    del want
+    release(torch)
+    call = lambda: stacked_ingest(*got, plane, rows, cols, wts)  # noqa: E731
+    ms, host = time_ms(call, INGEST_REPS), host_us(call)
+    dev = device_ms(call, 20, "ingest_stacked_kernel")
+    cold = cold_device_ms(call, "ingest_stacked_kernel")
+    plain_ms = time_ms(lambda: stacked_ingest_ref(*got, plane, rows, cols, wts), 20)
+    valid, *flats = stacked_offsets(tuple(got[0].shape), plane, rows, cols)
+    vals = torch.where(valid, wts[None, :], torch.zeros((), device="cuda")).reshape(-1)
+    idx = [(flat.reshape(-1),) for flat in flats]
+
+    def library():
+        for t, i in zip(got, idx):
+            t.view(-1).index_put_(i, vals, accumulate=True)
+
+    library_ms, library_dev = time_ms(library, 20), device_ms(library, 20)
+    bound = stacked_bound_bytes(torch, plane, rows, cols, wts, got[0].shape) / PEAK_BYTES_PER_S * 1e3
+    sass = sass_ops("ingest_stacked", "ingest_stacked_kernel", "RED|ATOM")
+    check("RED" in sass and "ATOM" not in sass, f"ingest_stacked_kernel: the adds are not all RED: {sass}")
+    print(
+        f"[chip_smoke] stacked ingest, serve BASE's first batch routed to {n} tenants ({wts.shape[0]} edges, "
+        f"int64 buckets, int32 slots) into the ({n}, {d}, {w}, {w}) stack ({got[0].numel():,} cells): all three "
+        f"outputs bit-equal plane by plane; wrapper {ms:.4f} ms, host {host:.3f} us/call, device {_fmt(dev)}"
+        + (f" ({100 * bound / dev:.1f}% of the bound)" if dev else "")
+        + f", with a cold L2 {_fmt(cold)}; bound {bound:.5f} ms; plain {plain_ms:.4f} ms; three index_put_ on "
+        f"precomputed int64 offsets {library_ms:.4f} ms, device {_fmt(library_dev)}"
+    )
+    print(f"[chip_smoke] ingest_stacked SASS: {sass}")
+    del got
+    release(torch)
+    return dict(
+        name="ingest_stacked", route="cuda", source="src/repro_torch/csrc/ingest_stacked.cu",
+        replaces="src/repro/core/sketch.py:120", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by="bytes", library_ms=library_dev,
+    )
+
+
+def timed_fleet(torch, fn):
+    """(fleet, each subscription's events, host wall seconds) of one fleet run."""
+    t0 = time.time()
+    fleet, subs = fn()
+    torch.cuda.synchronize()
+    return fleet, [sub.poll() for sub in subs], time.time() - t0
+
+
+def same_fleet(torch, a, b, label):
+    """Two fleets hold the same tenants in the same slots, every slot's
+    counters, registers and cursor bit for bit, the same epochs."""
+    check(a._state.counters.shape == b._state.counters.shape and set(a._sessions) == set(b._sessions),
+          f"{label}: different stacks or tenants")
+    for t, sess in a._sessions.items():
+        other = b._sessions[t]
+        check(sess._slot == other._slot and sess.epoch == other.epoch, f"{label}: tenant {t} slot or epoch differ")
+        if sess._slot is None:
+            continue
+        for name in STACKED_NAMES + ("cursor",):
+            check(torch.equal(getattr(a._state, name)[sess._slot], getattr(b._state, name)[sess._slot]),
+                  f"{label}: tenant {t} {name} differ")
+        check(bool(torch.isfinite(a._state.counters[sess._slot]).all()), f"{label}: tenant {t} non-finite counters")
+
+
+def same_sketch(torch, got, want, label):
+    for name in STACKED_NAMES:
+        check(torch.equal(getattr(got, name), getattr(want, name)), f"{label}: {name} differ")
+
+
+def standalone(torch, serve, args, data, ids, tenant, workload=None):
+    """A port ``GraphStream`` opened as the fleet's seed opens it (seed 0) and
+    fed ``tenant``'s sub-stream batch by batch (its subscription, if given,
+    as the fleet's: ``every`` of its own mutations).  Returns the session
+    and its events."""
+    from repro_torch.api import GraphStream
+
+    gs = GraphStream.open(serve._config(args), device="cuda")
+    sub = None if workload is None else gs.subscribe(workload, every=args.every, name=f"tenant-{tenant}")
+    for lo in range(0, args.edges, args.batch):
+        m = ids[lo:lo + args.batch] == tenant
+        if m.any():
+            gs.ingest(*(data[k][lo:lo + args.batch][m] for k in ("src", "dst", "weight")))
+    return gs, [] if sub is None else sub.poll()
+
+
+def phase_fleet_serve(torch, serve, counted, drive):
+    """Fleet serve BASE: ``serve.main(SERVE_BASE + --tenants 16)`` on the
+    kernels (counts from this run only) and on the plain backends: the same
+    stack and transcripts; one stacked-ingest launch a batch, 13 closure
+    launches a batched build; the three hot tenants and the tenant of slot
+    15 (its plane past 2^31 cells) equal to standalone sessions; a batched
+    build of the hot tenants' closures timed; one more run on the kernels
+    under the profiler."""
+    from repro_torch.kernels.closure.ops import closure_steps
+
+    held = release(torch)
+    kern, kern_ev, kern_s = drive(("ingest_stacked",), lambda: timed_fleet(torch, lambda: serve.main(FLEET_BASE)))
+    closure_launches = counted["closure_step"].launches
+    kern.engine.invalidate()  # the transcripts are taken; free the closures for the plain run
+    with_kern = release(torch)
+    plain, plain_ev, plain_s = timed_fleet(torch, lambda: serve.main(FLEET_BASE + PLAIN_BACKENDS))
+    same_fleet(torch, kern, plain, "fleet serve BASE vs plain")
+    for a, b in zip(kern_ev, plain_ev, strict=True):
+        same_events(a, b, "fleet serve BASE vs plain")
+    args = serve.build_parser().parse_args(FLEET_BASE)
+    n_batches = -(-args.edges // args.batch)
+    builds = kern.engine.dispatches["closure"]
+    check(counted["ingest_stacked"].launches == n_batches,
+          f"fleet serve BASE: {counted['ingest_stacked'].launches} stacked launches for {n_batches} batches")
+    check(builds >= 1 and closure_launches == builds * closure_steps(BASE_WIDTH),
+          f"fleet serve BASE: {closure_launches} closure launches for {builds} batched builds")
+    check(all(kern._sessions[t]._slot == t for t in range(FLEET_TENANTS)), "fleet serve BASE: tenant t not in slot t")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del plain, plain_ev
+    release(torch)
+    print(
+        f"[chip_smoke] fleet serve BASE ({held:.1f} GiB held on the card before it, {with_kern:.1f} GiB with the "
+        f"kernels run's fleet, peak {peak:.1f} GiB; {FLEET_TENANTS} tenants, ({FLEET_TENANTS}, 1, {BASE_DEPTH}, {BASE_WIDTH}, "
+        f"{BASE_WIDTH}) counters, {kern._state.counters.numel() * 4 / 1e9:.1f} GB): kernels {kern_s:.3f} s, plain "
+        f"{plain_s:.3f} s (host wall clock); {n_batches} stacked launches, {closure_launches} closure launches for "
+        f"{builds} batched builds of {kern.engine.closure_builds} tenant closures; ticks "
+        f"{[len(e) for e in kern_ev]}; stack, cursors and transcripts identical"
+    )
+    data, ids, workload = serve.fleet_traffic(args)
+    for t in (0, 1, 2, 15):
+        gs, events = standalone(torch, serve, args, data, ids, t, workload if t < 3 else None)
+        same_sketch(torch, kern.tenant(t).sketch, gs.sketch, f"fleet tenant {t} vs its standalone session")
+        check(kern.tenant(t).epoch == gs.epoch, f"fleet tenant {t}: epoch {kern.tenant(t).epoch} vs {gs.epoch}")
+        if t < 3:
+            same_events(kern_ev[t], events, f"fleet tenant {t} vs its standalone session")
+        del gs
+    print(
+        f"[chip_smoke] fleet serve BASE: tenants 0, 1, 2 (counters, registers, epochs, transcripts) and 15 (slot 15, "
+        f"cells from {15 * BASE_DEPTH * BASE_WIDTH ** 2:,} on, past 2^31) equal to standalone sessions"
+    )
+    items = [(t, kern._sessions[t].epoch) for t in range(3)]
+    kern.engine.invalidate()
+    build_ms = once_ms(torch, lambda: kern.engine._build(kern._state, items))
+    print(f"[chip_smoke] fleet closure build, S=3 tenants (15 planes of {BASE_WIDTH}^2, "
+          f"{closure_steps(BASE_WIDTH)} launches): {build_ms:.2f} ms by CUDA events")
+    del kern, kern_ev
+    release(torch)
+    profile_serve(torch, serve, FLEET_BASE, "fleet serve BASE")
+    release(torch)
+
+
+def phase_fleet_residency(torch, serve):
+    """Fleet residency and recovery at BASE: 6 tenants through 4 slots with
+    checkpoint and WAL directories (one serve BASE batch each in
+    ``FLEET_RESIDENCY_ORDER``: 3 evictions, 1 fault-in), every resident
+    tenant against its standalone session; a fresh fleet's ``recover()`` from
+    the shards and lanes, every tenant against its standalone session; then
+    the windowed fleet on the kernels against the plain backends."""
+    import shutil
+    import tempfile
+
+    from repro_torch.api import GraphStream
+    from repro_torch.fleet import SketchFleet
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-fleet-"))
+    try:
+        args = serve.build_parser().parse_args(SERVE_BASE)
+        data, _, _ = serve.traffic(args)
+        cfg = serve._config(args)
+        dirs = dict(capacity=4, device="cuda", checkpoint_dir=str(tmp / "ckpt"), wal_dir=str(tmp / "wal"))
+        fleet = SketchFleet.open(cfg, **dirs)
+        oracles = {t: GraphStream.open(cfg, device="cuda") for t in set(FLEET_RESIDENCY_ORDER)}
+        admit_s, ingest_s = [], []
+        for i, t in enumerate(FLEET_RESIDENCY_ORDER):
+            batch = tuple(data[k][i * args.batch:(i + 1) * args.batch] for k in ("src", "dst", "weight"))
+            before = (fleet.stats.evictions, fleet.stats.fault_ins)
+            t0 = time.time()
+            fleet.tenant(t)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            fleet.tenant(t).ingest(*batch)
+            fleet.flush()
+            moved = (fleet.stats.evictions - before[0], fleet.stats.fault_ins - before[1])
+            admit_s.append((t, moved, t1 - t0))
+            ingest_s.append(time.time() - t1)
+            oracles[t].ingest(*batch)
+        check((fleet.stats.evictions, fleet.stats.fault_ins) == (3, 1),
+              f"fleet residency: {fleet.stats.evictions} evictions, {fleet.stats.fault_ins} fault-ins")
+        for t in fleet.resident_tenants:
+            same_sketch(torch, fleet.tenant(t).sketch, oracles[t].sketch, f"fleet residency: tenant {t}")
+        shard_gb = sum(p.stat().st_size for p in (tmp / "ckpt").rglob("arrays.npz")) / 1e9
+        del fleet  # crash
+        release(torch)
+        fleet = SketchFleet.open(cfg, **dirs)
+        t0 = time.time()
+        reports = fleet.recover()
+        torch.cuda.synchronize()
+        recover_s = time.time() - t0
+        check(set(reports) == set(oracles), f"fleet recovery: lanes of {sorted(reports)}")
+        for t in list(fleet.resident_tenants) + [t for t in oracles if t not in fleet.resident_tenants]:
+            same_sketch(torch, fleet.tenant(t).sketch, oracles[t].sketch, f"fleet recovery: tenant {t}")
+            check(fleet.tenant(t).epoch == oracles[t].epoch, f"fleet recovery: tenant {t} epoch")
+        moves = ", ".join(f"tenant {t}: {sec:.2f} s ({ev} eviction, {fi} fault-in)" for t, (ev, fi), sec in admit_s)
+        print(
+            f"[chip_smoke] fleet residency BASE (capacity 4, 6 tenants, a 50,000-edge batch each in the order "
+            f"{FLEET_RESIDENCY_ORDER}): 3 evictions and 1 fault-in; admissions ({moves}); ingest with its WAL append "
+            f"{min(ingest_s):.3f}-{max(ingest_s):.3f} s a batch; {shard_gb:.2f} GB of shards on disk; recover() "
+            f"{recover_s:.2f} s ({sum(r.mutations_replayed for r in reports.values())} mutations replayed, "
+            f"{sum(r.step is not None for r in reports.values())} shards faulted in); every tenant equal to its "
+            f"standalone session before the crash (residents) and after recovery (all 6) (host wall clock)"
+        )
+        del fleet, oracles
+        release(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fleet_window(torch, serve)
+
+
+def fleet_window(torch, serve):
+    """The windowed fleet: 4 tenants, rings of 4 slices (21.5 GB), the fleet
+    traffic with the hot tenants' windows advanced every 2 batches, on the
+    kernels and on the plain backends: the same rings, cursors and
+    transcripts."""
+    from repro_torch.kernels.ingest_stacked.ops import stacked_ingest
+
+    runs = {}
+    for label, flags in (("kernels", []), ("plain", PLAIN_BACKENDS)):
+        args = serve.build_parser().parse_args(FLEET_WINDOW + flags)
+        data, ids, workload = serve.fleet_traffic(args)
+        launches = stacked_ingest.launches
+        t0 = time.time()
+        fleet = serve.open_fleet(args)
+        subs = [fleet.tenant(t).subscribe(workload, every=args.every, name=f"tenant-{t}") for t in range(3)]
+        for i, lo in enumerate(range(0, args.edges, args.batch)):
+            fleet.ingest_mixed(*(x[lo:lo + args.batch] for x in (ids, data["src"], data["dst"], data["weight"])))
+            if i % 2 == 1:
+                for t in range(3):
+                    fleet.tenant(t).advance_window()
+        torch.cuda.synchronize()
+        fleet.engine.invalidate()
+        runs[label] = (fleet, [sub.poll() for sub in subs], time.time() - t0, stacked_ingest.launches - launches)
+        del fleet, subs
+        release(torch)
+    (kern, kern_ev, kern_s, kern_n), (plain, plain_ev, plain_s, plain_n) = runs["kernels"], runs["plain"]
+    same_fleet(torch, kern, plain, "windowed fleet vs plain")
+    for a, b in zip(kern_ev, plain_ev, strict=True):
+        same_events(a, b, "windowed fleet vs plain")
+    check(kern_n == 10 and plain_n == 0, f"windowed fleet: {kern_n} and {plain_n} stacked launches")
+    cursors = kern._state.cursor.tolist()
+    check(cursors[:3] == [1, 1, 1], f"windowed fleet: cursors {cursors} after 5 advances of a ring of 4")
+    print(
+        f"[chip_smoke] windowed fleet BASE (4 tenants, rings of 4, {kern._state.counters.numel() * 4 / 1e9:.1f} GB; "
+        f"5 advances of the 3 hot tenants): kernels {kern_s:.3f} s, plain {plain_s:.3f} s (host wall clock); "
+        f"{kern_n} stacked launches; {kern.engine.closure_builds} tenant closures built in "
+        f"{kern.engine.dispatches['closure']} builds; ticks {[len(e) for e in kern_ev]}; rings, cursors and "
+        f"transcripts identical"
+    )
+    del kern, plain, runs
+    release(torch)
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -2159,6 +2517,7 @@ def main() -> int:
     from repro_torch.kernels.ingest import ops as ingest_ops
     from repro_torch.kernels.ingest_fused import ops as fused_ops
     from repro_torch.kernels.query import ops as query_ops
+    from repro_torch.kernels.ingest_stacked import ops as stacked_ops
     from repro_torch.kernels.sequential import ops as seq_ops
     from repro_torch.launch import serve
 
@@ -2181,7 +2540,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
     for phase in (phase_ingest, phase_queries, phase_closure, phase_fused_ingest, phase_flows, phase_countsketch,
-                  phase_sequential):
+                  phase_sequential, phase_stacked_ingest):
         out = phase(torch, gen)
         for row in out if isinstance(out, list) else [out]:
             rows[row["name"]] = row
@@ -2207,6 +2566,7 @@ def main() -> int:
         "countsketch": countsketch_ops.countsketch,
         "countsketch_median": countsketch_ops.countsketch_median,
         "sequential_update": seq_ops.sequential_update,
+        "ingest_stacked": stacked_ops.stacked_ingest,
     }
 
     def drive(kernel_names, fn):
@@ -2323,6 +2683,13 @@ def main() -> int:
     # replay, a checkpoint plus WAL suffix, the small session against the
     # CPU, and the trainer's resume.
     phase_durable_window(torch, serve, counted)
+    torch.cuda.empty_cache()
+
+    # The multi-tenant fleet: 16 BASE tenants on one stacked ingest launch a
+    # batch and batched closure builds, against the plain backends and
+    # standalone sessions; then residency, recovery and the windowed fleet.
+    phase_fleet_serve(torch, serve, counted, drive)
+    phase_fleet_residency(torch, serve)
     torch.cuda.empty_cache()
 
     # The training path: countsketch twice and its decode once per

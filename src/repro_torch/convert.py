@@ -8,7 +8,9 @@ the sketch is non-square).  :func:`sketch_from_arrays` builds the port's
 both sides hash identically; ``GraphStream.open(sketch=...)`` opens a
 session on it.  A reference ``SlidingWindowSketch`` converts the same way
 (:func:`window_from_arrays`: the ring, its registers, the current slot and
-the template's hash coefficients), and so does a checkpoint, whose hash
+the template's hash coefficients), a reference ``FleetSketch`` too
+(:func:`fleet_from_arrays`: the stacked counters, registers and cursors and
+the shared hash coefficients), and so does a checkpoint, whose hash
 leaves are uint32 on disk (``checkpoint/manager.py`` loads sketches and
 windows through these two functions).
 
@@ -110,6 +112,46 @@ def window_from_arrays(
         SlidingWindowSketch.template_for(config, row_hash, col_hash, device),
         _tensor(row_flows, torch.float32, device),
         _tensor(col_flows, torch.float32, device),
+    )
+
+
+def fleet_from_arrays(
+    config: SketchConfig,
+    counters: np.ndarray,
+    row_flows: np.ndarray,
+    col_flows: np.ndarray,
+    cursor: np.ndarray,
+    row_a: np.ndarray,
+    row_b: np.ndarray,
+    col_a: Optional[np.ndarray] = None,
+    col_b: Optional[np.ndarray] = None,
+    device: Optional[torch.device] = None,
+) -> "FleetSketch":
+    """A port fleet stack on ``device`` from the reference's leaves: the
+    (T, K, d, w_r, w_c) counters, the (T, K, d, w_r) and (T, K, d, w_c)
+    registers, the (T,) cursors and the shared hash coefficients (a square
+    config shares one family)."""
+    # Imported here: the fleet package imports the checkpoint manager, which
+    # imports this module.
+    from repro_torch.fleet.stack import FleetSketch
+
+    t, k = np.shape(counters)[:2]
+    d, wr, wc = config.depth, config.width_rows, config.width_cols
+    if np.shape(counters) != (t, k, d, wr, wc):
+        raise ValueError(f"counters shape {np.shape(counters)} != {(t, k, d, wr, wc)}")
+    if np.shape(row_flows) != (t, k, d, wr) or np.shape(col_flows) != (t, k, d, wc):
+        raise ValueError(f"register shapes {np.shape(row_flows)}, {np.shape(col_flows)} do not fit the stack")
+    if np.shape(cursor) != (t,):
+        raise ValueError(f"cursor shape {np.shape(cursor)} != {(t,)}")
+    row_hash, col_hash = _sketch_families(config, row_a, row_b, col_a, col_b, device)
+    return FleetSketch(
+        _tensor(counters, torch.float32, device),
+        _tensor(row_flows, torch.float32, device),
+        _tensor(col_flows, torch.float32, device),
+        torch.from_numpy(np.array(cursor, np.int32, copy=True)).to(device),
+        row_hash,
+        col_hash,
+        config,
     )
 
 

@@ -88,6 +88,28 @@ def _map(fn, out):
     return tuple(fn(o) for o in out) if isinstance(out, tuple) else fn(out)
 
 
+def run_padded(fn: Callable, head: Tuple, keys, tail: Tuple, pad_q: int, chunk_q: int):
+    """``fn(*head, *keys, *tail)`` over key arrays (each (Q,)): pad Q up to a
+    multiple of ``pad_q`` with zeros, chunk beyond ``chunk_q``, slice the
+    answers back (the padded lanes' answers are dropped)."""
+    q = keys[0].shape[0]
+    outs = []
+    for lo in range(0, max(q, 1), chunk_q):
+        hi = min(q, lo + chunk_q)
+        part = [k[lo:hi] for k in keys]
+        n = hi - lo
+        pad = (-n) % pad_q
+        if pad:
+            part = [F.pad(k, (0, pad)) for k in part]
+        out = fn(*head, *part, *tail)
+        outs.append(_map(lambda o: o[:n], out) if pad else out)
+    if len(outs) == 1:
+        return outs[0]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(xs) for xs in zip(*outs))
+    return torch.cat(outs)
+
+
 class QueryEngine:
     """A query backend with query padding/chunking and an epoch-tagged
     transitive-closure cache."""
@@ -127,22 +149,7 @@ class QueryEngine:
         multiple of pad_q, chunk beyond chunk_q, slice the answers back."""
         self.dispatches[family] += 1
         fn = self._fn(family, sketch_args[0].device)
-        q = keys[0].shape[0]
-        outs = []
-        for lo in range(0, max(q, 1), self.chunk_q):
-            hi = min(q, lo + self.chunk_q)
-            part = [k[lo:hi] for k in keys]
-            n = hi - lo
-            pad = (-n) % self.pad_q
-            if pad:
-                part = [F.pad(k, (0, pad)) for k in part]
-            out = fn(*sketch_args, *part, *tail_args)
-            outs.append(_map(lambda o: o[:n], out) if pad else out)
-        if len(outs) == 1:
-            return outs[0]
-        if isinstance(outs[0], tuple):
-            return tuple(torch.cat(xs) for xs in zip(*outs))
-        return torch.cat(outs)
+        return run_padded(fn, sketch_args, keys, tail_args, self.pad_q, self.chunk_q)
 
     # -- query families ------------------------------------------------------
 

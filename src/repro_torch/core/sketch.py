@@ -4,7 +4,8 @@ Port of ``src/repro/core/sketch.py``: the :class:`GLavaSketch` core, its
 one-pass fused update and its order-dependent sequential and conservative
 updates, and the four baselines the paper measures gLava against
 (:class:`CountMin`, :class:`NodeCountMin`, :class:`CountSketch`,
-:class:`GSketch`).  ``scatter_stacked`` (the fleet's) is not ported yet.
+:class:`GSketch`), and the fleet's :func:`scatter_stacked_` into stacked
+sketch planes.
 
 :class:`GLavaSketch` holds ``d`` independent graph sketches, each a
 ``w_r × w_c`` weighted adjacency matrix over hashed node buckets (paper
@@ -28,9 +29,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.hashing import HashFamily, keys_to_tensor, make_hash_family, mix_keys
-from repro_torch.core.ingest import IngestEngine
+from repro_torch.core.ingest import IngestEngine, resolve_backend
 from repro_torch.kernels.countsketch.ref import median_ref
 from repro_torch.kernels.ingest_fused.ops import fused_ingest
+from repro_torch.kernels.ingest_stacked.ops import stacked_ingest
+from repro_torch.kernels.ingest_stacked.ref import stacked_ingest_ref
 from repro_torch.kernels.sequential.ops import sequential_update
 
 
@@ -97,6 +100,42 @@ def scatter_flows(row_flows, col_flows, rows, cols, weights):
     return (
         scatter_register(row_flows, rows, weights),
         scatter_register(col_flows, cols, weights),
+    )
+
+
+_STACKED_FNS = {"scatter": stacked_ingest_ref, "cuda": stacked_ingest}
+
+
+def scatter_stacked_(
+    counters: torch.Tensor,   # (N, d, w_r, w_c) — N stacked sketch planes, updated in place
+    row_flows: torch.Tensor,  # (N, d, w_r), updated in place
+    col_flows: torch.Tensor,  # (N, d, w_c), updated in place
+    plane: torch.Tensor,      # (B,) int32 or int64 — target plane per edge
+    rows: torch.Tensor,       # (d, B) int32 or int64
+    cols: torch.Tensor,       # (d, B)
+    weights: torch.Tensor,    # (B,)
+    backend: str = "auto",
+):
+    """Scatter-add one hashed edge batch into STACKED sketch planes, in place
+    (reference ``scatter_stacked``, ``src/repro/core/sketch.py:120``).
+
+    The fleet stacks many same-config sketches (tenant × window slice) along
+    a leading axis; ``plane`` selects the target per edge, so one call folds
+    a mixed multi-tenant batch into the whole stack, counters and both
+    registers.  The ingest backend names of :mod:`repro_torch.core.ingest`
+    apply: ``cuda`` is the stacked kernel (``kernels/ingest_stacked``, one
+    launch), ``scatter`` its plain version, ``auto`` the kernel for a stack
+    on a CUDA device.  Offsets are 64-bit wherever the stack passes 2^31
+    cells, where the reference's int32 index wraps.  Returns the three
+    tensors."""
+    fn = _STACKED_FNS[resolve_backend(backend, counters.device)]
+    return fn(counters, row_flows, col_flows, plane, rows, cols, weights.to(torch.float32))
+
+
+def scatter_stacked(counters, row_flows, col_flows, plane, rows, cols, weights, backend: str = "auto"):
+    """:func:`scatter_stacked_` on copies: the reference's functional form."""
+    return scatter_stacked_(
+        counters.clone(), row_flows.clone(), col_flows.clone(), plane, rows, cols, weights, backend=backend
     )
 
 

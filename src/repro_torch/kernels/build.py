@@ -27,7 +27,7 @@ NVCC_FLAGS = (
 )
 
 # Every CUDA source of the port (``csrc/<name>.cu``).
-SOURCES = ("ingest", "query", "closure", "ingest_fused", "flow", "countsketch", "sequential")
+SOURCES = ("ingest", "query", "closure", "ingest_fused", "flow", "countsketch", "sequential", "ingest_stacked")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}

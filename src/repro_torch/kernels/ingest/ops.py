@@ -1,6 +1,7 @@
 """Wrapper of the CUDA ingest scatter (``csrc/ingest.cu``), the port of
 ``src/repro/kernels/ingest/kernel.py::ingest_pallas``, and the launch path it
-shares with the fused ingest (``kernels/ingest_fused/ops.py``).
+shares with the fused ingest (``kernels/ingest_fused/ops.py``) and the
+fleet's stacked ingest (``kernels/ingest_stacked/ops.py``).
 
 The launch path is ``kernels/query/ops.py``'s: one helper checks the
 operands the same way on either device (it builds no tensors and no
@@ -31,15 +32,18 @@ INDEX_BYTES = {torch.int32: 4, torch.int64: 8}
 
 
 def check_batch(what: str, counters: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
-                weights: torch.Tensor) -> int:
+                weights: torch.Tensor, stacked: bool = False) -> int:
     """Check a hashed batch against its counters, the same on either device;
-    return the device index (-1 on the CPU)."""
+    return the device index (-1 on the CPU).  ``stacked`` counters carry a
+    leading plane axis, (N, d, wr, wc)."""
     cshape = counters.shape
-    if counters.dtype is not torch.float32 or len(cshape) != 3 or not counters.is_contiguous():
-        raise ValueError("counters must be a contiguous (d, wr, wc) float32 tensor")
+    lead = int(stacked)
+    if counters.dtype is not torch.float32 or len(cshape) != 3 + lead or not counters.is_contiguous():
+        raise ValueError(f"counters must be a contiguous {'(N, d, wr, wc)' if stacked else '(d, wr, wc)'} "
+                         f"float32 tensor")
     shape = rows.shape
-    if shape != cols.shape or len(shape) != 2 or shape[0] != cshape[0]:
-        raise ValueError(f"rows/cols must be (d={cshape[0]}, B), got {tuple(shape)}, {tuple(cols.shape)}")
+    if shape != cols.shape or len(shape) != 2 or shape[0] != cshape[lead]:
+        raise ValueError(f"rows/cols must be (d={cshape[lead]}, B), got {tuple(shape)}, {tuple(cols.shape)}")
     if rows.dtype not in INDEX_BYTES or cols.dtype is not rows.dtype:
         raise ValueError(f"rows/cols must both be int32 or both int64, got {rows.dtype}, {cols.dtype}")
     if weights.dtype is not torch.float32 or weights.shape != shape[1:]:
@@ -51,6 +55,14 @@ def check_batch(what: str, counters: torch.Tensor, rows: torch.Tensor, cols: tor
     if dev < 0 and not (counters.is_cpu and rows.is_cpu and cols.is_cpu and weights.is_cpu):
         raise ValueError(f"{what} runs on CUDA or CPU, got {counters.device}")
     return dev
+
+
+def check_state(name: str, t: torch.Tensor, dtype, shape, dev: int) -> None:
+    """Check one state tensor beside the counters (a register, a bitmap)."""
+    if t.dtype is not dtype or t.shape != shape or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {tuple(shape)} {dtype} tensor, got {tuple(t.shape)} {t.dtype}")
+    if t.get_device() != dev:
+        raise ValueError(f"{name} must be on the counters' device, got {t.device}")
 
 
 def ingest_scatter(

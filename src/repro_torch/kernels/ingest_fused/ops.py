@@ -19,18 +19,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ingest.ops import INDEX_BYTES, RECORD, check_batch
+from repro_torch.kernels.ingest.ops import INDEX_BYTES, RECORD, check_batch, check_state
 from repro_torch.kernels.ingest_fused.ref import fused_ingest_ref
 
 # The record's flag: OR into the caller's bitmap instead of zeroing a new one.
 KEEP_TOUCHED = 1
-
-
-def _check_state(name: str, t: torch.Tensor, dtype, shape, dev: int) -> None:
-    if t.dtype is not dtype or t.shape != shape or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous {tuple(shape)} {dtype} tensor, got {tuple(t.shape)} {t.dtype}")
-    if t.get_device() != dev:
-        raise ValueError(f"{name} must be on the counters' device, got {t.device}")
 
 
 def fused_ingest(
@@ -49,10 +42,10 @@ def fused_ingest(
     dev = check_batch("fused_ingest", counters, rows, cols, weights)
     cshape = counters.shape
     d, wr, wc = cshape
-    _check_state("row_flows", row_flows, torch.float32, cshape[:2], dev)
-    _check_state("col_flows", col_flows, torch.float32, cshape[::2], dev)
+    check_state("row_flows", row_flows, torch.float32, cshape[:2], dev)
+    check_state("col_flows", col_flows, torch.float32, cshape[::2], dev)
     if touched is not None:
-        _check_state("touched", touched, torch.bool, cshape[:2], dev)
+        check_state("touched", touched, torch.bool, cshape[:2], dev)
     if dev < 0:
         return fused_ingest_ref(counters, row_flows, col_flows, rows, cols, weights, touched)
     if not rows.is_contiguous():

@@ -71,6 +71,39 @@ def port_session(cfg, seed=0, window_slices=None, **kwargs):
     return GraphStream.open(sketch=sk, device="cpu", **kwargs)
 
 
+def fleet_to_port(state, device="cpu"):
+    """The port's FleetSketch holding the reference stack ``state``'s leaves."""
+    from repro_torch.convert import fleet_from_arrays
+
+    square = state.config.is_square
+    return fleet_from_arrays(
+        port_config(state.config),
+        np.asarray(state.counters),
+        np.asarray(state.row_flows),
+        np.asarray(state.col_flows),
+        np.asarray(state.cursor),
+        np.asarray(state.row_hash.a),
+        np.asarray(state.row_hash.b),
+        None if square else np.asarray(state.col_hash.a),
+        None if square else np.asarray(state.col_hash.b),
+        device=device,
+    )
+
+
+def port_fleet(cfg, seed=0, capacity=8, window_slices=None, **kwargs):
+    """A port fleet (on the CPU) whose hash family is the one a reference
+    fleet opened with ``cfg`` and ``seed`` draws: an empty reference stack
+    carried across; ``kwargs`` go to the port's ``SketchFleet``."""
+    import jax
+    from repro.fleet import FleetSketch as RefFleetSketch
+    from repro_torch.fleet import SketchFleet
+
+    fleet = SketchFleet(port_config(cfg), capacity=capacity, seed=seed, window_slices=window_slices,
+                        device="cpu", **kwargs)
+    fleet._state = fleet_to_port(RefFleetSketch.empty(cfg, capacity, jax.random.key(seed), window_slices or 1))
+    return fleet
+
+
 def head_relative(gs):
     """A windowed session's (slices, row_flows, col_flows) as numpy in
     HEAD-RELATIVE slot order, plus the head slice (or the current slot for

@@ -19,6 +19,8 @@ from repro_torch.kernels.ingest import ops as ingest_ops
 from repro_torch.kernels.ingest.ref import ingest_scatter_ref
 from repro_torch.kernels.ingest_fused import ops as fused_ops
 from repro_torch.kernels.ingest_fused.ref import fused_ingest_ref
+from repro_torch.kernels.ingest_stacked import ops as stacked_ops
+from repro_torch.kernels.ingest_stacked.ref import stacked_ingest_ref
 from repro_torch.kernels.query import ops as query_ops
 from repro_torch.kernels.query.ref import edge_query_cells_ref, edge_query_min_ref
 from repro_torch.kernels.sequential import ops as seq_ops
@@ -774,3 +776,121 @@ def test_durable_windowed_session_on_card_equals_cpu(cuda, tmp_path):
                               wal_dir=str(tmp_path / "wal-cuda"))
     replay.recover()
     assert torch.equal(replay._window.slices, cpu._window.slices)
+
+
+# -- the stacked ingest (the fleet's one launch a batch) ----------------------------
+
+
+def _stacked_batch(gen, n, d, wr, wc, b, index_dtype, plane_dtype):
+    """Stacked state holding integers and a batch over its planes: a tenth of
+    the rows -1, negative and zero weights among the integer ones."""
+    state = (
+        torch.randint(0, 1000, (n, d, wr, wc), generator=gen, device="cuda").float(),
+        torch.randint(0, 1000, (n, d, wr), generator=gen, device="cuda").float(),
+        torch.randint(0, 1000, (n, d, wc), generator=gen, device="cuda").float(),
+    )
+    plane = torch.randint(0, n, (b,), generator=gen, device="cuda").to(plane_dtype)
+    rows = torch.randint(0, wr, (d, b), generator=gen, device="cuda").to(index_dtype)
+    rows[torch.rand((d, b), generator=gen, device="cuda") < 0.1] = -1
+    cols = torch.randint(0, wc, (d, b), generator=gen, device="cuda").to(index_dtype)
+    w = torch.randint(-4, 9, (b,), generator=gen, device="cuda").float()
+    return state, plane, rows, cols, w
+
+
+@pytest.mark.parametrize("plane_dtype", [torch.int32, torch.int64], ids=["plane32", "plane64"])
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("n,d,wr,wc,b", [(1, 1, 64, 64, 33), (6, 3, 300, 200, 5000), (16, 5, 256, 512, 50_000)])
+def test_stacked_ingest_kernel_bit_equals_plain_version(cuda, n, d, wr, wc, b, index_dtype, plane_dtype):
+    state, plane, rows, cols, w = _stacked_batch(cuda, n, d, wr, wc, b, index_dtype, plane_dtype)
+    before = stacked_ops.stacked_ingest.launches
+    got = stacked_ops.stacked_ingest(*(t.clone() for t in state), plane, rows, cols, w)
+    assert stacked_ops.stacked_ingest.launches == before + 1
+    want = stacked_ingest_ref(*(t.clone() for t in state), plane, rows, cols, w)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
+def test_stacked_ingest_kernel_past_2_31_cells(cuda):
+    """A stack of 2^31 + 2^27 cells (64-bit offsets), planes at both ends and
+    the cells at the very end of the last plane."""
+    n, d, w = 17, 2, 8192  # 17 * 2 * 8192^2 cells, 9.1 GB
+    counters = torch.zeros((n, d, w, w), device="cuda")
+    rf, cf = torch.zeros((n, d, w), device="cuda"), torch.zeros((n, d, w), device="cuda")
+    assert counters.numel() > 2**31
+    b = 4096
+    plane = torch.where(torch.arange(b, device="cuda") % 2 == 0, 0, n - 1)
+    rows = torch.randint(0, w, (d, b), generator=cuda, device="cuda")
+    cols = torch.randint(0, w, (d, b), generator=cuda, device="cuda")
+    rows[:, :8], cols[:, :8] = w - 1, w - 1  # the last cell of planes 0 and n - 1
+    wts = torch.randint(1, 9, (b,), generator=cuda, device="cuda").float()
+    stacked_ops.stacked_ingest(counters, rf, cf, plane, rows, cols, wts)
+    for p in (0, n - 1):
+        m = plane == p
+        want = ingest_scatter_ref(torch.zeros((d, w, w), device="cuda"), rows[:, m], cols[:, m], wts[m])
+        assert torch.equal(counters[p], want)
+        assert torch.equal(rf[p], want.sum(dim=2)) and torch.equal(cf[p], want.sum(dim=1))
+    assert float(counters[n - 1, :, w - 1, w - 1].sum()) > 0
+    assert float(counters[1 : n - 1].abs().sum()) == 0.0
+
+
+def test_stacked_ingest_refuses_bad_operands_on_the_card(cuda):
+    state, plane, rows, cols, w = _stacked_batch(cuda, 2, 2, 16, 16, 8, torch.int32, torch.int32)
+    for bad_rows in (rows.float(), rows.short(), rows.to(torch.uint8)):
+        with pytest.raises(ValueError, match="int32 or both int64"):
+            stacked_ops.stacked_ingest(*state, plane, bad_rows, bad_rows, w)
+    for bad_plane in (plane.float(), plane.double(), plane.short()):
+        with pytest.raises(ValueError, match="plane"):
+            stacked_ops.stacked_ingest(*state, bad_plane, rows, cols, w)
+    with pytest.raises(ValueError, match="on cuda"):
+        stacked_ops.stacked_ingest(*state, plane, rows.cpu(), cols, w)
+    with pytest.raises(ValueError, match="plane must be on"):
+        stacked_ops.stacked_ingest(*state, plane.cpu(), rows, cols, w)
+    with pytest.raises(ValueError, match="row_flows"):
+        stacked_ops.stacked_ingest(state[0], state[1].cpu(), state[2], plane, rows, cols, w)
+    with pytest.raises(ValueError, match="weights"):
+        stacked_ops.stacked_ingest(*state, plane, rows, cols, w.double())
+
+
+@pytest.mark.parametrize("directed", [True, False], ids=["directed", "undirected"])
+def test_fleet_update_launches_once_a_direction_and_equals_cpu(cuda, directed):
+    """``FleetSketch.update_`` on the card: one stacked launch a directed
+    batch, two an undirected one, and the same stack as on the CPU."""
+    from repro_torch.core.hashing import keys_to_tensor
+    from repro_torch.core.sketch import SketchConfig
+    from repro_torch.fleet import FleetSketch
+
+    cfg = SketchConfig(depth=3, width_rows=256, width_cols=256, directed=directed)
+    stacks = {dev: FleetSketch.empty(cfg, 6, 0, 3, dev) for dev in ("cuda", "cpu")}
+    rng = np.random.default_rng(1)
+    for _ in range(3):
+        slots = rng.integers(0, 6, 4000).astype(np.int32)
+        s, d = rng.integers(0, 10_000, 4000).astype(np.uint32), rng.integers(0, 10_000, 4000).astype(np.uint32)
+        w = rng.integers(-2, 9, 4000).astype(np.float32)
+        before = stacked_ops.stacked_ingest.launches
+        for dev, st in stacks.items():
+            st.update_(torch.from_numpy(slots).to(dev), keys_to_tensor(s, dev), keys_to_tensor(d, dev),
+                       torch.from_numpy(w).to(dev))
+        assert stacked_ops.stacked_ingest.launches == before + (1 if directed else 2)
+        for dev in stacks:
+            stacks[dev].advance_(int(slots[0]))
+    for name in ("counters", "row_flows", "col_flows", "cursor"):
+        assert torch.equal(getattr(stacks["cuda"], name).cpu(), getattr(stacks["cpu"], name))
+
+
+def test_small_fleet_serve_on_card_equals_cpu(cuda):
+    """``launch/serve.py --tenants 8`` on the card (kernels) and on the CPU:
+    the same stack, subscription transcripts and summary counts."""
+    argv = ["--depth", "3", "--width", "256", "--nodes", "2000", "--edges", "20000", "--batch", "2000",
+            "--tenants", "8", "--every", "2"]
+    before = stacked_ops.stacked_ingest.launches
+    gpu, gpu_subs = serve.main(argv)
+    assert stacked_ops.stacked_ingest.launches == before + 10
+    cpu, cpu_subs = serve.main(argv + ["--device", "cpu"])
+    for name in ("counters", "row_flows", "col_flows", "cursor"):
+        assert torch.equal(getattr(gpu._state, name).cpu(), getattr(cpu._state, name))
+    for a, b in zip(gpu_subs, cpu_subs, strict=True):
+        ea, eb = a.poll(), b.poll()
+        assert [(e.tick, e.epoch) for e in ea] == [(e.tick, e.epoch) for e in eb] and ea
+        for x, y in zip(ea, eb):
+            for ra, rb in zip(x.results, y.results, strict=True):
+                assert np.array_equal(ra.value, rb.value)

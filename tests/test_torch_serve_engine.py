@@ -3,7 +3,8 @@
 ``tests/test_serve_engine.py``'s six cases run on the port's
 ``SketchServer`` and on the reference's, whose sessions share one hash
 family (the port server's session is opened on the reference's sketch), and
-every answer must agree (integer weights: bit for bit).  The serve entry
+every answer must agree (integer weights: bit for bit); so does the fleet
+mode (``tenants=N``).  The serve entry
 point with the durable, windowed event-time flags (``--window-slices``,
 ``--slice-width``, ``--max-lateness``, ``--wal-dir``) must give the
 reference entry point's transcript, window, watermark and counts at a small
@@ -20,7 +21,7 @@ from repro.serve.engine import SketchServer as RefServer
 from repro_torch.launch import serve
 from repro_torch.serve.engine import SketchServer
 
-from _torch_parity import assert_same_value, head_relative, port_config, port_session
+from _torch_parity import assert_same_value, head_relative, port_config, port_fleet, port_session
 
 CFG = RefConfig(depth=3, width_rows=128, width_cols=128)
 
@@ -120,9 +121,43 @@ def test_subgraph_weight(servers):
     assert port.subgraph_weight(np.array([1, 2], np.uint32), np.array([2, 3], np.uint32)) >= 2.0
 
 
-def test_fleet_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A8"):
-        SketchServer(port_config(CFG), device="cpu", tenants=4)
+def test_fleet_mode_matches_reference():
+    """``tests/test_fleet.py``'s server case on both servers (the port's fleet
+    on the reference's family): ``ingest_mixed``, a routed ``ingest``, every
+    per-family endpoint with ``tenant=``, a tenant subscription, the fleet
+    feed, and the refusals of each mode."""
+    ref = RefServer(CFG, seed=8, tenants=4)
+    port = SketchServer(port_config(CFG), seed=8, tenants=4, device="cpu")
+    assert port.stream is None and port.fleet.device.type == "cpu" and port.fleet.capacity == 4
+    port.fleet = port_fleet(CFG, 8, capacity=4)
+    rng = np.random.default_rng(8)
+    src, dst = rng.integers(0, 500, 128).astype(np.uint32), rng.integers(0, 500, 128).astype(np.uint32)
+    w = rng.integers(1, 4, 128).astype(np.float32)
+    ids = rng.integers(0, 4, 128)
+    subs = [s.subscribe(s.Query.in_flow(src[:8]), tenant=1, every=1, name="t1") for s in (ref, port)]
+    for server in (ref, port):
+        server.ingest_mixed(ids, src, dst, w)
+        server.ingest(src[:8], dst[:8], w[:8], tenant=2)
+    qs, qd = rng.integers(0, 500, 5).astype(np.uint32), rng.integers(0, 500, 5).astype(np.uint32)
+    for t in range(4):
+        for call in ("edge_frequency", "reachable"):
+            np.testing.assert_array_equal(getattr(port, call)(qs, qd, tenant=t), getattr(ref, call)(qs, qd, tenant=t))
+        for call in ("in_flow", "out_flow"):
+            np.testing.assert_array_equal(getattr(port, call)(qs, tenant=t), getattr(ref, call)(qs, tenant=t))
+        np.testing.assert_array_equal(port.heavy_hitters(qs, 0.1, tenant=t), ref.heavy_hitters(qs, 0.1, tenant=t))
+        assert port.subgraph_weight(qs[:2], qd[:2], tenant=t) == ref.subgraph_weight(qs[:2], qd[:2], tenant=t)
+    got, want = subs[1].poll(), subs[0].poll()
+    assert [(e.tick, e.epoch) for e in got] == [(e.tick, e.epoch) for e in want] == [(1, 1)]
+    assert_same_value(got[0].results[0].value, want[0].results[0].value)
+    assert len(list(port.events())) == len(list(ref.events())) == 1
+    assert port.summary()["edges_ingested"] == ref.summary()["edges_ingested"] == 136
+    assert port.tenant(2).epoch == ref.tenant(2).epoch == 2
+    with pytest.raises(ValueError, match="fleet mode"):
+        port.in_flow(qs)
+    with pytest.raises(ValueError, match="single-session"):
+        port.monitor(src, dst, None, 7, 0.5)
+    with pytest.raises(ValueError, match="single-session only"):
+        SketchServer(port_config(CFG), tenants=2, slice_width=1.0, device="cpu")
     with pytest.raises(ValueError, match="fleet"):
         SketchServer(port_config(CFG), device="cpu").edge_frequency([1], [2], tenant=3)
 

@@ -213,8 +213,10 @@ def test_serve_runs_on_cpu_and_refuses_unported_modes(capsys):
     plain, _, plain_events = serve.main(argv + ["--ingest-backend", "scatter", "--query-backend", "torch"])
     assert torch.equal(plain._live().counters, stream._live().counters)
     _assert_same_events(plain_events, events)
-    with pytest.raises(NotImplementedError, match="A8"):
-        serve.main(argv + ["--tenants", "4"])
+    # --tenants runs the fleet (ported), on the same traffic.
+    fleet, subs = serve.main(argv + ["--tenants", "4"])
+    assert "[serve-fleet] edges_ingested=6,000.0" in capsys.readouterr().out
+    assert fleet.capacity == 4 and len(fleet.tenants) == 4 and [s.ticks for s in subs] == [2, 2, 2]
     # --slice-width without --window-slices is refused as in the reference.
     with pytest.raises(ValueError, match="window_slices"):
         serve.main(argv + ["--slice-width", "1"])
