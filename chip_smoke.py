@@ -91,8 +91,8 @@ before and read just after:
   ``recover()``) equal to the uninterrupted run, with save, restore and
   recovery seconds; the small durable windowed session on the card against
   the CPU, its card checkpoint restored and its WAL replayed on the CPU; the
-  tiny trainer on the card crashed at step 11 and resumed from step 10
-  (uncompressed: the same losses bit for bit; compressed: rtol 1e-4);
+  tiny trainer on the card crashed at step 11 and resumed from step 10,
+  uncompressed and compressed: the same losses bit for bit;
 - fleet serve BASE: ``serve.main(SERVE_BASE + --tenants 16)``, 16 BASE
   tenants resident (21.5 GB), the serve traffic tagged with zipf tenant ids
   and tenants 0-2 subscribed, on the kernels and on the plain backends:
@@ -115,7 +115,22 @@ before and read just after:
   peak memory; one round trip of the state it leaves, on the card against
   the CPU; round trips with NaN and inf in the gradient, card against CPU;
 - train tiny: the tiny preset, compressed, 5 steps on the card and on the
-  CPU, whose losses must agree.
+  CPU, whose losses must agree;
+- distributed serve BASE (paper §6.3): (i) the serve BASE traffic through
+  a mesh session (``GraphStream.open(mesh=...)``) on one NCCL rank, a (1, 1)
+  mesh, in this process: counters, registers and transcript bit-equal to a
+  single-session kernels run, B1 once a batch, B5 once a tick, B3 13 times
+  a rebuild, and B6 twice (both point-query directions through the
+  counters, held to the registers); (ii) the same traffic on four spawned
+  gloo ranks, all on the card, a (2, 2) mesh: each rank's shard bit-equal
+  to its rows of (i), registers and transcript equal, the same launches a
+  rank; B5 and B6 on a (5, 4096, 8192) shard against their plain versions,
+  timed; (iii) the data-parallel compressed ``100m`` step on two spawned
+  gloo ranks on the card, 3 steps, against a single-process emulation (one
+  set of parameters, both gradients, the two tables added, one decode):
+  at every step each rank's table, reduced table, parameters, sketch
+  momentum, error feedback and loss bit-equal to the emulation's; wall
+  times, all-reduce times and peak memory a rank.  The kernels are built before any rank is spawned.
 
 Output: the card's name and power limit as ``nvidia-smi`` reports them, the
 build log, one line per phase, one JSON line listing every kernel (launches
@@ -193,25 +208,32 @@ def time_ms(fn, reps: int) -> float:
 
 
 def device_ms(fn, reps: int, kernel: Optional[str] = None):
-    """Mean device milliseconds per call of the CUDA kernel whose name holds
+    """Mean device milliseconds per call of the CUDA kernels whose names hold
     ``kernel`` (of every kernel and copy when ``kernel`` is None), from the
     profiler's CUPTI trace (the events above also count the host's launch
-    overhead whenever it exceeds the kernel); ``None`` when the trace shows
-    no such kernel."""
+    overhead whenever it exceeds the kernel).  A trace of one call gives the
+    number of matching events a call makes; the trace of ``reps`` calls
+    counts only if it holds exactly ``reps`` times that many, so a trace
+    that lost launches is never read as a faster kernel.  ``None`` when no
+    complete trace came back in three tries."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # now and then a trace comes back without its kernels
+    def trace(calls):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(
-            getattr(e, "device_time_total", 0.0) for e in prof.key_averages() if kernel is None or kernel in e.key
-        )
-        if total_us:
+        sel = [e for e in prof.key_averages() if getattr(e, "device_time_total", 0.0)
+               and (kernel is None or kernel in e.key)]
+        return sum(e.count for e in sel), sum(e.device_time_total for e in sel)
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # now and then a trace comes back without some of its kernels
+        per_call, _ = trace(1)
+        count, total_us = trace(reps)
+        if per_call and count == per_call * reps:
             return total_us / reps / 1e3
     return None
 
@@ -227,7 +249,7 @@ def cold_device_ms(fn, kernel: str, reps: int = 20):
 
 
 def _fmt(ms) -> str:
-    return "not in the trace" if ms is None else f"{ms:.4f} ms"
+    return "no complete trace" if ms is None else f"{ms:.4f} ms"
 
 
 def host_us(fn, calls: int = 1000) -> float:
@@ -737,7 +759,7 @@ def phase_countsketch(torch, gen):
     fam = make_hash_family(torch.Generator().manual_seed(1), d, w, "cuda")
     h, s = hash_indices(fam, n)
     # Integer values in [-8, 8]: every partial sum of a cell (about n/w = 4,000
-    # terms) stays far below 2^24, so any order of the atomics is exact.
+    # terms) stays far below 2^24, so the plain version's float sum is exact.
     ivec = torch.randint(-8, 9, (n,), generator=gen, device="cuda").float()
     itable = countsketch_ref(ivec, h, s, w)
     for name, got in (("family form", countsketch_family(ivec, fam)), ("pre-hashed form", countsketch(ivec, h, s, w))):
@@ -750,11 +772,18 @@ def phase_countsketch(torch, gen):
     want = countsketch_ref(sparse, h, s, w)
     check(torch.equal(countsketch_family(sparse, fam), want) and torch.equal(countsketch(sparse, h, s, w), want),
           "countsketch differs from its plain version on a sparse vector")
-    # Gaussian values: each cell sums about 4,000 terms in another order than
-    # the plain version's atomics; both must lie within the worst-case
-    # rounding bound of a float32 sum of the float64 sum (rounding_bound).
+    # Gaussian values: each cell sums about 4,000 terms, the kernel in fixed
+    # point, the plain version in float32; both must lie within the
+    # worst-case rounding bound of a float32 sum of the float64 sum
+    # (rounding_bound).  The kernel's sum does not depend on the order of its
+    # atomics: a second launch gives the same bits.
     gvec = torch.randn(n, generator=gen, device="cuda")
     got = countsketch_family(gvec, fam)
+    again = countsketch_family(gvec, fam)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), "countsketch: two launches on one Gaussian vector differ")
+    check(torch.equal(countsketch(gvec, h, s, w), got), "countsketch: the pre-hashed form differs from the family form")
+    del again
     plain = countsketch_ref(gvec, h, s, w)
     exact = countsketch_ref(gvec.double(), h, s, w, dtype=torch.float64)
     bound = rounding_bound(torch, countsketch_ref, gvec, h, w)
@@ -768,13 +797,14 @@ def phase_countsketch(torch, gen):
     gtable = got
     del plain, exact, bound, pre
 
-    kernel = "countsketch_kernel<(anonymous namespace)::Hashed"
+    # Device times are of all a call runs: the scratch's memset, the cell-max
+    # pass, the sum and finalize.
     family = lambda: countsketch_family(gvec, fam)  # noqa: E731
-    ms, dev_ms = time_ms(family, 20), device_ms(family, 20, kernel)
+    ms, dev_ms = time_ms(family, 20), device_ms(family, 20)
     sparse_ms = time_ms(lambda: countsketch_family(sparse, fam), 20)
-    sparse_dev_ms = device_ms(lambda: countsketch_family(sparse, fam), 20, kernel)
+    sparse_dev_ms = device_ms(lambda: countsketch_family(sparse, fam), 20)
     pre_ms = time_ms(lambda: countsketch(gvec, h, s, w), 20)
-    pre_dev_ms = device_ms(lambda: countsketch(gvec, h, s, w), 20, "countsketch_kernel<(anonymous namespace)::Prehashed")
+    pre_dev_ms = device_ms(lambda: countsketch(gvec, h, s, w), 20)
     plain_ms = time_ms(lambda: countsketch_ref(gvec, *hash_indices(fam, n), w), 3)
     flat = (torch.arange(d, device="cuda")[:, None] * w + h.long()).reshape(-1)
     vals = (s.float() * gvec[None, :]).reshape(-1)
@@ -785,7 +815,8 @@ def phase_countsketch(torch, gen):
     sparse_bytes = n * 4 + d * w * 4  # the same bytes; the zeros are read and skipped
     print(
         f"[chip_smoke] countsketch family form d={d} w={w} n={n:,}: integer and sparse vectors bit-equal (family and "
-        f"pre-hashed forms); Gaussian within the float32 rounding bound (kernel off the float64 sum by {err:.3g}, "
+        f"pre-hashed forms); Gaussian the same bits on a second launch and in the pre-hashed form, within the float32 "
+        f"rounding bound (kernel off the float64 sum by {err:.3g}, "
         f"plain by {plain_err:.3g}, kernel off plain by {diff:.3g}); dense Gaussian: wrapper {ms:.4f} ms (device "
         f"{_fmt(dev_ms)}), bound {bound_ms:.5f} ms (4n + 4dw bytes); the step's second launch (a 4,096-sparse vector): "
         f"wrapper {sparse_ms:.4f} ms (device {_fmt(sparse_dev_ms)}), bound {sparse_bytes / PEAK_BYTES_PER_S * 1e3:.5f} "
@@ -803,7 +834,7 @@ def phase_countsketch(torch, gen):
     check(torch.equal(countsketch_family(ivec[:n_wide], fam_wide), want)
           and torch.equal(countsketch(ivec[:n_wide], hw, sw, wide), want),
           f"countsketch differs from its plain version at width {wide}")
-    wide_ms = device_ms(lambda: countsketch_family(gvec[:n_wide], fam_wide), 10, kernel)
+    wide_ms = device_ms(lambda: countsketch_family(gvec[:n_wide], fam_wide), 10)
     wide_bound_ms = countsketch_bound_bytes(n_wide, d, wide) / PEAK_BYTES_PER_S * 1e3
     flat = (torch.arange(d, device="cuda")[:, None] * wide + hw.long()).reshape(-1)
     vals = (sw.float() * gvec[None, :n_wide]).reshape(-1)
@@ -2085,12 +2116,9 @@ def small_durable(torch, serve, tmp):
 def trainer_resume(torch, tmp):
     """(e) The tiny preset on the card, uncompressed and compressed: 12
     steps straight, then the same with a failure injected at step 11 and a
-    resume from the step-10 checkpoint.  Uncompressed, the resumed losses
-    must equal the straight run's bit for bit.  Compressed, B7's float
-    atomics add in any order from run to run, and a top-k selection can flip
-    a coordinate within rounding of its threshold, which moves one parameter
-    by about the learning rate: the losses agree to rtol 1e-4, the bound the
-    tiny card-against-CPU check uses."""
+    resume from the step-10 checkpoint.  The resumed losses must equal the
+    straight run's bit for bit (B7 sums in fixed point, so the compressed
+    run repeats itself too)."""
     import numpy as np
 
     from repro_torch.checkpoint.manager import CheckpointManager
@@ -2143,14 +2171,10 @@ def trainer_resume(torch, tmp):
         resumed = trainer.train_loop(init_state, step, iter(batches[start:]), config("crashed"))
         got = [h["loss"] for h in resumed.history]
         want = [h["loss"] for h in straight.history[start:]]
-        diff = max(abs(a - b) / abs(b) for a, b in zip(got, want))
         check(resumed.resumed_from == start and len(got) == steps - start, f"trainer {tag}: resumed {got}")
-        if compressed:
-            check(np.allclose(got, want, rtol=1e-4, atol=0), f"trainer {tag}: resumed losses {got} vs {want}")
-        else:
-            check(got == want, f"trainer {tag}: resumed losses {got} differ from the straight run's {want}")
+        check(got == want, f"trainer {tag}: resumed losses {got} differ from the straight run's {want}")
         print(f"[chip_smoke] trainer resume on the card, tiny {tag}: failure at step {fail}, resumed from step "
-              f"{start}; resumed losses {got} vs straight {want} (max rel diff {diff:.3g})")
+              f"{start}; resumed losses {got} equal to the straight run's")
 
 
 # -- the multi-tenant fleet ---------------------------------------------------------
@@ -2494,6 +2518,506 @@ def fleet_window(torch, serve):
     release(torch)
 
 
+# -- the distributed plane ----------------------------------------------------------
+
+# (ii)'s mesh: four ranks on one card, two stream blocks and two row shards.
+DIST_MESH = (2, 2)
+DIST_TRAIN_STEPS = 3
+# Each rank's kernels, counted in its own process (the wrapper modules'
+# ``launches``): B1, B5, B6, B3 on the serve path; B7 and its decode on the
+# data-parallel step.
+DIST_SERVE_KERNELS = ("ingest_scatter", "edge_query_cells", "flows", "closure_step")
+DIST_TRAIN_KERNELS = ("countsketch", "countsketch_median")
+
+
+def counted_kernels():
+    """The launch-counted wrappers, by the name the ``kernels`` line uses."""
+    from repro_torch.kernels.closure import ops as closure_ops
+    from repro_torch.kernels.countsketch import ops as countsketch_ops
+    from repro_torch.kernels.flow import ops as flow_ops
+    from repro_torch.kernels.ingest import ops as ingest_ops
+    from repro_torch.kernels.query import ops as query_ops
+
+    return {
+        "ingest_scatter": ingest_ops.ingest_scatter,
+        "edge_query_cells": query_ops.edge_query_cells,
+        "flows": flow_ops.flows,
+        "closure_step": closure_ops.closure_step,
+        "countsketch": countsketch_ops.countsketch,
+        "countsketch_median": countsketch_ops.countsketch_median,
+    }
+
+
+def digest(*tensors) -> str:
+    """SHA-256 of the tensors' bytes (bit-equality across processes)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def transcript_digest(events) -> str:
+    """SHA-256 of a subscription transcript: tick, epoch, alarm and every
+    answer's dtype and bytes."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for e in events:
+        h.update(f"{e.subscription_id}:{e.tick}:{e.epoch}:{e.alarm}".encode())
+        for r in e.results:
+            for x in r.value if isinstance(r.value, tuple) else (r.value,):
+                a = np.asarray(x)
+                h.update(str(a.dtype).encode() + a.tobytes())
+    return h.hexdigest()
+
+
+class CollectiveClock:
+    """Times every all-reduce of a mesh: the instance's ``all_reduce_`` is
+    wrapped so that each call is bracketed by synchronizes (host wall
+    clock) and by CUDA events on the current stream (device time; gloo
+    copies a CUDA tensor to the host and back, so its host time is the
+    honest one).  ``calls`` holds (axes, op, bytes, host ms, device ms)."""
+
+    def __init__(self, torch, mesh, keep=None):
+        self.calls = []
+        self.kept = []
+        inner = mesh.all_reduce_
+        cuda = torch.cuda.is_available()
+
+        def timed(tensor, op, axes):
+            if keep is not None and keep(tensor):
+                self.kept.append(tensor.detach().clone())
+            if cuda:
+                torch.cuda.synchronize()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+            inner(tensor, op, axes)
+            if cuda:
+                end.record()
+                torch.cuda.synchronize()
+            host_ms = 1e3 * (time.perf_counter() - t0)
+            dev_ms = start.elapsed_time(end) if cuda else None
+            self.calls.append((axes if isinstance(axes, str) else "+".join(axes), str(op).split(".")[-1],
+                               tensor.numel() * tensor.element_size(), host_ms, dev_ms))
+            if keep is not None and keep(tensor):
+                self.kept.append(tensor.detach().clone())
+            return tensor
+
+        mesh.all_reduce_ = timed
+
+    def first_ms(self):
+        """Host ms of the first all-reduce over each axis group (where NCCL
+        sets up the group's communicator)."""
+        out = {}
+        for axes, _, _, host_ms, _ in self.calls:
+            out.setdefault(axes, round(host_ms, 3))
+        return out
+
+    def summary(self, op: str, axes: str, min_bytes: int = 0):
+        """(count, bytes of one call, median host ms, median device ms) of
+        the calls with ``op`` over ``axes`` moving at least ``min_bytes``."""
+        import numpy as np
+
+        sel = [c for c in self.calls if c[1] == op and c[0] == axes and c[2] >= min_bytes]
+        if not sel:
+            return 0, 0, None, None
+        dev = [c[4] for c in sel if c[4] is not None]
+        return (len(sel), sel[0][2], float(np.median([c[3] for c in sel])),
+                float(np.median(dev)) if dev else None)
+
+
+def distributed_serve(torch, serve, argv, mesh, device):
+    """``serve``'s traffic (the flags ``argv``) through a mesh session on
+    ``device``: the standing workload ticks every ``--every`` batches; then
+    both point-query directions through the counters
+    (``distributed_point_query(use_registers=False)``, the flow kernel on
+    each shard), held to the registers.  Returns (session, events, host
+    wall seconds of the serve run, with the synchronize that ends it)."""
+    from repro_torch.api import GraphStream
+    from repro_torch.core.distributed import distributed_point_query
+    from repro_torch.core.hashing import keys_to_tensor
+
+    args = serve.build_parser().parse_args(argv)
+    stream = GraphStream.open(serve._config(args), device=device, mesh=mesh,
+                              ingest_backend=args.ingest_backend, query_backend=args.query_backend)
+    t0 = time.time()
+    gs, _, events = serve.drive(stream, args)
+    gs.flush()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    _, _, workload = serve.traffic(args)
+    keys = keys_to_tensor(next(q for q in workload if q.family == "in_flow").u, device)
+    for direction in ("in", "out"):
+        counted = distributed_point_query(mesh, gs._sketch, keys, direction, use_registers=False)
+        registers = distributed_point_query(mesh, gs._sketch, keys, direction)
+        check(torch.equal(counted, registers),
+              f"distributed {direction}-flow from the counters differs from the registers")
+    return gs, events, wall
+
+
+def rank_device(torch, device: str) -> None:
+    """A spawned rank's device settings: card 0 (every rank shares it), and
+    no TF32, as in this process."""
+    if device != "cpu":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def spawn_ranks(target, world: int, device: str, args=(), timeout: float = 600.0):
+    """``target(rank, world, workdir, device, *args)`` on ``world`` spawned
+    gloo ranks (``repro_torch.distributed.spawn.run_ranks``: a nonzero exit
+    code or a rank past the deadline raises); the ranks' results,
+    rank-ordered."""
+    import shutil
+    import tempfile
+
+    from repro_torch.distributed.spawn import run_ranks
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-ranks-"))
+    try:
+        return run_ranks(target, world, tmp, args=(device, *args), timeout=timeout)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def serve_rank(rank, world, tmp, device, argv):
+    """(ii) One rank of the mesh session on ``DIST_MESH``: the serve traffic,
+    then digests of its shard, the registers and the transcript, its
+    launches, wall time, all-reduce times and peak memory."""
+    import torch
+
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.launch import serve
+
+    rank_device(torch, device)
+    mesh = Mesh(DIST_MESH, ("data", "model"))
+    kernels = counted_kernels()
+    for f in kernels.values():
+        f.launches = 0
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    clock = CollectiveClock(torch, mesh)
+    gs, events, wall = distributed_serve(torch, serve, argv, mesh, device)
+    sk = gs._sketch
+    return {
+        "coords": [mesh.coords["data"], mesh.coords["model"]],
+        "shard": digest(sk.counters),
+        "registers": digest(sk.row_flows, sk.col_flows),
+        "transcript": transcript_digest(events),
+        "events": len(events),
+        "launches": {name: kernels[name].launches for name in DIST_SERVE_KERNELS},
+        "closure": [gs.engine.closure_refreshes, gs.engine.closure_incremental_refreshes],
+        "wall_s": wall,
+        "ingest_allreduce": clock.summary("SUM", "data", sk.counters.numel() * 4),
+        "gather_allreduce": clock.summary("SUM", "model", sk.counters.numel() * 4),
+        "allreduce_total_ms": sum(c[3] for c in clock.calls),
+        "first_ms": clock.first_ms(),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if device != "cpu" else 0.0,
+        "finite": bool(torch.isfinite(sk.counters).all()),
+    }
+
+
+def dist_train_state(torch, device, steps: int, preset: str = "100m"):
+    """``launch/train_lm.py``'s compressed state for ``preset`` (parameters
+    from seed 0, compressor from seed 1, AdamW at lr 1e-3 with 20 warm-up
+    steps), its loss and AdamW config, and ``steps`` pairs of batches
+    (worker 0's, worker 1's) drawn from its token stream."""
+    import numpy as np
+
+    from repro_torch.data.lm import MarkovTokens
+    from repro_torch.launch.train_lm import COMPRESSOR, PRESETS
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import compression as comp
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.tree import tree_leaves
+
+    cfg = PRESETS[preset]
+    opt_cfg = opt_mod.AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=steps)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0), device)
+    n = sum(x.numel() for x in tree_leaves(params))
+    state = {"params": params, "opt": opt_mod.init_adamw(opt_cfg, params),
+             "comp": comp.init_compressor(COMPRESSOR, n, torch.Generator().manual_seed(1), device)}
+    gen, rng = MarkovTokens(cfg.vocab, seed=0), np.random.default_rng(0)
+    batch, seq = flag(TRAIN_100M, "--batch"), flag(TRAIN_100M, "--seq")
+    batches = [[{"tokens": torch.as_tensor(gen.batch(batch, seq + 1, rng)).to(device)} for _ in range(2)]
+               for _ in range(steps)]
+
+    def loss_fn(p, b):
+        return tfm.loss_fn(cfg, p, b["tokens"])
+
+    return state, loss_fn, opt_cfg, batches
+
+
+def train_rank(rank, world, tmp, device, steps, preset):
+    """(iii) One worker of the data-parallel compressed step
+    (``axis_name="data"`` over a (2,) mesh): its own batch each step.
+    Returns per step the loss, its CountSketch table before and after the
+    all-reduce, digests of the parameters, of the sketch momentum and of
+    its error feedback, and the step's host time; its launches and peak
+    memory."""
+    import torch
+
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.launch.train_lm import COMPRESSOR
+    from repro_torch.train import trainer
+    from repro_torch.tree import tree_leaves
+
+    rank_device(torch, device)
+    mesh = Mesh((world,), ("data",))
+    kernels = counted_kernels()
+    state, loss_fn, opt_cfg, batches = dist_train_state(torch, device, steps, preset)
+    table_shape = (COMPRESSOR.depth, COMPRESSOR.width)
+    clock = CollectiveClock(torch, mesh, keep=lambda t: tuple(t.shape) == table_shape)
+    step = trainer.compressed_data_parallel_step(loss_fn, opt_cfg, COMPRESSOR, axis_name="data", mesh=mesh)
+    for f in kernels.values():
+        f.launches = 0
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    out = []
+    for pair in batches:
+        t0 = time.time()
+        state, m = step(state, pair[rank])
+        loss = float(m["loss"])
+        out.append({"loss": loss, "s": time.time() - t0, "params": digest(*tree_leaves(state["params"])),
+                    "momentum": digest(state["comp"].momentum), "error": digest(state["comp"].error)})
+    for i, rec in enumerate(out):
+        rec["table"], rec["reduced"] = clock.kept[2 * i].cpu(), clock.kept[2 * i + 1].cpu()
+    return {
+        "steps": out,
+        "launches": {name: kernels[name].launches for name in DIST_TRAIN_KERNELS},
+        "table_allreduce": clock.summary("SUM", "data", 4 * table_shape[0] * table_shape[1]),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if device != "cpu" else 0.0,
+    }
+
+
+def emulate_train(torch, device, steps, preset, ranks):
+    """(iii)'s single-process emulation, held to the ranks bit for bit at
+    every step: one set of parameters, both workers' gradients at it, each
+    worker's table of its gradient plus its error feedback, the two tables
+    added, one decode (worker 0's round trip with worker 1's table added),
+    one AdamW step.  Every rank's own table, reduced table, parameters,
+    sketch momentum and loss must equal the emulation's, and its error
+    feedback that of its worker.  Returns the emulated losses."""
+    import dataclasses
+
+    from repro_torch.train import compression as comp
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    state, loss_fn, opt_cfg, batches = dist_train_state(torch, device, steps, preset)
+    params, ostate = state["params"], state["opt"]
+    cstates = [state["comp"], state["comp"]]  # one family and momentum; an error feedback each
+    losses = []
+    for i, pair in enumerate(batches):
+        flats, ls = [], []
+        for k in range(2):
+            (loss, _), grads = value_and_grad(loss_fn, params, pair[k])
+            flat, spec = comp.flatten_grads(grads)
+            del grads
+            flats.append(flat)
+            ls.append(loss)
+        hashes = None if device != "cpu" else comp.hash_indices(cstates[0].hash, flats[0].shape[0])
+        tables = [comp._sketch(c, f + c.error, hashes) for c, f in zip(cstates, flats)]
+        update, first = comp.roundtrip(cstates[0], flats[0], lambda t: t + tables[1])
+        second = dataclasses.replace(cstates[1], momentum=first.momentum, error=flats[1] + cstates[1].error - update)
+        cstates = [first, second]
+        params, ostate, _ = opt_mod.apply_adamw(opt_cfg, ostate, params, comp.unflatten_grads(update, spec))
+        loss = float((ls[0] + ls[1]) / 2)
+        losses.append(loss)
+        want = {"params": digest(*tree_leaves(params)), "momentum": digest(first.momentum), "loss": loss}
+        summed = (tables[0] + tables[1]).cpu()
+        for k, r in enumerate(ranks):
+            got, label = r["steps"][i], f"data-parallel step {i + 1}, rank {k}"
+            check(torch.equal(got["table"], tables[k].cpu()),
+                  f"{label}: its table differs from the emulation's sketch of worker {k}'s gradient")
+            check(torch.equal(got["reduced"], summed), f"{label}: its reduced table is not the sum of the two tables")
+            for key, value in want.items():
+                check(got[key] == value, f"{label}: its {key} differs from the emulation's")
+            check(got["error"] == digest(cstates[k].error),
+                  f"{label}: its error feedback differs from the emulation's worker {k}")
+        del flats, tables, summed, update
+    return losses
+
+
+def distributed_kernel_rows(torch, counters, rows, cols):
+    """B5 and B6 at the shapes (ii)'s path gives them (a (d, w_r/2, w_c)
+    shard; B5 on the workload's Q edge keys, rows clipped into the shard),
+    each against its plain version, timed with CUDA events beside its plain
+    version, its library call and its bound."""
+    from repro_torch.kernels.flow.ops import flows
+    from repro_torch.kernels.flow.ref import flows_ref
+    from repro_torch.kernels.query.ops import edge_query_cells
+    from repro_torch.kernels.query.ref import edge_query_cells_ref
+
+    d, wr, wc = counters.shape
+    q = rows.shape[1]
+    out = []
+    got, want = edge_query_cells(counters, rows, cols), edge_query_cells_ref(counters, rows, cols)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "distributed B5 differs from its plain version on the shard")
+    flat, cell = counters.view(d, -1), rows * wc + cols
+    call, lib = (lambda: edge_query_cells(counters, rows, cols)), (lambda: flat.gather(1, cell))
+    lib_a, ms_a, ms_b, lib_b = (time_ms(f, QUERY_REPS) for f in (lib, call, call, lib))
+    dev_ms = device_ms(call, 50, "query_cells_kernel")
+    bound = (d * q * (32 + 2 * rows.element_size()) + 4 * d * q) / PEAK_BYTES_PER_S * 1e3
+    out.append(dict(
+        name="edge_query_cells@distributed", route="cuda", source="src/repro_torch/csrc/query.cu",
+        replaces="src/repro/kernels/query/kernel.py:122", max_abs_err=float((got - want).abs().max()),
+        ms=(ms_a + ms_b) / 2, plain_ms=time_ms(lambda: edge_query_cells_ref(counters, rows, cols), 50),
+        bound_ms=bound, bound_by="bytes", library_ms=(lib_a + lib_b) / 2, device_ms=dev_ms,
+    ))
+    rs, cs = flows(counters)
+    want_rs, want_cs = flows_ref(counters)
+    torch.cuda.synchronize()
+    check(torch.equal(rs, want_rs) and torch.equal(cs, want_cs), "distributed B6 differs from its plain version")
+    bound = (d * wr * wc * 4 + (d * wr + d * wc) * 4) / PEAK_BYTES_PER_S * 1e3
+    out.append(dict(
+        name="flows@distributed", route="cuda", source="src/repro_torch/csrc/flow.cu",
+        replaces="src/repro/kernels/flow/kernel.py:39",
+        max_abs_err=max(float((rs - want_rs).abs().max()), float((cs - want_cs).abs().max())),
+        ms=time_ms(lambda: flows(counters), 20), plain_ms=time_ms(lambda: flows_ref(counters), 20),
+        bound_ms=bound, bound_by="bytes", library_ms=time_ms(lambda: (counters.sum(2), counters.sum(1)), 20),
+        device_ms=device_ms(lambda: flows(counters), 20, "flows_kernel"),
+    ))
+    for r in out:
+        print(f"[chip_smoke] {r['name']} on a ({d}, {wr}, {wc}) shard" + (f", Q={q}" if "query" in r["name"] else "")
+              + f": bit-equal to its plain version; {r['ms']:.5f} ms (device {_fmt(r['device_ms'])}), plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms")
+    return out
+
+
+def phase_distributed(torch, serve, rows, argv=SERVE_BASE, device="cuda", backend="nccl", preset="100m"):
+    """The distributed serve BASE cell: (i) one rank on ``backend`` (NCCL on
+    the card), a (1, 1) mesh, in this process, bit-equal to the
+    single-session kernels run; (ii) four gloo ranks on the same card, a
+    (2, 2) mesh: each rank's shard bit-equal to its rows of (i), the
+    registers and the transcript equal; (iii) the data-parallel compressed
+    step on two gloo ranks against its single-process emulation.  Appends
+    the B5 and B6 rows of this path to ``rows``."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core.hashing import keys_to_tensor
+    from repro_torch.distributed.mesh import Mesh
+
+    cuda = device != "cpu"
+    kernels = counted_kernels()
+    single, single_ev, single_s = timed_run(torch, lambda: serve.main(argv + ["--device", device]))
+    if cuda:
+        # B5 and B6 at the shapes the mesh path gives them, on the first
+        # shard's rows of the single session (which (i) and (ii) are held to
+        # below), timed before any process group exists.
+        live = single._live()
+        wr_local = live.counters.shape[1] // DIST_MESH[1]
+        _, _, workload = serve.traffic(serve.build_parser().parse_args(argv))
+        edge = next(q for q in workload if q.family == "edge")
+        r, c = live.hash_edges(keys_to_tensor(edge.u, device), keys_to_tensor(edge.v, device))
+        shard = live.counters[:, :wr_local].contiguous()
+        dist_rows = distributed_kernel_rows(torch, shard, r.clamp(0, wr_local - 1), c)
+        del live, shard
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-nccl-"))
+    if cuda:
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, store=dist.FileStore(str(tmp / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = Mesh((1, 1), ("data", "model"))
+        clock = CollectiveClock(torch, mesh)
+        for f in kernels.values():
+            f.launches = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        one, one_ev, one_s = distributed_serve(torch, serve, argv + ["--device", device], mesh, device)
+        launches = {name: kernels[name].launches for name in DIST_SERVE_KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_same(torch, one, one_ev, single, single_ev, "distributed serve BASE (i) vs the single session")
+    check(not cuda or all(v > 0 for v in launches.values()),
+          f"distributed serve BASE (i): a kernel was not launched: {launches}")
+    n, nbytes, host_ms, dev_ms = clock.summary("SUM", "data", one._sketch.counters.numel() * 4)
+    print(
+        f"[chip_smoke] distributed serve BASE (i) {backend}, 1 rank, (1, 1) mesh: {one_s:.3f} s (single session "
+        f"{single_s:.3f} s; host wall clock, all-reduces bracketed by synchronizes); launches {launches}; "
+        f"closure full={one.engine.closure_refreshes} incremental={one.engine.closure_incremental_refreshes}; "
+        f"{n} ingest all-reduces of {nbytes / 2**30:.2f} GiB: {host_ms} ms host, {dev_ms} ms device (median); "
+        f"first all-reduce of each group {clock.first_ms()} ms host; all-reduces {len(clock.calls)}, "
+        f"{sum(c[3] for c in clock.calls):.1f} ms host in all; peak {peak:.2f} GiB; counters, registers and "
+        f"transcript bit-equal to the single session"
+    )
+    # What (ii)'s ranks must hold: their rows of (i), its registers and transcript.
+    sk = one._sketch
+    wr_local = sk.counters.shape[1] // DIST_MESH[1]
+    want_shards = [digest(sk.counters[:, m * wr_local:(m + 1) * wr_local]) for m in range(DIST_MESH[1])]
+    want_registers, want_transcript = digest(sk.row_flows, sk.col_flows), transcript_digest(one_ev)
+    del single, single_ev, one, one_ev, sk
+    if cuda:
+        release(torch)
+
+    world = DIST_MESH[0] * DIST_MESH[1]
+    t0 = time.time()
+    ranks = spawn_ranks(serve_rank, world, device, (argv + ["--device", device],))
+    spawn_s = time.time() - t0
+    for rank, res in enumerate(ranks):
+        model = res["coords"][1]
+        check(res["shard"] == want_shards[model], f"distributed serve BASE (ii): rank {rank}'s shard differs from "
+              f"rows {model * wr_local}..{(model + 1) * wr_local} of (i)")
+        check(res["registers"] == want_registers, f"distributed serve BASE (ii): rank {rank}'s registers differ")
+        check(res["transcript"] == want_transcript, f"distributed serve BASE (ii): rank {rank}'s transcript differs")
+        check(res["launches"] == launches, f"distributed serve BASE (ii): rank {rank} launched {res['launches']}, "
+              f"(i) {launches}")
+        check(res["finite"], f"distributed serve BASE (ii): rank {rank} holds non-finite counters")
+    walls = ", ".join(f"{r['wall_s']:.2f}" for r in ranks)
+    peaks = ", ".join(f"{r['peak_gib']:.2f}" for r in ranks)
+    n, nbytes, host_ms, dev_ms = ranks[0]["ingest_allreduce"]
+    gn, gbytes, ghost_ms, gdev_ms = ranks[0]["gather_allreduce"]
+    print(
+        f"[chip_smoke] distributed serve BASE (ii) gloo, {world} ranks on one card, {DIST_MESH} mesh: serve "
+        f"{walls} s by rank (host wall clock, all-reduces bracketed by synchronizes; {spawn_s:.1f} s with the "
+        f"ranks' start); launches per rank {ranks[0]['launches']}; closure full/incremental {ranks[0]['closure']}; "
+        f"{n} ingest all-reduces of {nbytes / 2**30:.2f} GiB over 'data': {host_ms} ms host, {dev_ms} ms device "
+        f"(median, rank 0); {gn} gathers of {gbytes / 2**30:.2f} GiB over 'model' for reach: {ghost_ms} ms host, "
+        f"{gdev_ms} ms device (median, rank 0); all-reduces {ranks[0]['allreduce_total_ms']:.1f} ms host in all, "
+        f"the first of each group {ranks[0]['first_ms']} ms (rank 0); peak {peaks} GiB by rank; shards bit-equal "
+        f"to (i)'s rows, registers and transcripts equal"
+    )
+    if cuda:
+        for row in dist_rows:
+            name = row["name"].split("@")[0]
+            row["launches"] = ranks[0]["launches"][name]
+            check(row["launches"] > 0, f"{row['name']} was not launched on its path")
+            rows[row["name"]] = row
+
+    t0 = time.time()
+    train = spawn_ranks(train_rank, 2, device, (DIST_TRAIN_STEPS, preset))
+    train_s = time.time() - t0
+    emulated = emulate_train(torch, device, DIST_TRAIN_STEPS, preset, train)
+    for r in train:
+        want = {"countsketch": 2 * DIST_TRAIN_STEPS, "countsketch_median": DIST_TRAIN_STEPS} if cuda else r["launches"]
+        check(r["launches"] == want, f"data-parallel step: launches {r['launches']}, expected {want}")
+    n, nbytes, host_ms, dev_ms = train[0]["table_allreduce"]
+    print(
+        f"[chip_smoke] data-parallel compressed {preset}, 2 gloo ranks on one card, {DIST_TRAIN_STEPS} steps: "
+        f"losses {[r['loss'] for r in train[0]['steps']]} (emulation {emulated}); step host s by rank "
+        f"{[[round(s['s'], 4) for s in r['steps']] for r in train]}; {train_s:.1f} s with the ranks' start; "
+        f"launches per rank {train[0]['launches']}; {n} table all-reduces of {nbytes} B: {host_ms} ms host, "
+        f"{dev_ms} ms device (median); peak {[round(r['peak_gib'], 2) for r in train]} GiB; at every step each "
+        f"rank's table, reduced table, parameters, sketch momentum, error feedback and loss bit-equal to the "
+        f"single-process emulation (so the replicas are identical)"
+    )
+    return ranks, train
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -2700,6 +3224,11 @@ def main() -> int:
           f"train 100m: {rows['countsketch']['launches']} countsketch launches for {n_steps} steps")
     check(rows["countsketch_median"]["launches"] == n_steps,
           f"train 100m: {rows['countsketch_median']['launches']} countsketch_median launches for {n_steps} steps")
+
+    # The distributed plane: one NCCL rank, four gloo ranks on the card, and
+    # the data-parallel compressed step on two.
+    phase_distributed(torch, serve, rows)
+    release(torch)
 
     print(f"[chip_smoke] total {time.time() - t_start:.1f} s, build included")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

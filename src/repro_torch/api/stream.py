@@ -41,8 +41,23 @@ device dispatch; ``checkpoint_dir=`` enables :meth:`GraphStream.checkpoint`
 and :meth:`GraphStream.restore` (:mod:`repro_torch.checkpoint.manager`, the
 reference's file format); :meth:`GraphStream.recover` restores the newest
 checkpoint and replays the WAL suffix, with exactly-once subscription
-delivery.  The distributed plane (``mesh``, ROADMAP A9) is not ported and
-raises ``NotImplementedError``.
+delivery.
+
+``mesh=`` (a :class:`~repro_torch.distributed.mesh.Mesh` of
+``torch.distributed`` ranks) opens a MESH session, one per rank, each
+driven with the same calls (paper §6.3): the rank holds its rows of the
+counters (split over the mesh's ``model`` axis) and the whole flow
+registers; each ingest goes through
+:func:`~repro_torch.core.distributed.distributed_ingest` (the batch split
+over the ``("pod", "data")`` axes), and queries through a
+:class:`~repro_torch.core.distributed.MeshQueryEngine`, so every family
+gives the local session's answer and subscriptions tick as locally.  An
+undirected sketch ingests each batch and its mirror, as a local session
+does.  ``checkpoint()`` writes the assembled state in the local format from
+rank 0 and ``restore()`` gives every rank its rows, so checkpoints move
+between mesh and local sessions of either package.  The reference's
+refusals stand (a mesh with a window, a mesh with fused ingest); a WAL,
+``recover()`` and ``merge()`` on a mesh session wait for ROADMAP A9b.
 """
 from __future__ import annotations
 
@@ -72,6 +87,7 @@ from repro_torch.api.subscription import (
     sub_progress_key,
 )
 from repro_torch.checkpoint.manager import CheckpointCorruptError, CheckpointManager
+from repro_torch.core import distributed as dist_mod
 from repro_torch.core import queries as queries_mod
 from repro_torch.core.hashing import keys_to_tensor
 from repro_torch.core.ingest import (
@@ -85,6 +101,8 @@ from repro_torch.core.query_engine import QueryEngine
 from repro_torch.core.sketch import GLavaSketch, SketchConfig
 from repro_torch.core.window import SlidingWindowSketch
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.mesh import Mesh
+from repro_torch.distributed.sharding import sketch_plane_shardings
 from repro_torch.stream.events import EventFeed
 from repro_torch.stream.wal import AdvanceMutation, EdgeMutation, WriteAheadLog
 from repro_torch.stream.watermark import DEFAULT_SOURCE, WatermarkTracker, slice_of, slices_of
@@ -221,7 +239,12 @@ class GraphStream:
         if mesh is not None and window_slices:
             raise ValueError("windowed + distributed sessions are not supported yet")
         if mesh is not None:
-            raise _not_ported("mesh (distributed sessions)", "A9")
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a repro_torch.distributed.mesh.Mesh, got {type(mesh).__name__}")
+            if "model" not in mesh.shape:
+                raise ValueError(f"a mesh session splits its rows over a 'model' axis; the mesh has {mesh.axis_names}")
+            if wal_dir is not None:
+                raise _not_ported("a write-ahead log on a mesh session", "A9b")
         # Event-time plane: slice_width maps event times onto the window
         # ring; max_lateness bounds out-of-orderness (how far behind the
         # per-source maximum the watermark trails).
@@ -267,7 +290,17 @@ class GraphStream:
         # The session mutates its summary in place: take a private copy.
         self._sketch: Optional[GLavaSketch] = None
         self._window: Optional[SlidingWindowSketch] = None
-        if window_slices:
+        # A mesh session holds its rank's shard (its rows of the counters).
+        self._mesh: Optional[Mesh] = mesh
+        self._stream_axes: Tuple[str, ...] = ()
+        if mesh is not None:
+            _, stream = sketch_plane_shardings(mesh)
+            self._stream_axes = stream.spec[0]
+            self._sketch = (
+                dist_mod.shard_sketch(mesh, sketch).to(self.device) if sketch is not None
+                else dist_mod.empty_shard(mesh, config, seed, self.device)
+            )
+        elif window_slices:
             self._window = (
                 sketch.to(self.device) if sketch is not None
                 else SlidingWindowSketch.empty(config, window_slices, seed, self.device)
@@ -285,13 +318,13 @@ class GraphStream:
         # one-pass kernel updates counters, registers and the touched-row
         # bitmap together, which only a plain local session can consume.
         self._fused = ingest_backend == "fused"
-        if self._fused and window_slices:
+        if self._fused and (mesh is not None or window_slices):
             raise ValueError("fused ingest needs a plain local session")
         self.ingest_backend = (
             "fused" if self._fused else resolve_backend(ingest_backend, self.device)
         )
         self._preagg = preagg
-        self.engine = QueryEngine(query_backend)
+        self.engine = QueryEngine(query_backend) if mesh is None else dist_mod.MeshQueryEngine(mesh, query_backend)
         self.stats = StreamStats()
         self._epoch = 0
         # Standing-query plane: registered subscriptions, the session-wide
@@ -388,6 +421,8 @@ class GraphStream:
         """A SNAPSHOT of the summary (for a windowed session, of the
         materialized window): a copy that later ingests do not touch."""
         self.flush()
+        if self._mesh is not None:
+            return dist_mod.gather_rows(self._mesh, self._sketch).clone()
         return self._live().clone()
 
     def _live(self) -> GLavaSketch:
@@ -518,7 +553,9 @@ class GraphStream:
         # The summary the batch lands in: the plain sketch, or the window
         # (whose active slice is a view of the ring).
         live = self._sketch if self._window is None else self._window
-        if self._fused:
+        if self._mesh is not None:
+            self._mesh_ingest(s_np, d_np, w_np, pre)
+        elif self._fused:
             if pre is not None:
                 # Collapsed pairs through the kernel.  The padding slots
                 # (key 0, weight 0) are valid slots: they add nothing but
@@ -561,6 +598,26 @@ class GraphStream:
         )
         self._after_mutation()
         return receipt
+
+    def _mesh_ingest(self, s_np, d_np, w_np, pre) -> None:
+        """One batch of a mesh session through ``distributed_ingest``, as the
+        reference's mesh branch does it: flush, then the batch, or its
+        collapsed pairs with their marginals.  An undirected sketch ingests
+        the mirrored batch too, as ``update_`` does."""
+        self.flush()
+        if pre is not None:
+            s, d, w, su, st, du, dt = (self._tensor(x) for x in (
+                pre.src, pre.dst, pre.weights, pre.src_unique, pre.src_totals, pre.dst_unique, pre.dst_totals,
+            ))
+            passes = [(s, d, (su, st, du, dt)), (d, s, (du, dt, su, st))]
+        else:
+            s, d, w = self._tensor(s_np), self._tensor(d_np), self._tensor(w_np)
+            passes = [(s, d, None), (d, s, None)]
+        for a, b, marginals in passes[: 1 if self.config.directed else 2]:
+            dist_mod.distributed_ingest(
+                self._mesh, self._sketch, a, b, w,
+                stream_axes=self._stream_axes, backend=self.ingest_backend, preagg_marginals=marginals,
+            )
 
     def _dispatch_update_slice(self, s_np, d_np, w_np, slot: int) -> None:
         """One event-time dispatch into ring slot ``slot``: the slot's view
@@ -893,7 +950,8 @@ class GraphStream:
         ``src/repro/api/stream.py:1118``): flushes, then returns the (d, w)
         bucket ranks as numpy."""
         self.flush()
-        return queries_mod.sketch_pagerank(self._live(), damping, iters).cpu().numpy()
+        sketch = self._live() if self._mesh is None else dist_mod.gather_rows(self._mesh, self._sketch)
+        return queries_mod.sketch_pagerank(sketch, damping, iters).cpu().numpy()
 
     # -- convenience wrappers (vectorized) --------------------------------------
 
@@ -953,6 +1011,8 @@ class GraphStream:
         """Merge another session's summary into this one (linearity; the
         paper's distributed merge-by-add).  Both must share a hash family.
         The merged summary is a new tensor: neither operand is aliased."""
+        if self._mesh is not None or other._mesh is not None:
+            raise _not_ported("merge() on a mesh session", "A9b")
         if self._window is not None or other._window is not None:
             raise ValueError("merge() runs on non-windowed sessions")
         self.flush()
@@ -1002,7 +1062,15 @@ class GraphStream:
         }
         if subs:
             meta["subs"] = subs
-        self._ckpt.save(step, state, metadata=meta)
+        if self._mesh is None:
+            self._ckpt.save(step, state, metadata=meta)
+        else:
+            # The assembled state, written once, in the local format.
+            whole = dist_mod.gather_rows(self._mesh, self._sketch)
+            if self._mesh.rank == 0:
+                self._ckpt.save(step, whole, metadata=meta)
+            del whole
+            self._mesh.barrier()
         if self._wal is not None:
             # Rotation keyed to the checkpoint step: the next mutation opens
             # a fresh segment, so no segment straddles the boundary and GC
@@ -1028,10 +1096,14 @@ class GraphStream:
             raise ValueError("open the session with checkpoint_dir= to restore")
         self.flush()
         like = self._window if self._window is not None else self._sketch
-        state, meta = self._ckpt.restore(step, like=like, fill_missing=True)
+        shardings = None if self._mesh is None else dist_mod.counter_placement(self._mesh)
+        state, meta = self._ckpt.restore(step, like=like, shardings=shardings, fill_missing=True)
         if meta.get("filled_leaves"):
             # Registers absent from an old checkpoint: rebuild from counters.
-            if isinstance(state, GLavaSketch):
+            if self._mesh is not None:
+                whole = dist_mod.gather_rows(self._mesh, state)
+                state = dataclasses.replace(whole.with_counters(whole.counters), counters=state.counters)
+            elif isinstance(state, GLavaSketch):
                 state = state.with_counters(state.counters)
             else:
                 state.row_flows = torch.sum(state.slices, dim=3)
@@ -1077,6 +1149,8 @@ class GraphStream:
         and events a consumer already processed are deduplicated by
         (subscription, tick) via :meth:`Subscription.seek`: together,
         exactly-once delivery."""
+        if self._mesh is not None:
+            raise _not_ported("recover() on a mesh session", "A9b")
         if self._wal is None:
             raise ValueError("open the session with wal_dir= to recover")
         restored_step = None

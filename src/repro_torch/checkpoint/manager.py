@@ -28,8 +28,12 @@ so a checkpoint written by either package restores in the other:
 Restoring needs ``like``, a state of the wanted structure: each leaf comes
 back on ``like``'s device in ``like``'s dtype.  Sketches and windows are
 rebuilt through ``repro_torch.convert`` (``sketch_from_arrays``,
-``window_from_arrays``).  The reference's ``shardings`` (the elastic reshard
-path) belong to the distributed plane (ROADMAP A9) and are not ported.
+``window_from_arrays``).  ``shardings`` is the reference's elastic reshard
+path: a tree of :class:`~repro_torch.distributed.sharding.Placement` objects
+beside ``like`` (``None`` where a leaf is whole) gives every rank its own
+block of each leaf, whatever mesh the checkpoint was saved under; the
+placement of a sketch is that of its counters, whose rows split over one
+mesh axis (``convert.sketch_shard_from_arrays``).
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from repro_torch import convert
 from repro_torch.core.hashing import HashFamily
 from repro_torch.core.sketch import GLavaSketch
 from repro_torch.core.window import SlidingWindowSketch
+from repro_torch.distributed.sharding import Placement, local_shard
 from repro_torch.train.compression import CompressorState
 
 
@@ -145,16 +150,26 @@ def _like_dtype(ref: Any) -> np.dtype:
     return np.asarray(ref).dtype
 
 
-def _rebuild(like: Any, prefix: str, take: Callable[[str, Any], np.ndarray]) -> Any:
+def _rebuild(like: Any, prefix: str, take: Callable[[str, Any], np.ndarray], sharding: Any = None) -> Any:
     """A state of ``like``'s structure whose leaves ``take(path, like_leaf)``
-    supplies as host arrays."""
+    supplies as host arrays; ``sharding`` (beside ``like``) cuts this rank's
+    block of each leaf that has a :class:`Placement`."""
     if isinstance(like, GLavaSketch):
         a = {p[len(prefix):]: take(p, leaf) for p, leaf in tree_paths(like, prefix)}
-        return convert.sketch_from_arrays(
+        args = (
             like.config, a[".counters"], a[".row_flows"], a[".col_flows"],
             a[".row_hash.a"], a[".row_hash.b"], a[".col_hash.a"], a[".col_hash.b"],
-            device=like.device,
         )
+        if sharding is None:
+            return convert.sketch_from_arrays(*args, device=like.device)
+        spec = tuple(sharding.spec) + (None,) * (3 - len(sharding.spec))
+        if spec[0] is not None or spec[2] is not None or not isinstance(spec[1], str):
+            raise ValueError(f"a sketch's counters split over their rows along one mesh axis, not {sharding.spec}")
+        return convert.sketch_shard_from_arrays(*args, mesh=sharding.mesh, model_axis=spec[1], device=like.device)
+    placed = isinstance(sharding, Placement) and isinstance(like, (torch.Tensor, np.ndarray))
+    if sharding is not None and not placed and not isinstance(like, (dict, list, tuple)):
+        raise ValueError(f"{prefix or 'the state'}: a Placement applies to a tensor or a sketch, "
+                         f"and shardings must match the state's structure")
     if isinstance(like, SlidingWindowSketch):
         t = prefix + ".template"
         return convert.window_from_arrays(
@@ -181,12 +196,19 @@ def _rebuild(like: Any, prefix: str, take: Callable[[str, Any], np.ndarray]) -> 
             config=like.config,
         )
     if isinstance(like, dict):
-        return {k: _rebuild(v, f"{prefix}[{k!r}]", take) for k, v in like.items()}
+        sub = sharding or {}
+        return {k: _rebuild(v, f"{prefix}[{k!r}]", take, sub.get(k)) for k, v in like.items()}
     if isinstance(like, tuple) and hasattr(like, "_fields"):
-        return type(like)(*(_rebuild(getattr(like, f), f"{prefix}.{f}", take) for f in like._fields))
+        return type(like)(*(
+            _rebuild(getattr(like, f), f"{prefix}.{f}", take, None if sharding is None else getattr(sharding, f))
+            for f in like._fields
+        ))
     if isinstance(like, (list, tuple)):
-        return type(like)(_rebuild(x, f"{prefix}[{i}]", take) for i, x in enumerate(like))
+        sub = sharding or [None] * len(like)
+        return type(like)(_rebuild(x, f"{prefix}[{i}]", take, sub[i]) for i, x in enumerate(like))
     arr = take(prefix, like)
+    if placed:
+        arr = np.ascontiguousarray(local_shard(arr, sharding))
     if isinstance(like, torch.Tensor):
         return torch.from_numpy(np.asarray(arr, order="C")).to(device=like.device, dtype=like.dtype)
     return arr
@@ -273,8 +295,15 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, like: Any = None, fill_missing: bool = False):
+    def restore(self, step: Optional[int] = None, like: Any = None, shardings: Any = None,
+                fill_missing: bool = False):
         """Restore a checkpoint into a state shaped like ``like``.
+
+        ``shardings`` (optional) is a tree beside ``like`` whose entries are
+        :class:`~repro_torch.distributed.sharding.Placement` objects or ``None``:
+        each placed leaf comes back as this rank's block under its
+        placement, the counterpart of the reference's ``NamedSharding``
+        re-layout for the current mesh (the elastic reshard path).
 
         ``fill_missing=True`` is the schema-evolution path: leaves ``like``
         has and the checkpoint lacks (e.g. the flow registers of a sketch
@@ -290,14 +319,14 @@ class CheckpointManager:
         Returns ``(state, metadata)``; ``metadata["step"]`` is always
         present."""
         if step is not None:
-            return self._load_step(step, like, fill_missing)
+            return self._load_step(step, like, shardings, fill_missing)
         steps = self.all_steps()
         if not steps:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         first_err: Optional[CheckpointCorruptError] = None
         for s in reversed(steps):
             try:
-                return self._load_step(s, like, fill_missing)
+                return self._load_step(s, like, shardings, fill_missing)
             except CheckpointCorruptError as e:
                 if first_err is None:
                     first_err = e
@@ -316,7 +345,7 @@ class CheckpointManager:
             metadata["step"] = manifest.get("step", step)
         return metadata
 
-    def _load_step(self, step: int, like: Any, fill_missing: bool):
+    def _load_step(self, step: int, like: Any, shardings: Any, fill_missing: bool):
         d = self.dir / f"step_{step:010d}"
         if not d.exists():
             raise FileNotFoundError(f"no checkpoint for step {step} in {self.dir}")
@@ -354,7 +383,7 @@ class CheckpointManager:
             return arr.astype(dtype, copy=False)
 
         with data:
-            state = _rebuild(like, "", take)
+            state = _rebuild(like, "", take, shardings)
         metadata = dict(manifest["metadata"])
         if filled:
             metadata["filled_leaves"] = filled

@@ -6,7 +6,9 @@ coefficients ``row_hash.a``/``row_hash.b`` (plus ``col_hash.a``/``.b`` when
 the sketch is non-square).  :func:`sketch_from_arrays` builds the port's
 :class:`~repro_torch.core.sketch.GLavaSketch` from exactly those arrays, so
 both sides hash identically; ``GraphStream.open(sketch=...)`` opens a
-session on it.  A reference ``SlidingWindowSketch`` converts the same way
+session on it.  :func:`sketch_shard_from_arrays` builds one rank's shard of
+it for the distributed plane (its rows of the counters over a mesh's
+``model`` axis).  A reference ``SlidingWindowSketch`` converts the same way
 (:func:`window_from_arrays`: the ring, its registers, the current slot and
 the template's hash coefficients), a reference ``FleetSketch`` too
 (:func:`fleet_from_arrays`: the stacked counters, registers and cursors and
@@ -62,6 +64,39 @@ def sketch_from_arrays(
     row_hash, col_hash = _sketch_families(config, row_a, row_b, col_a, col_b, device)
     return GLavaSketch(
         _tensor(counters, torch.float32, device), row_hash, col_hash, config,
+        _tensor(row_flows, torch.float32, device), _tensor(col_flows, torch.float32, device),
+    )
+
+
+def sketch_shard_from_arrays(
+    config: SketchConfig,
+    counters: np.ndarray,
+    row_flows: np.ndarray,
+    col_flows: np.ndarray,
+    row_a: np.ndarray,
+    row_b: np.ndarray,
+    col_a: Optional[np.ndarray] = None,
+    col_b: Optional[np.ndarray] = None,
+    *,
+    mesh,
+    model_axis: str = "model",
+    device: Optional[torch.device] = None,
+) -> GLavaSketch:
+    """This rank's SHARD of a sketch given by the reference's leaves (the
+    whole counters): its rows of the counters, split over ``mesh``'s
+    ``model_axis`` (``core/distributed.py``), with the whole registers and
+    the hash families, on ``device``.  Only the rank's rows are copied."""
+    from repro_torch.core.distributed import counter_placement, rows_per_shard
+    from repro_torch.distributed.sharding import local_shard
+
+    d, wr, wc = config.depth, config.width_rows, config.width_cols
+    if np.shape(counters) != (d, wr, wc):
+        raise ValueError(f"counters shape {np.shape(counters)} != {(d, wr, wc)}")
+    rows_per_shard(mesh, wr, model_axis)
+    rows = local_shard(np.asarray(counters), counter_placement(mesh, model_axis))
+    row_hash, col_hash = _sketch_families(config, row_a, row_b, col_a, col_b, device)
+    return GLavaSketch(
+        _tensor(rows, torch.float32, device), row_hash, col_hash, config,
         _tensor(row_flows, torch.float32, device), _tensor(col_flows, torch.float32, device),
     )
 

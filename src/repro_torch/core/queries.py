@@ -114,7 +114,12 @@ def subgraph_query(sketch: GLavaSketch, src: torch.Tensor, dst: torch.Tensor) ->
     cells if every edge is present in it, else 0; then min over sketches."""
     r, c = sketch.hash_edges(src, dst)
     d_idx = torch.arange(r.shape[0], device=r.device)[:, None]
-    cells = sketch.counters[d_idx, r, c]                 # (d, k)
+    return subgraph_from_cells(sketch.counters[d_idx, r, c])  # (d, k) cells
+
+
+def subgraph_from_cells(cells: torch.Tensor) -> torch.Tensor:
+    """f̃(Q) from the (d, k) cells of Q's edges: per sketch, their sum if
+    every cell is nonzero, else 0; then the min over sketches."""
     present = (cells > 0).all(dim=1)
     weight_i = torch.where(present, cells.sum(dim=1), torch.zeros((), device=cells.device))
     return weight_i.amin()
@@ -123,7 +128,11 @@ def subgraph_query(sketch: GLavaSketch, src: torch.Tensor, dst: torch.Tensor) ->
 def subgraph_query_opt(sketch: GLavaSketch, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """The paper's optimized f̃'(Q) = Σ_k f̃_e(x_k, y_k), zero if any edge
     estimate is zero."""
-    per_edge = edge_query(sketch, src, dst)
+    return subgraph_from_estimates(edge_query(sketch, src, dst))
+
+
+def subgraph_from_estimates(per_edge: torch.Tensor) -> torch.Tensor:
+    """f̃'(Q) from Q's (k,) edge estimates."""
     total = per_edge.sum()
     return torch.where((per_edge == 0).any(), torch.zeros((), device=total.device), total)
 
@@ -136,7 +145,12 @@ def subgraph_query_batch(sketch: GLavaSketch, src, dst, mask) -> torch.Tensor:
     r = sketch.row_hash(src)                              # (d, n, k)
     c = sketch.col_hash(dst)
     d_idx = torch.arange(r.shape[0], device=r.device)[:, None, None]
-    cells = sketch.counters[d_idx, r, c]                 # (d, n, k)
+    return subgraph_batch_from_cells(sketch.counters[d_idx, r, c], mask)  # (d, n, k) cells
+
+
+def subgraph_batch_from_cells(cells: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Batched f̃(Q) from the (d, n, k) cells of n padded queries and their
+    (n, k) mask of real edges."""
     live = mask[None, :, :]
     present = torch.where(live, cells > 0, torch.ones_like(live)).all(dim=2)
     wsum = torch.where(live, cells, torch.zeros((), device=cells.device)).sum(dim=2)

@@ -11,17 +11,33 @@
 //    hashed in registers from the family's coefficients (the main path, no
 //    (d, n) operand), or read from precomputed (d, n) buckets and signs (the
 //    Pallas kernel's own interface).
-//    * Shared-memory path (width * 4 bytes within the opt-in limit, about
-//      56 K floats on an H100): one block owns one sketch row i and a
-//      contiguous chunk of j, zeroes a private copy of the row in shared
-//      memory, folds s * vec into it with shared-memory atomics, then adds
-//      each nonzero cell into the global table with one atomicAdd.  The row
-//      is the fastest grid index, so the d blocks of a chunk run side by side
-//      and rows 2..d read the chunk from L2: vec leaves DRAM about once.
-//    * Global path (wider rows): the same loop with global atomics.
-//    Each thread takes 4 consecutive coordinates at a time (one 16-byte load
-//    of vec); a group of 4 zeros is skipped whole and a zero product is never
-//    added (the second sketch of a training step is almost all zeros).
+//    The sum is deterministic: every term is added as a 64-bit fixed-point
+//    integer, so the order of the atomics cannot change the table, and two
+//    data-parallel workers that sketch the same vector hold the same bits
+//    (as the TPU's one-hot product does).  Each cell has its own scale, so a
+//    cell of small terms keeps float32's precision beside cells of large
+//    ones.  Three launches after a memset of the scratch:
+//    * cellmax: each cell's largest finite |term|, M_c, by an integer
+//      atomicMax on its bits (a max does not depend on order), and its NaN
+//      and infinite terms as flag bits (atomicOr).  M_c fixes the cell's
+//      scale 2^e_c with n * M_c * 2^e_c < 2^62, so no sum of rounded terms
+//      reaches 2^63.
+//    * the sum: round(s * vec * 2^e_c) of every finite term into the cell,
+//      as an int64.
+//    * finalize: table = float(sum) * 2^-e_c, or NaN / +inf / -inf as float
+//      addition gives for the flags (NaN beside anything, or +inf beside
+//      -inf, is NaN).
+//    The two passes share one loop (for_each_term): one block of 1,024
+//    threads owns one sketch row i and a contiguous chunk of j; each thread
+//    takes 4 consecutive coordinates at a time (one 16-byte load of vec); a
+//    group of 4 zeros is skipped whole and a zero product never reaches a
+//    cell (the second sketch of a training step is almost all zeros).  The
+//    row is the fastest grid index, so the d blocks of a chunk run side by
+//    side and rows 2..d read the chunk from L2.  Shared-memory paths (the
+//    sum's row, 10 bytes a cell, within the opt-in limit: about 23 K cells
+//    on an H100): a private copy of the row's maxima, or of its sums (32-bit
+//    low and high words, add_split) and exponents, flushed into the scratch
+//    once a block.  Wider rows take global atomics.
 // 2. The decode: est[j] = median_i(s_i(j) * table[i, h_i(j)]), NaN wherever a
 //    value is NaN, else (lo + hi) * 0.5 of the two middle values
 //    (jnp.median's midpoint rule).  Replaces the gather and jnp.median of
@@ -39,17 +55,20 @@
 // coordinate a hash costs an add and a conditional subtract; the first is
 // one 64-bit product reduced by Mersenne folds (mod_p).
 //
-// fp32 atomics add in any order: integer-valued vec whose partial sums stay
-// below 2^24 gives the plain version's table bit for bit, float vec agrees to
-// rounding.  The decode is exact (a selection) and equals its plain version
-// bit for bit, NaN positions included.
+// The sketch equals its plain version (a float32 index_add_) bit for bit
+// where every term is an integer and every partial sum stays below 2^24
+// (each term is then exact), and otherwise lies within float32's rounding
+// of the exact sum: each term is rounded to a multiple of 2^-e_c, by at most
+// n * M_c * 2^-61 (M_c * 2^-35 at n = 2^26), and the sum once to float32.
+// The decode is exact (a selection) and equals its plain version bit for
+// bit, NaN positions included.
 //
 // Bounds, both bytes, on an NVIDIA H100 80GB HBM3 at its 700.00 W limit
 // (3.35 TB/s, the data sheet's peak): the sketch reads vec once and writes
 // the table once, 4n + 4dw bytes (0.0777 ms at n = 65,020,416, d = 5,
 // w = 16,384); the decode reads the table once and writes est once, the same
-// 4n + 4dw.  What limits the sketch in practice is its d*n shared-memory
-// atomics and the integer work of the hash; the decode's d*n random gathers
+// 4n + 4dw.  What limits the sketch in practice is its two passes of d*n
+// shared-memory atomics and hashes over vec; the decode's d*n random gathers
 // from a table larger than shared memory.
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -58,6 +77,7 @@ namespace {
 
 constexpr uint32_t P = 0x7FFFFFFFu;  // 2^31 - 1
 constexpr int THREADS = 512;
+constexpr int SKETCH_THREADS = 1024;  // the sum: one block an SM (a 128 KB row)
 constexpr int VEC = 4;               // coordinates a thread takes at a time
 constexpr int INLINE_ROWS = 8;       // rows whose coefficients come by value
 constexpr int NETWORK_DEPTH = 8;     // deepest decode by sorting network
@@ -205,21 +225,17 @@ __device__ __forceinline__ void load_group(const float* __restrict__ vec, int64_
   for (int e = 0; e < VEC; ++e) v[e] = j + e < hi ? vec[j + e] : 0.0f;
 }
 
-template <class Src, bool kShared>
-__global__ void __launch_bounds__(THREADS)
-countsketch_kernel(const float* __restrict__ vec, float* __restrict__ table, int64_t n,
-                   int width, int64_t chunk, bool aligned, const __grid_constant__ Src src) {
-  extern __shared__ float row[];
-  const int i = blockIdx.x;  // the sketch row, fastest: a chunk's d blocks run together
-  const int64_t lo = static_cast<int64_t>(blockIdx.y) * chunk;
-  const int64_t hi = lo + chunk < n ? lo + chunk : n;
-  float* out = table + static_cast<int64_t>(i) * width;
-  float* dst = kShared ? row : out;
-  if (kShared) {
-    for (int c = threadIdx.x; c < width; c += THREADS) row[c] = 0.0f;
-    __syncthreads();
-  }
-  constexpr int64_t step = static_cast<int64_t>(VEC) * THREADS;
+// Flag bits of a cell that received a non-finite term.
+constexpr unsigned FLAG_NAN = 1u, FLAG_POS_INF = 2u, FLAG_NEG_INF = 4u;
+
+// Calls body(b, t) for every nonzero term t = s_i(j) * vec[j] of sketch row i
+// over the coordinates [lo, hi), b its bucket in [0, width).  Each thread
+// takes VEC consecutive coordinates at a time (one 16-byte load of vec); a
+// group of VEC zeros is skipped whole.
+template <class Src, class Body>
+__device__ __forceinline__ void for_each_term(const float* __restrict__ vec, int64_t lo, int64_t hi,
+                                              int width, bool aligned, int i, const Src& src, Body body) {
+  constexpr int64_t step = static_cast<int64_t>(VEC) * SKETCH_THREADS;
   int64_t j = lo + static_cast<int64_t>(VEC) * threadIdx.x;
   auto r = src.row(i, j, step);
   float v[VEC];
@@ -234,18 +250,148 @@ countsketch_kernel(const float* __restrict__ vec, float* __restrict__ table, int
         if (v[e] == 0.0f) continue;
         int b;
         const float t = r.term(e, v[e], b);
-        if (static_cast<unsigned>(b) < static_cast<unsigned>(width)) atomicAdd(&dst[b], t);
+        if (static_cast<unsigned>(b) < static_cast<unsigned>(width)) body(b, t);
       }
     }
 #pragma unroll
     for (int e = 0; e < VEC; ++e) v[e] = next[e];
   }
+}
+
+// Pass 1: each cell's largest finite |term| as float bits (for non-negative
+// floats the order of the bits is the order of the values) by atomicMax,
+// and its non-finite terms as flag bits by atomicOr; neither depends on
+// the order of the atomics.  Shared path: a private row in shared memory,
+// flushed once a block.
+template <class Src, bool kShared>
+__global__ void __launch_bounds__(SKETCH_THREADS)
+countsketch_cellmax_kernel(const __grid_constant__ Src src, const float* __restrict__ vec,
+                           unsigned* __restrict__ maxbits, unsigned* __restrict__ flags, int64_t n, int width,
+                           int64_t chunk, bool aligned) {
+  extern __shared__ __align__(16) unsigned char sketch_smem[];
+  unsigned* row = reinterpret_cast<unsigned*>(sketch_smem);
+  const int i = blockIdx.x;  // the sketch row, fastest: a chunk's d blocks run together
+  const int64_t lo = static_cast<int64_t>(blockIdx.y) * chunk;
+  const int64_t hi = lo + chunk < n ? lo + chunk : n;
+  unsigned* out = maxbits + static_cast<int64_t>(i) * width;
+  unsigned* out_flags = flags + static_cast<int64_t>(i) * width;
+  if (kShared) {
+    for (int c = threadIdx.x; c < width; c += SKETCH_THREADS) row[c] = 0u;
+    __syncthreads();
+  }
+  for_each_term(vec, lo, hi, width, aligned, i, src, [&](int b, float t) {
+    const unsigned bits = __float_as_uint(t) & 0x7FFFFFFFu;
+    if (bits < 0x7F800000u) {
+      atomicMax(kShared ? &row[b] : &out[b], bits);
+    } else {
+      atomicOr(&out_flags[b], bits > 0x7F800000u ? FLAG_NAN : (t > 0.0f ? FLAG_POS_INF : FLAG_NEG_INF));
+    }
+  });
   if (kShared) {
     __syncthreads();
-    for (int c = threadIdx.x; c < width; c += THREADS) {
-      const float x = row[c];
-      if (x != 0.0f) atomicAdd(&out[c], x);
+    for (int c = threadIdx.x; c < width; c += SKETCH_THREADS)
+      if (row[c] != 0u) atomicMax(&out[c], row[c]);
+  }
+}
+
+// The exponent e of a cell's fixed-point scale: with M < 2^k its largest
+// finite |term| (bits `maxbits`) and n <= 2^log2n, n * M * 2^e < 2^62, so
+// its sum of at most n rounded terms stays below 2^63.
+__device__ __forceinline__ int cell_exponent(unsigned maxbits, int log2n) {
+  if (maxbits == 0) return 0;
+  int k;
+  frexpf(__uint_as_float(maxbits), &k);
+  return 62 - log2n - k;
+}
+
+// 2^e as a double, for -1022 <= e <= 1023 (cell exponents lie in -131..211).
+__device__ __forceinline__ double pow2(int e) {
+  return __longlong_as_double(static_cast<long long>(e + 1023) << 52);
+}
+
+// x added to a 64-bit cell held as two 32-bit words in shared memory, with
+// native 32-bit atomics (Hopper's shared 64-bit add is a CAS loop): the low
+// word takes x's low half and, when that add wraps (seen in the old value
+// the atomic returns), the high word takes one more.  Every wrap is counted
+// once, so high * 2^32 + low is the exact sum mod 2^64, whatever the order.
+__device__ __forceinline__ void add_split(unsigned* low, int* high, long long x) {
+  const unsigned x_low = static_cast<unsigned>(x);
+  const unsigned old = atomicAdd(low, x_low);
+  const int up = static_cast<int>(x >> 32) + (old + x_low < old ? 1 : 0);
+  if (up != 0) atomicAdd(high, up);
+}
+
+// Pass 2: each finite term rounded to a multiple of its cell's 2^-e and
+// added as an int64 (integer sums do not depend on the order of the
+// atomics).  Shared path: the row as low and high words and the row's
+// exponents in shared memory, flushed once a block with one int64 atomicAdd
+// a nonzero cell.
+template <class Src, bool kShared>
+__global__ void __launch_bounds__(SKETCH_THREADS)
+countsketch_kernel(const __grid_constant__ Src src, const float* __restrict__ vec,
+                   unsigned long long* __restrict__ acc, const unsigned* __restrict__ maxbits, int log2n,
+                   int64_t n, int width, int64_t chunk, bool aligned) {
+  // The shared row: width low words, width high words, width exponents.
+  extern __shared__ __align__(16) unsigned char sketch_smem[];
+  unsigned* row_low = reinterpret_cast<unsigned*>(sketch_smem);
+  int* row_high = reinterpret_cast<int*>(row_low + width);
+  short* row_exp = reinterpret_cast<short*>(row_high + width);
+  const int i = blockIdx.x;
+  const int64_t lo = static_cast<int64_t>(blockIdx.y) * chunk;
+  const int64_t hi = lo + chunk < n ? lo + chunk : n;
+  unsigned long long* out = acc + static_cast<int64_t>(i) * width;
+  const unsigned* row_max = maxbits + static_cast<int64_t>(i) * width;
+  if (kShared) {
+    for (int c = threadIdx.x; c < width; c += SKETCH_THREADS) {
+      row_low[c] = 0u;
+      row_high[c] = 0;
+      row_exp[c] = static_cast<short>(cell_exponent(row_max[c], log2n));
     }
+    __syncthreads();
+  }
+  for_each_term(vec, lo, hi, width, aligned, i, src, [&](int b, float t) {
+    if (!isfinite(t)) return;  // flagged by pass 1
+    const int e = kShared ? row_exp[b] : cell_exponent(row_max[b], log2n);
+    const long long x = __double2ll_rn(static_cast<double>(t) * pow2(e));
+    if (kShared) {
+      add_split(&row_low[b], &row_high[b], x);
+    } else {
+      // Two's complement: adding the unsigned image adds the signed value.
+      atomicAdd(&out[b], static_cast<unsigned long long>(x));
+    }
+  });
+  if (kShared) {
+    __syncthreads();
+    for (int c = threadIdx.x; c < width; c += SKETCH_THREADS) {
+      const unsigned long long x =
+          (static_cast<unsigned long long>(static_cast<unsigned>(row_high[c])) << 32) | row_low[c];
+      if (x != 0ull) atomicAdd(&out[c], x);
+    }
+  }
+}
+
+// table[c] = the fixed-point sum of cell c back in float32 (one rounding to
+// float32, then an exact scaling by 2^-e), or the non-finite value float
+// addition gives for its flags.
+__global__ void __launch_bounds__(THREADS)
+countsketch_finalize_kernel(const long long* __restrict__ acc, const unsigned* __restrict__ maxbits,
+                            const unsigned* __restrict__ flags, int log2n, float* __restrict__ table,
+                            int64_t cells) {
+  const int64_t step = static_cast<int64_t>(THREADS) * gridDim.x;
+  for (int64_t c = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; c < cells; c += step) {
+    const unsigned f = flags[c];
+    float x;
+    if ((f & FLAG_NAN) || (f & (FLAG_POS_INF | FLAG_NEG_INF)) == (FLAG_POS_INF | FLAG_NEG_INF)) {
+      x = __int_as_float(0x7fc00000);
+    } else if (f & FLAG_POS_INF) {
+      x = __int_as_float(0x7f800000);
+    } else if (f & FLAG_NEG_INF) {
+      x = __int_as_float(static_cast<int>(0xff800000u));
+    } else {
+      const int e = cell_exponent(maxbits[c], log2n);
+      x = static_cast<float>(static_cast<double>(__ll2float_rn(acc[c])) * pow2(-e));
+    }
+    table[c] = x;
   }
 }
 
@@ -357,9 +503,10 @@ median_any_depth_kernel(const float* __restrict__ table, float* __restrict__ est
 // when the buckets are hashed.
 struct Record {
   uint64_t in;      // vec (sketch) or table (decode)
-  uint64_t out;     // table (sketch, zeroed by the caller) or est (decode)
+  uint64_t out;     // table (sketch, every cell written) or est (decode)
   uint64_t h, s;    // precomputed (d, n) buckets and signs, or 0: hash them
   uint64_t a_dev, b_dev;  // the family's (d,) int64 coefficients on the device
+  uint64_t scratch; // the sketch's scratch_bytes(d, width) bytes (the decode: 0)
   int64_t n, depth, width, sign_bytes;
   uint64_t stream;
 };
@@ -391,41 +538,77 @@ struct Device {
   }
 };
 
+// The sketch's scratch: the int64 sums, the uint32 maxima and the uint32
+// flags of the d x width cells (kernels/countsketch/ops.py allocates it).
+int64_t scratch_bytes(int64_t d, int64_t width) { return 16 * d * width; }
+
+// Launches one pass over the (d, chunk) grid with the kernel's arguments,
+// then its chunk and whether vec is 16-byte aligned: one wave of resident blocks,
+// split evenly over the d rows (each block's flush touches up to a row of
+// cells, and a second wave of a few blocks would double the time); no block
+// gets fewer than 4 groups a thread; chunks are whole groups, so every
+// 16-byte load stays aligned.
+template <typename Kernel, typename... Args>
+cudaError_t launch_pass(Kernel kernel, bool shared, int64_t smem, const Record& r, const Device& dev,
+                        Args... args) {
+  const int64_t d = r.depth, n = r.n;
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(r.stream);
+  if (shared) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, SKETCH_THREADS,
+                                                                  shared ? static_cast<size_t>(smem) : 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) per_sm = 1;
+  int64_t per_row = static_cast<int64_t>(dev.sms) * per_sm / d;
+  const int64_t most = (n + 4LL * VEC * SKETCH_THREADS - 1) / (4LL * VEC * SKETCH_THREADS);
+  if (per_row > most) per_row = most;
+  if (per_row < 1) per_row = 1;
+  int64_t chunk = (n + per_row - 1) / per_row;
+  chunk = (chunk + VEC - 1) / VEC * VEC;
+  per_row = (n + chunk - 1) / chunk;
+  kernel<<<dim3(static_cast<unsigned>(d), static_cast<unsigned>(per_row)), SKETCH_THREADS,
+           shared ? static_cast<size_t>(smem) : 0, stream>>>(args..., chunk, (r.in & 15) == 0);
+  return cudaGetLastError();
+}
+
 template <class Src>
 int launch_sketch(const Record& r, Src src) {
   const float* vec = reinterpret_cast<const float*>(r.in);
   float* table = reinterpret_cast<float*>(r.out);
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(r.stream);
   const int64_t d = r.depth, n = r.n, width = r.width;
-  const Device dev;
-  const int64_t smem = width * static_cast<int64_t>(sizeof(float));
-  const bool shared = smem <= dev.optin;
-  auto kernel = shared ? countsketch_kernel<Src, true> : countsketch_kernel<Src, false>;
-  if (shared) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int per_sm = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, THREADS, shared ? static_cast<size_t>(smem) : 0);
+  char* scratch = reinterpret_cast<char*>(r.scratch);
+  unsigned long long* acc = reinterpret_cast<unsigned long long*>(scratch);
+  unsigned* maxbits = reinterpret_cast<unsigned*>(scratch + 8 * d * width);
+  unsigned* flags = maxbits + d * width;
+  int log2n = 0;
+  while ((int64_t{1} << log2n) < n) ++log2n;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, static_cast<size_t>(scratch_bytes(d, width)), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) per_sm = 1;
-  // One wave of resident blocks, split evenly over the d rows (each block's
-  // flush adds up to a row of atomics, and a second wave of a few blocks
-  // would double the time); no block gets fewer than 4 groups a thread;
-  // chunks are whole groups, so every 16-byte load stays aligned.
-  int64_t per_row = static_cast<int64_t>(dev.sms) * per_sm / d;
-  const int64_t most = (n + 4LL * VEC * THREADS - 1) / (4LL * VEC * THREADS);
-  if (per_row > most) per_row = most;
-  if (per_row < 1) per_row = 1;
-  int64_t chunk = (n + per_row - 1) / per_row;
-  chunk = (chunk + VEC - 1) / VEC * VEC;
-  per_row = (n + chunk - 1) / chunk;
-  const bool aligned = (r.in & 15) == 0;
-  kernel<<<dim3(static_cast<unsigned>(d), static_cast<unsigned>(per_row)), THREADS,
-           shared ? static_cast<size_t>(smem) : 0, stream>>>(
-      vec, table, n, static_cast<int>(width), chunk, aligned, src);
+  const Device dev;
+  const int w = static_cast<int>(width);
+
+  const int64_t max_smem = 4 * width;  // the row's maxima
+  const bool max_shared = max_smem <= dev.optin;
+  err = launch_pass(max_shared ? countsketch_cellmax_kernel<Src, true> : countsketch_cellmax_kernel<Src, false>,
+                    max_shared, max_smem, r, dev, src, vec, maxbits, flags, n, w);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int64_t sum_smem = 10 * width;  // low and high words, exponents
+  const bool sum_shared = sum_smem <= dev.optin;
+  err = launch_pass(sum_shared ? countsketch_kernel<Src, true> : countsketch_kernel<Src, false>,
+                    sum_shared, sum_smem, r, dev, src, vec, acc, static_cast<const unsigned*>(maxbits), log2n, n,
+                    w);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  int64_t fin = (d * width + THREADS - 1) / THREADS;
+  if (fin > static_cast<int64_t>(dev.sms) * 8) fin = static_cast<int64_t>(dev.sms) * 8;
+  countsketch_finalize_kernel<<<static_cast<unsigned>(fin), THREADS, 0, stream>>>(
+      reinterpret_cast<const long long*>(acc), maxbits, flags, log2n, table, d * width);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -459,13 +642,17 @@ int launch_median_network(const Record& r, const Family& f, const Device& dev) {
 
 }  // namespace
 
-// table (zeroed) += the CountSketch of vec: from the precomputed buckets h
-// and signs s (sign_bytes 1 for int8, 4 for int32) when h is set, else
-// hashed in the kernel from the record's coefficients.
+// table = the CountSketch of vec: from the precomputed buckets h and signs
+// s (sign_bytes 1 for int8, 4 for int32) when h is set, else hashed in the
+// kernel from the record's coefficients.
 extern "C" int glava_countsketch(const char* record) {
   const Record& r = *reinterpret_cast<const Record*>(record);
-  if (r.depth == 0 || r.n == 0) return 0;
   if (r.width < 1 || r.width > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  if (r.depth == 0) return 0;
+  if (r.n == 0)
+    return static_cast<int>(cudaMemsetAsync(reinterpret_cast<void*>(r.out), 0,
+                                            static_cast<size_t>(4 * r.depth * r.width),
+                                            reinterpret_cast<cudaStream_t>(r.stream)));
   if (r.h != 0) {
     const int* h = reinterpret_cast<const int*>(r.h);
     if (r.sign_bytes == 1)

@@ -16,8 +16,15 @@ coordinates ``0..n-1`` into the narrow types the pre-hashed kernel reads
 (int32 buckets, int8 signs); the CPU round trip shares one such hash
 between its two sketches and its decode.
 
-``countsketch.launches`` counts the sketch kernel's launches (pre-hashed
-and hashed), ``countsketch_median.launches`` the decode's."""
+The sketch sums in 64-bit fixed point, each cell at its own scale
+(``csrc/countsketch.cu``), so its table does not depend on the order of the
+atomics: one vector always sketches to the same bits, on any worker.  It
+takes a scratch buffer of :func:`scratch_bytes` from the caching
+allocator.
+
+``countsketch.launches`` counts the sketch's launches (pre-hashed and
+hashed; each is a memset and the cell-max, sum and finalize kernels on one
+stream), ``countsketch_median.launches`` the decode's."""
 from __future__ import annotations
 
 import operator
@@ -31,14 +38,24 @@ from repro_torch.core.hashing import HashFamily
 from repro_torch.kernels import build
 from repro_torch.kernels.countsketch.ref import countsketch_median_ref, countsketch_ref
 
-# csrc/countsketch.cu's Record: in, out, h, s, a_dev and b_dev pointers; n,
-# depth, width and the sign size in bytes; the stream.  The hashed forms
-# append depth x (a, b) as int64.
-_RECORD = struct.Struct("=6Q4qQ")
+# csrc/countsketch.cu's Record: in, out, h, s, a_dev, b_dev and scratch
+# pointers; n, depth, width and the sign size in bytes; the stream.  The
+# hashed forms append depth x (a, b) as int64.
+_RECORD = struct.Struct("=7Q4qQ")
 _SIGN_BYTES = {torch.int8: 1, torch.int32: 4}
 # Coordinates hashed per pass: bounds the int64 temporaries of the hash at
 # a few hundred MB whatever the length of the vector.
 HASH_CHUNK = 1 << 23
+
+
+def scratch_bytes(d: int, width: int) -> int:
+    """The sketch's scratch: the int64 sums, uint32 maxima and uint32 flags
+    of the d x width cells (``csrc/countsketch.cu::scratch_bytes``)."""
+    return 16 * d * width
+
+
+def _scratch(vec: torch.Tensor, d: int, width: int) -> torch.Tensor:
+    return torch.empty(scratch_bytes(d, width), dtype=torch.uint8, device=vec.device)
 
 
 def _family_rows(family: HashFamily) -> bytes:
@@ -87,9 +104,10 @@ def countsketch(vec: torch.Tensor, h: torch.Tensor, s: torch.Tensor, width: int)
     v = vec.contiguous()
     hi = h.to(torch.int32).contiguous()
     si = s.contiguous()
-    table = vec.new_zeros(d, width)
+    table = vec.new_empty(d, width)
+    scratch = _scratch(vec, d, width)
     record = _RECORD.pack(
-        v.data_ptr(), table.data_ptr(), hi.data_ptr(), si.data_ptr(), 0, 0,
+        v.data_ptr(), table.data_ptr(), hi.data_ptr(), si.data_ptr(), 0, 0, scratch.data_ptr(),
         n, d, width, sign_bytes, torch._C._cuda_getCurrentRawStream(dev),
     )
     build.launch("countsketch", "glava_countsketch", dev, record)
@@ -110,9 +128,10 @@ def countsketch_family(vec: torch.Tensor, family: HashFamily) -> torch.Tensor:
     if dev < 0:
         return countsketch_ref(vec, *hash_indices(family, n), w)
     v = vec if vec.is_contiguous() else vec.contiguous()
-    table = vec.new_zeros(d, w)
+    table = vec.new_empty(d, w)
+    scratch = _scratch(vec, d, w)
     record = _RECORD.pack(
-        v.data_ptr(), table.data_ptr(), 0, 0, family.a.data_ptr(), family.b.data_ptr(),
+        v.data_ptr(), table.data_ptr(), 0, 0, family.a.data_ptr(), family.b.data_ptr(), scratch.data_ptr(),
         n, d, w, 0, torch._C._cuda_getCurrentRawStream(dev),
     )
     build.launch("countsketch", "glava_countsketch", dev, record + _family_rows(family))
@@ -141,7 +160,7 @@ def countsketch_median(table: torch.Tensor, family: HashFamily, n: int) -> torch
     t = table if table.is_contiguous() else table.contiguous()
     est = table.new_empty(n)
     record = _RECORD.pack(
-        t.data_ptr(), est.data_ptr(), 0, 0, family.a.data_ptr(), family.b.data_ptr(),
+        t.data_ptr(), est.data_ptr(), 0, 0, family.a.data_ptr(), family.b.data_ptr(), 0,
         n, d, w, 0, torch._C._cuda_getCurrentRawStream(dev),
     )
     build.launch("countsketch", "glava_countsketch_median", dev, record + _family_rows(family))

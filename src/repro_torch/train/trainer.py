@@ -11,8 +11,10 @@ the device of the state's tensors.  Checkpoints are
 :class:`~repro_torch.checkpoint.manager.CheckpointManager` saves in the
 reference's format.
 
-Not ported yet: the all-reduce across workers (``axis_name``, ROADMAP A9),
-which raises ``NotImplementedError``.
+The data-parallel exchange of :func:`compressed_data_parallel_step` runs on
+``torch.distributed``: ``axis_name`` names an axis of the
+:class:`~repro_torch.distributed.mesh.Mesh` the caller passes, and the
+sketch table is all-reduced over that axis's process group.
 """
 from __future__ import annotations
 
@@ -22,8 +24,10 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.distributed.mesh import Mesh
 from repro_torch.train import compression as comp_mod
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -150,13 +154,31 @@ def compressed_data_parallel_step(
     opt_cfg: opt_mod.AdamWConfig,
     comp_cfg: comp_mod.CompressorConfig,
     axis_name: Optional[str] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """Train step whose gradient exchange is the SKETCHED all-reduce: grads
-    are CountSketch'd, top-k-decoded with error feedback, and applied with
-    AdamW.  ``axis_name=None`` is the single-worker semantics; the
-    all-reduce across workers is not ported yet."""
+    are CountSketch'd, the (d, width) tables summed over the workers (the
+    linear-sketch merge), top-k-decoded with error feedback, and applied
+    with AdamW.
+
+    ``axis_name=None`` is the single-worker semantics.  Otherwise
+    ``axis_name`` names an axis (or a tuple of axes) of ``mesh``, a
+    :class:`~repro_torch.distributed.mesh.Mesh` over the caller's process
+    group, and each worker calls the step on its own batch: the table is
+    ``all_reduce(SUM)``'d over that axis's group (the reference's ``psum``)
+    and the loss averaged over it (``pmean``: a ``SUM``, then a division by
+    the group's size; gloo has no ``AVG``).  The replicas stay identical
+    with no further exchange: every rank holds the same reduced table, and
+    the decode, the sketch of the update (fixed-point sums on the card) and
+    AdamW give the same bits from the same inputs."""
+    psum_fn = None
     if axis_name is not None:
-        raise NotImplementedError("the sketch all-reduce across workers is not ported yet (ROADMAP A9)")
+        if not isinstance(mesh, Mesh):
+            raise ValueError(f"axis_name={axis_name!r} names an axis of mesh=, a repro_torch Mesh; got {mesh!r}")
+        mesh.group(axis_name)  # an unknown axis raises here, not in a step
+
+        def psum_fn(table):
+            return mesh.all_reduce_(table, dist.ReduceOp.SUM, axis_name)
 
     def step(state, batch):
         params, opt, cstate = state["params"], state["opt"], state["comp"]
@@ -164,8 +186,11 @@ def compressed_data_parallel_step(
         with torch.no_grad():
             flat, spec = comp_mod.flatten_grads(grads)
             del grads
-            update_flat, cstate = comp_mod.roundtrip(cstate, flat)
+            update_flat, cstate = comp_mod.roundtrip(cstate, flat, psum_fn)
             grads_hat = comp_mod.unflatten_grads(update_flat, spec)
+            if axis_name is not None:
+                total = loss.reshape(1).clone()
+                loss = (mesh.all_reduce_(total, dist.ReduceOp.SUM, axis_name) / mesh.size(axis_name)).reshape(())
         new_params, new_opt, om = opt_mod.apply_adamw(opt_cfg, opt, params, grads_hat)
         return {"params": new_params, "opt": new_opt, "comp": cstate}, {"loss": loss, **om}
 

@@ -560,6 +560,77 @@ def test_countsketch_family_and_median_refuse_bad_operands_on_the_card(cuda):
                            torch.ones(2, 10, dtype=torch.int8, device="cuda"), 16.0)
 
 
+def test_countsketch_kernel_is_deterministic_and_keeps_non_finite_cells(cuda):
+    """The sketch sums in fixed point: a float vector sketches to the same
+    bits on every launch and in both forms, within float32 rounding of the
+    float64 sum; NaN and infinite terms give the cells float addition gives
+    them (NaN beside anything or +inf beside -inf: NaN)."""
+    d, w, n = 5, 16384, 1_000_003
+    fam = make_hash_family(torch.Generator().manual_seed(5), d, w, "cuda")
+    h, s = cs_ops.hash_indices(fam, n)
+    vec = torch.randn(n, generator=cuda, device="cuda")
+    first = cs_ops.countsketch_family(vec, fam)
+    for again in (cs_ops.countsketch_family(vec, fam), cs_ops.countsketch(vec, h, s, w)):
+        assert torch.equal(again, first)
+    exact = countsketch_ref(vec.double(), h, s, w, dtype=torch.float64)
+    torch.testing.assert_close(first.double(), exact, rtol=1e-6, atol=1e-4)
+    # A wide dynamic range (one coordinate in 1,000 scaled by 1e9): every cell
+    # keeps float32's rounding bound of its own terms, gamma_(m-1) * sum |x|.
+    wide = vec.clone()
+    wide[::1000] *= 1e9
+    ones = torch.ones_like(h, dtype=torch.int8)
+    mass = countsketch_ref(wide.abs().double(), h, ones, w, dtype=torch.float64)
+    terms = countsketch_ref(torch.ones_like(wide, dtype=torch.float64), h, ones, w, dtype=torch.float64)
+    ku = (terms - 1).clamp(min=0) * 2.0**-24
+    err = (cs_ops.countsketch_family(wide, fam).double() - countsketch_ref(wide.double(), h, s, w, torch.float64)).abs()
+    assert bool((err <= ku / (1 - ku) * mass).all())
+    vec[[3, 1000, 5000]] = torch.tensor([float("nan"), float("inf"), -float("inf")], device="cuda")
+    vec[[7, 8]] = float("inf")
+    got, want = cs_ops.countsketch_family(vec, fam), countsketch_ref(vec, h, s, w)
+    assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got.isinf(), want.isinf())
+    assert torch.equal(got[got.isinf()], want[want.isinf()])
+    assert int(got.isnan().sum()) >= d
+
+
+def test_two_rank_compressed_step_on_the_card_equals_emulation(cuda, tmp_path):
+    """The data-parallel compressed step on two gloo ranks on one card (the
+    tiny transformer, 3 steps, each rank its own batch) equals its
+    single-process emulation on the card bit for bit at every step: the
+    loss, the parameters, the sketch momentum and each worker's error
+    feedback; so the two replicas stay identical."""
+    import _torch_dist
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import compression as comp
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg, ccfg = train_lm.PRESETS["tiny"], dict(depth=5, width=4096, top_k=512, momentum=0.9)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    n = sum(x.numel() for x in tree_leaves(params))
+    cstate = comp.init_compressor(comp.CompressorConfig(**ccfg), n, torch.Generator().manual_seed(1))
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab, (3, 2, 4, 33)).astype(np.int32)
+    path = tmp_path / "inputs.pt"
+    _torch_dist.save_train_inputs(
+        path, "tiny", tree_map(lambda t: t.numpy(), params), cstate.error.numpy(), cstate.momentum.numpy(),
+        cstate.hash.a_host, cstate.hash.b_host, ccfg, dict(lr=1e-3, warmup_steps=2, total_steps=10),
+        [{"tokens": tokens[i]} for i in range(3)],
+    )
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ranks = _torch_dist.run_ranks(_torch_dist.compressed_steps, 2, tmp_path, timeout=240, inputs=str(path),
+                                      device="cuda")
+        want = _torch_dist.emulate_steps(path, device="cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for i, (loss, flat, errors, momentum) in enumerate(want):
+        for rank, res in enumerate(ranks):
+            got_loss, got_flat, got_error, got_momentum = res[i]
+            assert got_loss == loss, (i, rank)
+            np.testing.assert_array_equal(got_flat, flat)
+            np.testing.assert_array_equal(got_momentum, momentum)
+            np.testing.assert_array_equal(got_error, errors[rank])
+
+
 def test_tiny_compressed_train_step_on_card_close_to_cpu(cuda):
     argv = ["--preset", "tiny", "--compress", "--steps", "2", "--batch", "4", "--seq", "32"]
     before = cs_ops.countsketch.launches, cs_ops.countsketch_median.launches
@@ -894,3 +965,17 @@ def test_small_fleet_serve_on_card_equals_cpu(cuda):
         for x, y in zip(ea, eb):
             for ra, rb in zip(x.results, y.results, strict=True):
                 assert np.array_equal(ra.value, rb.value)
+
+
+@pytest.mark.parametrize("backend,mesh_shape", [("gloo", (2, 2)), ("nccl", (1, 1))])
+def test_distributed_plane_on_the_card(cuda, tmp_path, backend, mesh_shape):
+    """The distributed plane on CUDA tensors: four gloo ranks on one card,
+    and one NCCL rank; counters, registers and answers equal the local
+    sketch's, and each rank launched B1, B5 and B6."""
+    import _torch_dist
+
+    world = mesh_shape[0] * mesh_shape[1]
+    for res in _torch_dist.run_ranks(_torch_dist.card_plane, world, tmp_path, timeout=240, backend=backend,
+                                     mesh_shape=mesh_shape):
+        assert all(res["same"].values()), res["same"]
+        assert res["launches"] == [1, 1, 2], res["launches"]

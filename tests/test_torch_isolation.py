@@ -35,6 +35,12 @@ def _imported_roots(path):
 
 def test_port_files_exist():
     assert len(FILES) > 20 and (ROOT / "chip_smoke.py").exists()
+    # The distributed plane is walked too (chip_smoke.py's spawned ranks run
+    # functions of chip_smoke.py itself).
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {"src/repro_torch/distributed/mesh.py", "src/repro_torch/distributed/sharding.py",
+            "src/repro_torch/distributed/spawn.py",
+            "src/repro_torch/core/distributed.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -186,8 +186,9 @@ def test_open_presets_and_unported_options_raise():
         GraphStream.open("nope", device="cpu")
     with pytest.raises(ValueError):
         GraphStream.open()
-    # Only the distributed plane is left to port.
-    with pytest.raises(NotImplementedError, match="A9"):
+    # The distributed plane is ported (tests/test_torch_distributed_session.py):
+    # a mesh must be a repro_torch Mesh.
+    with pytest.raises(TypeError, match="Mesh"):
         GraphStream.open("smoke", device="cpu", mesh=object())
     with pytest.raises(ValueError, match="windowed"):
         GraphStream.open("smoke", device="cpu", mesh=object(), window_slices=4)
