@@ -24,16 +24,20 @@ length (65,020,416 elements into a 5 x 16,384 table), hashing in the kernel
 and on precomputed hashes, dense and 4,096-sparse (also at width 2^17, past
 the shared-memory limit), with the atomic instructions of its SASS; and the
 median decode of those tables (d=5 and d=4, and with NaN, +inf and -inf
-planted); and the port-only sequential kernel (serve BASE's first 50,000
-edges as they arrive, int64 and int32 buckets, both modes, on an empty
-sketch and on one holding the batch: bit-equal to the plain loop on 2,000
-edges and, once, over the whole batch; sequential mode bit-equal to the
-ingest scatter; conservative counters between their cellwise floor and the
-vanilla counters; the chain's floor with every edge on one cell); and the
+planted, on the CTA-pair variant) and of a width-2^17 table (the staged
+variant), each naming its variant; and the port-only sequential kernel
+(serve BASE's first 50,000 edges as they arrive, int64 and int32 buckets,
+both modes, on an empty sketch and on one holding the batch: bit-equal to
+the plain loop on 2,000 edges and, once, over the whole batch; sequential
+mode bit-equal to the ingest scatter; conservative counters between their
+cellwise floor and the vanilla counters; the chain's floor with every edge
+on one cell); and the
 port-only stacked ingest of the fleet (serve BASE's first batch routed to 16
 tenants, grouped by slot, into the (80, 5, 8192, 8192) stack of 16 BASE
 tenants, past 2^31 cells: counters and both registers bit-equal plane by
-plane, with the three ``index_put_`` on precomputed offsets beside it).  Each is
+plane, with the three ``index_put_`` on precomputed offsets beside it; then
+four batches that stress its warp aggregation: one row, one cell, two
+tenants alternating lane by lane, weights that cancel).  Each is
 timed with CUDA events and the profiler beside its plain version and one
 PyTorch library call where there is one.
 
@@ -221,11 +225,14 @@ def device_ms(fn, reps: int, kernel: Optional[str] = None):
 
     def trace(calls):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # A first kernel of the session, left out of the counts: a session
+            # may come back without its first kernel record.
+            torch.cuda._sleep(1000)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         sel = [e for e in prof.key_averages() if getattr(e, "device_time_total", 0.0)
-               and (kernel is None or kernel in e.key)]
+               and (kernel is None or kernel in e.key) and "spin_kernel" not in e.key]
         return sum(e.count for e in sel), sum(e.device_time_total for e in sel)
 
     fn()
@@ -846,7 +853,8 @@ def phase_countsketch(torch, gen):
         f"device {_fmt(wide_ms)} (global atomics), bound {wide_bound_ms:.5f} ms, index_add_ {wide_library_ms:.4f} ms "
         f"(device {_fmt(wide_library_dev_ms)})"
     )
-    cs_sass = sass_ops("countsketch", "countsketch_kernel|median_kernel|median_any_depth_kernel", "ATOMS|ATOMG|ATOM|RED")
+    cs_sass = sass_ops("countsketch", "countsketch_kernel|median_kernel|median_pair_kernel|median_any_depth_kernel",
+                       "ATOMS|ATOMG|ATOM|RED")
     check("CAS" in cs_sass or "ATOMS" in cs_sass, f"no shared-memory atomic in the countsketch SASS: {cs_sass}")
     print(f"[chip_smoke] countsketch SASS: {cs_sass}")
     sketch_row = dict(
@@ -865,14 +873,24 @@ def same_with_nan(torch, a, b) -> bool:
     return torch.equal(nan, b.isnan()) and torch.equal(torch.where(nan, 0.0, a), torch.where(b.isnan(), 0.0, b))
 
 
+# The staged decode's device time at the 100m shape (d=5, w=16,384,
+# n=65,020,416) on an NVIDIA H100 80GB HBM3 at 700 W, before the CTA-pair
+# decode replaced it there; printed beside this run's reading.
+STAGED_DECODE_MS = 0.9225
+
+
 def phase_countsketch_median(torch, gen, fam, h, s, itable, gtable):
     """The decode kernel against its plain version (hash, gather, sign,
     median) on the integer and Gaussian tables of the sketch phase, at d=5
     and on their first 4 rows, and on the Gaussian table with NaN, +inf and
-    -inf planted; its times beside its bound and the library path it
-    replaces (gather, sort over d, midpoint; and torch.median for odd d)."""
-    from repro_torch.core.hashing import HashFamily
-    from repro_torch.kernels.countsketch.ops import countsketch_median
+    -inf planted (the CTA-pair variant: the table on chip in a cluster of
+    two CTAs); on an integer table of width 2^17 with NaN and inf planted,
+    wider than a pair holds (the staged variant); each case names the
+    variant its shape picks.  Its times beside its bound, the
+    staged decode's earlier reading and the library path it replaces
+    (gather, sort over d, midpoint; and torch.median for odd d)."""
+    from repro_torch.core.hashing import HashFamily, make_hash_family
+    from repro_torch.kernels.countsketch.ops import countsketch_median, median_variant
     from repro_torch.kernels.countsketch.ref import countsketch_median_ref
 
     d, w, n = CS_DEPTH, CS_WIDTH, GRAD_100M
@@ -882,28 +900,39 @@ def phase_countsketch_median(torch, gen, fam, h, s, itable, gtable):
     planted.view(-1)[cells[:3]] = float("nan")
     planted.view(-1)[cells[3:6]] = float("inf")
     planted.view(-1)[cells[6:]] = float("-inf")
+    wide, n_wide = 1 << 17, 1 << 22
+    fam_wide = make_hash_family(torch.Generator().manual_seed(3), d, wide, "cuda")
+    wide_table = torch.randint(-50, 51, (d, wide), generator=gen, device="cuda").float()
+    spots = torch.randperm(d * wide, generator=gen, device="cuda")[:3]
+    wide_table.view(-1)[spots] = torch.tensor([float("nan"), float("inf"), float("-inf")], device="cuda")
     cases = (
-        ("integer table d=5", itable, fam),
-        ("integer table d=4", itable[:4].contiguous(), fam4),
-        ("Gaussian table d=5", gtable, fam),
-        ("Gaussian table d=4", gtable[:4].contiguous(), fam4),
-        ("NaN/inf planted d=5", planted, fam),
-        ("NaN/inf planted d=4", planted[:4].contiguous(), fam4),
+        ("integer table d=5", itable, fam, n),
+        ("integer table d=4", itable[:4].contiguous(), fam4, n),
+        ("Gaussian table d=5", gtable, fam, n),
+        ("Gaussian table d=4", gtable[:4].contiguous(), fam4, n),
+        ("NaN/inf planted d=5", planted, fam, n),
+        ("NaN/inf planted d=4", planted[:4].contiguous(), fam4, n),
+        (f"NaN/inf planted d=5 w={wide}", wide_table, fam_wide, n_wide),
     )
-    n_nan, err = {}, 0.0
-    for name, table, family in cases:
-        got, want = countsketch_median(table, family, n), countsketch_median_ref(table, family, n)
+    n_nan, variants, err = {}, {}, 0.0
+    for name, table, family, length in cases:
+        got, want = countsketch_median(table, family, length), countsketch_median_ref(table, family, length)
         torch.cuda.synchronize()
         check(same_with_nan(torch, got, want), f"countsketch_median differs from its plain version on the {name}")
         n_nan[name] = int(want.isnan().sum())
+        variants[name] = median_variant(*table.shape)
         finite = got.isfinite() & want.isfinite()
         err = max(err, float((got[finite] - want[finite]).abs().max()))
-    check(n_nan["NaN/inf planted d=5"] > 0, "no NaN estimate from the planted table")
+    check(n_nan["NaN/inf planted d=5"] > 0 and n_nan[cases[-1][0]] > 0, "no NaN estimate from a planted table")
+    check(variants["integer table d=5"] == "CTA pair" and variants[cases[-1][0]] == "staged",
+          f"the decode variants by shape are not the CTA pair and the staged kernel: {variants}")
     del got, want
+    wide_ms = device_ms(lambda: countsketch_median(wide_table, fam_wide, n_wide), 10, "median")
+    del wide_table
 
     decode = lambda: countsketch_median(gtable, fam, n)  # noqa: E731
-    ms, dev_ms = time_ms(decode, 20), device_ms(decode, 20, "median_kernel")
-    ms4 = device_ms(lambda: countsketch_median(gtable[:4].contiguous(), fam4, n), 20, "median_kernel")
+    ms, dev_ms = time_ms(decode, 20), device_ms(decode, 20, "median")
+    ms4 = device_ms(lambda: countsketch_median(gtable[:4].contiguous(), fam4, n), 20, "median")
     plain_ms = time_ms(lambda: countsketch_median_ref(gtable, fam, n), 3)
     # The path it replaces, on precomputed hashes: gather, sign, sort over d,
     # midpoint; and torch.median over d (odd d: the same value).
@@ -920,13 +949,18 @@ def phase_countsketch_median(torch, gen, fam, h, s, itable, gtable):
     check(torch.equal(library(), countsketch_median(gtable, fam, n)), "the library path differs from the decode")
     del hl, sf
     bound_ms = (4 * n + 4 * d * w) / PEAK_BYTES_PER_S * 1e3
+    share = f", {100 * bound_ms / dev_ms:.1f}% of the bound" if dev_ms else ""
     print(
         f"[chip_smoke] countsketch_median d={d} w={w} n={n:,}: equal to its plain version, NaN positions included, "
         f"on {len(cases)} tables ({', '.join(f'{k}: {v} NaN' for k, v in n_nan.items())}); wrapper {ms:.4f} ms "
-        f"(device {_fmt(dev_ms)}; d=4 device {_fmt(ms4)}), bound {bound_ms:.5f} ms (4n + 4dw bytes); plain (hash, "
-        f"gather, sort) {plain_ms:.4f} ms; library path on precomputed hashes (gather + sort(dim=0) + midpoint) "
-        f"{library_ms:.4f} ms (device {_fmt(library_dev_ms)}), gather + torch.median(dim=0) {median_ms:.4f} ms"
+        f"(device {_fmt(dev_ms)}{share}; the staged decode's earlier reading {STAGED_DECODE_MS:.4f} ms; d=4 device "
+        f"{_fmt(ms4)}), bound {bound_ms:.5f} ms (4n + 4dw bytes); width {wide}, n={n_wide:,}: device "
+        f"{_fmt(wide_ms)}; plain (hash, gather, sort) {plain_ms:.4f} ms; library path on precomputed hashes "
+        f"(gather + sort(dim=0) + midpoint) {library_ms:.4f} ms (device {_fmt(library_dev_ms)}), gather + "
+        f"torch.median(dim=0) {median_ms:.4f} ms"
     )
+    print("[chip_smoke] countsketch_median variants by shape: "
+          + "; ".join(f"{k}: {v}" for k, v in variants.items()))
     return dict(
         name="countsketch_median", route="cuda", source="src/repro_torch/csrc/countsketch.cu",
         replaces="src/repro/train/compression.py:64", max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1131,7 +1165,7 @@ def check_step_ops(torch, run):
     hashing = sorted(o for o in ops if o in ("aten::remainder", "aten::bitwise_and"))
     check(not hashing, f"100m step: the round trip hashed over n: {hashing}")
     n_sketch = sum("countsketch_kernel" in k for k in kernels)
-    n_decode = sum("median_kernel" in k for k in kernels)
+    n_decode = sum("median_" in k for k in kernels)
     check((n_sketch, n_decode) == (2, 1), f"100m step: {n_sketch} sketch and {n_decode} decode kernels in the round trip")
     # Every other sort kernel of the step is the model's backward: the token
     # embedding's gradient (index_put_ with accumulation sorts the batch's
@@ -2239,13 +2273,42 @@ def stacked_bound_bytes(torch, plane, rows, cols, wts, shape) -> int:
     return sectors * 64 + d * b * 2 * rows.element_size() + b * (plane.element_size() + wts.element_size())
 
 
+# The one-thread-a-slot stacked ingest's device times on serve BASE's first
+# batch routed to 16 tenants (warm, cold L2) on an NVIDIA H100 80GB HBM3 at
+# 700 W, before the warp-aggregating kernel replaced it; printed beside this
+# run's readings.
+EARLIER_STACKED_MS = (0.0160, 0.0395)
+
+
+def stacked_stress_batches(torch, plane, rows, cols, wts):
+    """Batches of the length of (plane, rows, cols, wts) that defeat or
+    stress the stacked kernel's warp aggregation: every slot in one row of
+    plane 0 (its columns as given); every slot in one cell; one cell of planes
+    0 and 1 alternating lane by lane (two groups a warp); one cell with
+    weights that cancel in pairs (slot 2k + 1 takes -w[2k], so every group
+    sums to 0)."""
+    b = wts.shape[0]
+    even = torch.arange(b, device=wts.device) % 2 == 0
+    one_row, one_col = torch.full_like(rows, 7), torch.full_like(cols, 11)
+    zero = torch.zeros_like(plane)
+    return {
+        "one row": (zero, one_row, cols, wts),
+        "one cell": (zero, one_row, one_col, wts),
+        "two tenants alternating on one cell": ((~even).to(plane.dtype), one_row, one_col, wts),
+        "one cell, cancelling weights": (zero, one_row, one_col, torch.where(even, wts, -wts.roll(1))),
+    }
+
+
 def phase_stacked_ingest(torch, gen):
     """The port-only stacked ingest on the fleet's BASE stack (16 tenants,
     (80, 5, 8192, 8192), 64-bit offsets) and serve BASE's first batch routed
     to them: counters and both registers bit-equal to the plain version plane
     by plane; wrapper ms by CUDA events, host us, device ms beside the bound,
-    with a cold L2; the plain version; the three ``index_put_`` on
-    precomputed flat int64 offsets by device time; the SASS atomics."""
+    with a cold L2, and the earlier design's readings; the plain version; the
+    three ``index_put_`` on precomputed flat int64 offsets by device time;
+    the SASS atomics; then four batches that stress the warp aggregation
+    (``stacked_stress_batches``), each bit-equal to the plain version over
+    the whole stack and timed."""
     from repro_torch.kernels.ingest_stacked.ops import stacked_ingest
     from repro_torch.kernels.ingest_stacked.ref import stacked_ingest_ref, stacked_offsets
 
@@ -2293,12 +2356,30 @@ def phase_stacked_ingest(torch, gen):
         f"precomputed int64 offsets {library_ms:.4f} ms, device {_fmt(library_dev)}"
     )
     print(f"[chip_smoke] ingest_stacked SASS: {sass}")
+    stress = {}
+    for label, batch in stacked_stress_batches(torch, plane, rows, cols, wts).items():
+        for t in got:
+            t.zero_()
+        stacked_ingest(*got, *batch)
+        want = stacked_ingest_ref(*stack(), *batch)
+        torch.cuda.synchronize()
+        for name, g, x in zip(STACKED_NAMES, got, want):
+            check(torch.equal(g, x), f"stacked ingest: {name} differs from its plain version on the {label} batch")
+        del want
+        release(torch)
+        stress[label] = device_ms(lambda: stacked_ingest(*got, *batch), 20, "ingest_stacked_kernel")
+    print(
+        f"[chip_smoke] stacked ingest: the earlier one-thread-a-slot kernel read {EARLIER_STACKED_MS[0]:.4f} ms warm, "
+        f"{EARLIER_STACKED_MS[1]:.4f} ms with a cold L2 on this batch; stress batches of {wts.shape[0]} slots, all "
+        "three outputs bit-equal over the whole stack, device: "
+        + "; ".join(f"{k} {_fmt(v)}" for k, v in stress.items())
+    )
     del got
     release(torch)
     return dict(
         name="ingest_stacked", route="cuda", source="src/repro_torch/csrc/ingest_stacked.cu",
         replaces="src/repro/core/sketch.py:120", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-        bound_by="bytes", library_ms=library_dev,
+        bound_by="bytes", library_ms=library_ms,
     )
 
 

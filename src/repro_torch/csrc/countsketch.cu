@@ -44,9 +44,32 @@
 //    src/repro/train/compression.py:64-70 (no Pallas kernel there).  Each
 //    thread hashes its 4 coordinates under every row, gathers d cells, and
 //    takes the median with a sorting network in registers (d = 1..8; a
-//    counting selection with a runtime d beyond).  The longest prefix of the
-//    table that fits is staged in shared memory (3.5 of the 5 rows of a
-//    5 x 16,384 table), the rest is read through L1/L2.
+//    counting selection with a runtime d beyond).  What bounds it is where
+//    the d*n random 4-byte gathers land: a 5 x 16,384 table (320 KB) does not
+//    fit one SM's 227 KB of shared memory, and a gather that misses it costs a
+//    32-byte L2 sector.  Three variants, chosen by shape (median_plan):
+//    * one CTA (the table fits a CTA's shared memory): the staged kernel
+//      below with every cell staged, 512 threads a block;
+//    * a pair (a cluster of 2 CTAs on two SMs, each holding L >= d/2 whole
+//      rows, CTA 0 the first L and CTA 1 the last L; 3 of 5 rows, 192 KB,
+//      at 5 x 16,384): every gather is local.  Each CTA gathers the d - L
+//      rows its partner lacks for the partner's coordinates and sends the
+//      signed values into the partner's shared memory by st.async
+//      (distributed shared memory, coalesced 16-byte stores, d - L floats a
+//      coordinate), then gathers its own L rows for its own coordinates;
+//      warp w of one CTA waits on an mbarrier for warp w of the other only,
+//      which the stores themselves complete (complete_tx), so no sender
+//      waits and no CTA-wide barrier runs a tile.  Designs measured first
+//      (PERF.md): random gathers into the partner's shared memory
+//      (ld.shared::cluster) cost more than L2 sectors, twice the staged
+//      kernel's time; a cluster barrier a tile, or mbarrier arrivals with
+//      cluster-scope release, kept the warps in step.  512 threads a CTA, 4
+//      coordinates a thread; the hash's multipliers and the grid stride's
+//      increments come as launch constants, not registers.  What bounds it
+//      now is its instructions (hashes and networks, ~95 a coordinate):
+//      with the gathers taken out it runs as long;
+//    * staged (wider tables): the longest prefix of the table that fits is
+//      staged in shared memory, the rest read through L1/L2.
 //
 // The hash is repro_torch/core/hashing.py's, in 32-bit registers: with
 // k = j mod p and p = 2^31 - 1, bucket = ((a k + b) mod p) mod w and sign
@@ -68,8 +91,9 @@
 // the table once, 4n + 4dw bytes (0.0777 ms at n = 65,020,416, d = 5,
 // w = 16,384); the decode reads the table once and writes est once, the same
 // 4n + 4dw.  What limits the sketch in practice is its two passes of d*n
-// shared-memory atomics and hashes over vec; the decode's d*n random gathers
-// from a table larger than shared memory.
+// shared-memory atomics and hashes over vec; the decode's d*n hashes, gathers
+// and compare-exchanges once the pair variant holds its table on chip.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -81,6 +105,11 @@ constexpr int SKETCH_THREADS = 1024;  // the sum: one block an SM (a 128 KB row)
 constexpr int VEC = 4;               // coordinates a thread takes at a time
 constexpr int INLINE_ROWS = 8;       // rows whose coefficients come by value
 constexpr int NETWORK_DEPTH = 8;     // deepest decode by sorting network
+constexpr int PAIR_THREADS = 512;     // the pair decode: one CTA an SM
+constexpr int PAIR_VEC = 4;            // coordinates a thread owns a tile
+constexpr int PAIR_HALF = PAIR_VEC * PAIR_THREADS;  // coordinates a CTA owns a tile
+constexpr int PAIR_WARPS = PAIR_THREADS / 32;
+static_assert(PAIR_VEC == 4, "the pair decode moves a thread's coordinates as one float4");
 
 // x mod p for any 64-bit x.
 __host__ __device__ __forceinline__ uint32_t mod_p(uint64_t x) {
@@ -455,6 +484,183 @@ median_kernel(const float* __restrict__ table, float* __restrict__ est, int64_t 
   }
 }
 
+// The pair decode's launch constants: the family; for each row the residues
+// mod p of its two multipliers and of their increments over the grid's
+// stride; the rows each CTA holds and where its exchange buffers and
+// barriers lie in shared memory.
+struct PairDecode {
+  Family f;
+  uint32_t a[NETWORK_DEPTH], sa[NETWORK_DEPTH], step_a[NETWORK_DEPTH], step_sa[NETWORK_DEPTH];
+  int64_t n, tiles;  // tiles of 2 * PAIR_HALF coordinates
+  int rows;          // L: CTA 0 holds rows [0, L), CTA 1 rows [d - L, d); 2 L >= d
+  int exchange;      // the float offset of the exchange buffers [2][d - L][PAIR_HALF] past the rows
+  int barriers;      // the float offset of the barriers [2 stages][PAIR_WARPS] past them
+  bool aligned;      // est is aligned to a thread's PAIR_VEC floats
+};
+
+// Distributed shared memory: the shared::cluster address of the partner's
+// copy of an own shared address; an asynchronous store of a thread's 4
+// floats into the partner's shared memory that, once written, counts its 16
+// bytes off a barrier there (complete_tx, a release at cluster scope: the
+// sender never waits for it); arming an own barrier for a phase of `bytes`;
+// and waiting, acquiring at cluster scope, for the phase of the given
+// parity.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void store_async(uint32_t addr, const float (&x)[PAIR_VEC], uint32_t remote_barrier) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];"
+               ::"r"(addr), "f"(x[0]), "f"(x[1]), "f"(x[2]), "f"(x[3]), "r"(remote_barrier) : "memory");
+}
+
+__device__ __forceinline__ void expect_bytes(uint32_t barrier, uint32_t bytes) {
+  asm volatile("{\n .reg .b64 state;\n mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}"
+               ::"r"(barrier), "r"(bytes) : "memory");
+}
+
+// A wait of more than 2^34 clocks (about 10 s) means a broken handshake: it
+// traps rather than hang the card.
+__device__ __forceinline__ void wait_parity(uint32_t barrier, uint32_t parity) {
+  const long long start = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(barrier), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+// A pair of CTAs (a cluster of 2 on two SMs) holds a table wider than one
+// CTA's shared memory: CTA 0 rows [0, L), CTA 1 rows [d - L, d).  Tile by
+// tile, each CTA owns PAIR_HALF coordinates, PAIR_VEC a thread, and warp w
+// of one CTA trades values with warp w of the other only.  For tile t
+// (stage s = t mod 2) a warp hashes the partner warp's coordinates under the
+// X = d - L rows the partner lacks (all among its own rows), gathers them
+// from its own shared memory and stores the signed values into the
+// partner's exchange buffer s by st.async (coalesced, X floats a
+// coordinate), each counted off the partner's barrier full[s][w].  It
+// gathers its own coordinates under its L rows, arms its own full[s][w] for
+// the bytes the partner warp sends, waits for them, reads them and
+// takes the median of the d values in row order (the same network on the
+// same order as the one-CTA kernel: the same bits).  Every gather is local;
+// warps never wait for the rest of their CTA, and no fence stalls a sender.
+// Two buffers suffice: the partner writes tile t + 2 into buffer s only
+// after its wait for tile t + 1, which this warp sends after reading tile t
+// (its store's release orders the read before the partner's acquire).
+template <int D, bool kPow2>
+__global__ void __launch_bounds__(PAIR_THREADS, 1)
+median_pair_kernel(const float* __restrict__ table, float* __restrict__ est,
+                   const __grid_constant__ PairDecode p) {
+  extern __shared__ __align__(16) float pair_smem[];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int w = static_cast<int>(p.f.width);
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int L = p.rows, X = D - L;
+  const int lo = rank == 0 ? 0 : D - L;       // the first row held here
+  const int sent_lo = rank == 0 ? 0 : L;      // the first row the partner lacks
+  const int recv_lo = rank == 0 ? L : 0;      // the first row this CTA lacks
+  for (int c = threadIdx.x; c < L * w; c += PAIR_THREADS) pair_smem[c] = __ldg(table + lo * w + c);
+  float* exchange = pair_smem + p.exchange;  // [2][X][PAIR_HALF]
+  const uint32_t remote =
+      map_rank(static_cast<uint32_t>(__cvta_generic_to_shared(exchange)), rank ^ 1) + 4u * PAIR_VEC * threadIdx.x;
+  // full[s][w], the barrier of stage s and warp w, at s * PAIR_WARPS + w.
+  const uint32_t full = static_cast<uint32_t>(__cvta_generic_to_shared(pair_smem + p.barriers)) + 8u * warp;
+  if (lane == 0) {
+    for (int stage = 0; stage < 2; ++stage) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(full + 8u * PAIR_WARPS * stage) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  const uint32_t partner_full = map_rank(full, rank ^ 1);
+  cluster.sync();  // both CTAs staged, barriers set, before any store crosses
+
+  const int64_t pair = blockIdx.x / 2, pairs = gridDim.x / 2;
+  const int64_t own0 = (pair * 2 + rank) * PAIR_HALF + PAIR_VEC * threadIdx.x;
+  const int64_t other0 = (pair * 2 + (rank ^ 1)) * PAIR_HALF + PAIR_VEC * threadIdx.x;
+  uint32_t u[D], u2[D], ou[D], ou2[D];  // residues at this thread's own and partner coordinates
+  {
+    const uint64_t k = mod_p(static_cast<uint64_t>(own0)), ok = mod_p(static_cast<uint64_t>(other0));
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      uint32_t ai, bi;
+      p.f.coef(i, ai, bi);
+      u[i] = mod_p(static_cast<uint64_t>(ai) * k + bi);
+      u2[i] = mod_p(static_cast<uint64_t>(bi | 1u) * k + ai);
+      ou[i] = mod_p(static_cast<uint64_t>(ai) * ok + bi);
+      ou2[i] = mod_p(static_cast<uint64_t>(bi | 1u) * ok + ai);
+    }
+  }
+  // The signed cells of local row i for a thread's PAIR_VEC coordinates,
+  // the first at residues (x, x2).
+  auto cells = [&](int i, uint32_t x, uint32_t x2, float (&out)[PAIR_VEC]) {
+#pragma unroll
+    for (int e = 0; e < PAIR_VEC; ++e) {
+      if (e > 0) {
+        x = add_mod(x, p.a[i]);
+        x2 = add_mod(x2, p.sa[i]);
+      }
+      out[e] = flip(pair_smem[(i - lo) * w + bucket<kPow2>(x, p.f.lemire, p.f.width)], x2 & 1u);
+    }
+  };
+  int64_t j = own0;
+  const int64_t stride = 2 * PAIR_HALF * pairs;
+  for (int64_t tile = pair, t = 0; tile < p.tiles; tile += pairs, ++t, j += stride) {
+    const uint32_t s = static_cast<uint32_t>(t & 1), stage = 8u * PAIR_WARPS * s;
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      if (i < sent_lo || i >= sent_lo + X) continue;  // CTA-uniform
+      float x[PAIR_VEC];
+      cells(i, ou[i], ou2[i], x);
+      store_async(remote + 4u * static_cast<uint32_t>((s * X + i - sent_lo) * PAIR_HALF), x, partner_full + stage);
+      ou[i] = add_mod(ou[i], p.step_a[i]);
+      ou2[i] = add_mod(ou2[i], p.step_sa[i]);
+    }
+    float v[PAIR_VEC][D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      if (i < lo || i >= lo + L) continue;
+      float x[PAIR_VEC];
+      cells(i, u[i], u2[i], x);
+#pragma unroll
+      for (int e = 0; e < PAIR_VEC; ++e) v[e][i] = x[e];
+      u[i] = add_mod(u[i], p.step_a[i]);
+      u2[i] = add_mod(u2[i], p.step_sa[i]);
+    }
+    if (lane == 0) expect_bytes(full + stage, 32u * 4u * PAIR_VEC * static_cast<uint32_t>(X));
+    wait_parity(full + stage, static_cast<uint32_t>(t >> 1) & 1u);  // the partner warp's values for this tile
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      if (i < recv_lo || i >= recv_lo + X) continue;
+      const float4 got =
+          *reinterpret_cast<const float4*>(exchange + (s * X + i - recv_lo) * PAIR_HALF + PAIR_VEC * threadIdx.x);
+      v[0][i] = got.x;
+      v[1][i] = got.y;
+      v[2][i] = got.z;
+      v[3][i] = got.w;
+    }
+    float m[PAIR_VEC];
+#pragma unroll
+    for (int e = 0; e < PAIR_VEC; ++e) m[e] = median_network<D>(v[e]);
+    if (p.aligned && j + PAIR_VEC <= p.n) {
+      *reinterpret_cast<float4*>(est + j) = make_float4(m[0], m[1], m[2], m[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < PAIR_VEC; ++e)
+        if (j + e < p.n) est[j + e] = m[e];
+    }
+  }
+  cluster.sync();  // no CTA leaves while its partner may still store into it
+}
+
 // Past NETWORK_DEPTH rows: the r-th smallest value is the v_i with
 // #{v < v_i} <= r < #{v <= v_i}; each value is hashed and gathered again
 // for each comparison (d^2 of them), so no array of d values is kept.
@@ -612,8 +818,88 @@ int launch_sketch(const Record& r, Src src) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The pair decode's shared memory for L rows of width w: the rows, then
+// (16-byte aligned) two exchange buffers of d - L floats a coordinate, then
+// two 8-byte barriers a warp.
+int64_t pair_exchange_offset(int64_t rows, int64_t w) { return (rows * w + 3) / 4 * 4; }
+int64_t pair_barrier_offset(int64_t d, int64_t rows, int64_t w) {
+  return pair_exchange_offset(rows, w) + 2 * (d - rows) * PAIR_HALF;
+}
+int64_t pair_smem_bytes(int64_t d, int64_t rows, int64_t w) {
+  return 4 * pair_barrier_offset(d, rows, w) + 8 * 2 * PAIR_WARPS;
+}
+
+// The rows L each CTA of a pair holds: the most that fit with the exchange
+// buffers (fewer values cross per coordinate), with 2 L >= d so that the two
+// CTAs hold every row; 0 where no L fits.
+int64_t pair_rows(int64_t d, int64_t w, const Device& dev) {
+  for (int64_t rows = d - 1; rows >= 1 && 2 * rows >= d; --rows) {
+    if (pair_smem_bytes(d, rows, w) <= dev.optin) return rows;
+  }
+  return 0;
+}
+
+// The decode's variant for a (d, w) table: 1 where one CTA's shared memory
+// holds the whole table (the staged kernel, every cell staged), 2 where a
+// pair of CTAs does (the pair kernel), 0 otherwise (the staged kernel, a
+// prefix staged), -1 past NETWORK_DEPTH rows (the runtime-depth kernel).
+int median_plan(int64_t d, int64_t w, const Device& dev) {
+  if (d > NETWORK_DEPTH) return -1;
+  if (4 * d * w <= dev.optin) return 1;
+  return pair_rows(d, w, dev) > 0 ? 2 : 0;
+}
+
+template <int D>
+int launch_median_pair(const Record& r, const Family& f, const Device& dev) {
+  const int64_t rows = pair_rows(D, r.width, dev);
+  const size_t smem = static_cast<size_t>(pair_smem_bytes(D, rows, r.width));
+  auto kernel = is_pow2(r.width) ? median_pair_kernel<D, true> : median_pair_kernel<D, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2);
+  cfg.blockDim = dim3(PAIR_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = reinterpret_cast<cudaStream_t>(r.stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int pairs = 0;
+  err = cudaOccupancyMaxActiveClusters(&pairs, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (pairs < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // A persistent grid of every pair that fits at once, cut short for a
+  // vector of fewer tiles.
+  PairDecode p{};
+  p.tiles = (r.n + 2 * PAIR_HALF - 1) / (2 * PAIR_HALF);
+  if (pairs > p.tiles) pairs = static_cast<int>(p.tiles);
+  cfg.gridDim = dim3(static_cast<unsigned>(2 * pairs));
+  p.f = f;
+  const uint64_t stride = static_cast<uint64_t>(2 * PAIR_HALF) * pairs;
+  static_assert(D <= INLINE_ROWS, "every row's coefficients come by value");
+  for (int i = 0; i < D; ++i) {
+    p.a[i] = mod_p(f.a[i]);
+    p.sa[i] = mod_p(f.b[i] | 1u);
+    p.step_a[i] = mod_p(static_cast<uint64_t>(p.a[i]) * stride);
+    p.step_sa[i] = mod_p(static_cast<uint64_t>(p.sa[i]) * stride);
+  }
+  p.n = r.n;
+  p.rows = static_cast<int>(rows);
+  p.exchange = static_cast<int>(pair_exchange_offset(rows, r.width));
+  p.barriers = static_cast<int>(pair_barrier_offset(D, rows, r.width));
+  p.aligned = (r.out & (4 * PAIR_VEC - 1)) == 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, reinterpret_cast<const float*>(r.in), reinterpret_cast<float*>(r.out), p);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
 template <int D>
 int launch_median_network(const Record& r, const Family& f, const Device& dev) {
+  if (median_plan(D, r.width, dev) == 2) return launch_median_pair<D>(r, f, dev);
   const float* table = reinterpret_cast<const float*>(r.in);
   float* est = reinterpret_cast<float*>(r.out);
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(r.stream);
@@ -664,6 +950,13 @@ extern "C" int glava_countsketch(const char* record) {
   const Family f = make_family(r);
   if (is_pow2(r.width)) return launch_sketch(r, Hashed<true>{f});
   return launch_sketch(r, Hashed<false>{f});
+}
+
+// The decode's variant for a (depth, width) table on the current device
+// (median_plan): 1 one CTA, 2 a pair of CTAs, 0 a staged prefix, -1 the
+// runtime-depth kernel.
+extern "C" int glava_countsketch_median_plan(int64_t depth, int64_t width) {
+  return median_plan(depth, width, Device());
 }
 
 // est (n,) = the median decode of the (depth, width) table under the

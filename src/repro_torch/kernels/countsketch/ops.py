@@ -22,11 +22,17 @@ atomics: one vector always sketches to the same bits, on any worker.  It
 takes a scratch buffer of :func:`scratch_bytes` from the caching
 allocator.
 
+The decode takes one of four kernels by the table's shape
+(:func:`median_variant`): one CTA holding the whole table in shared memory, a
+pair of CTAs (a thread-block cluster) holding it between them, the staged
+kernel for a wider table, the runtime-depth kernel past 8 rows.
+
 ``countsketch.launches`` counts the sketch's launches (pre-hashed and
 hashed; each is a memset and the cell-max, sum and finalize kernels on one
 stream), ``countsketch_median.launches`` the decode's."""
 from __future__ import annotations
 
+import ctypes
 import operator
 import struct
 from typing import Tuple
@@ -169,6 +175,21 @@ def countsketch_median(table: torch.Tensor, family: HashFamily, n: int) -> torch
 
 
 countsketch_median.launches = 0
+
+
+# csrc/countsketch.cu::median_plan's codes.
+_VARIANTS = {1: "one CTA", 2: "CTA pair", 0: "staged", -1: "runtime depth"}
+
+
+def median_variant(depth: int, width: int) -> str:
+    """The decode kernel a (depth, width) table takes on the current CUDA
+    device (``csrc/countsketch.cu::median_plan``): ``"one CTA"`` (the whole
+    table in one CTA's shared memory), ``"CTA pair"`` (a cluster of two CTAs
+    holding it between them), ``"staged"`` (a wider table: the prefix that
+    fits staged, the rest through L2) or ``"runtime depth"`` (more than 8
+    rows)."""
+    plan = build.function("countsketch", "glava_countsketch_median_plan", [ctypes.c_int64, ctypes.c_int64])
+    return _VARIANTS[plan(operator.index(depth), operator.index(width))]
 
 
 def hash_indices(family: HashFamily, n: int) -> Tuple[torch.Tensor, torch.Tensor]:

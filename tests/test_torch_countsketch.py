@@ -148,6 +148,26 @@ def test_countsketch_median_ref_matches_reference_unsketch(d):
     assert np.isnan(want).any()
 
 
+@pytest.mark.parametrize("w", [4, 16])
+def test_countsketch_median_ref_matches_reference_unsketch_on_shared_cells(w):
+    """d = 5 on a table so narrow that about n / w coordinates share each
+    cell, with values in [-2, 2] (ties everywhere: the midpoint of equal
+    middle values) and, at w = 16, NaN, +inf and -inf in one cell each: the
+    plain decode against the reference's ``_unsketch`` bit for bit."""
+    d, n = 5, 4001
+    st = ref_comp.init_compressor(ref_comp.CompressorConfig(depth=d, width=w), n, jax.random.key(w))
+    rng = np.random.default_rng(w)
+    table = rng.integers(-2, 3, (d, w)).astype(np.float32)
+    if w == 16:
+        table.reshape(-1)[rng.choice(d * w, 3, replace=False)] = (np.nan, np.inf, -np.inf)
+    want = np.asarray(ref_comp._unsketch(st, jnp.asarray(table), n))
+    port = compressor_to_port(st)
+    for got in (countsketch_median_ref(torch.from_numpy(table), port.hash, n),
+                ops.countsketch_median(torch.from_numpy(table), port.hash, n)):
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert len(np.unique(want[np.isfinite(want)])) > 1
+
+
 @pytest.mark.parametrize("a,b", [(12345, 2**31 - 2), (MERSENNE_P - 1, 99), (MERSENNE_P - 1, 2**31 - 2)])
 def test_hash_at_extreme_coefficients_matches_numpy_and_reference(a, b):
     """b = 2^31 - 2 makes the sign multiplier b | 1 equal p itself (every

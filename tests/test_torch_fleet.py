@@ -121,6 +121,56 @@ def test_scatter_stacked_matches_reference(index_dtype, plane_dtype):
     assert np.array_equal(t[0].numpy(), counters)  # the functional form left its operands alone
 
 
+def _duplicate_heavy_batch(pattern, n, d, wr, wc, b, seed):
+    """A batch that repeats addresses as a warp sees them: every slot in one
+    row of one plane, in one cell, zipf(1.2) sources and destinations grouped
+    by plane, or one cell with weights that cancel in pairs (slot 2k + 1
+    takes -w[2k])."""
+    rng = np.random.default_rng(seed)
+    plane = np.zeros(b, np.int32)
+    rows = np.full((d, b), 3, np.int32)
+    cols = np.full((d, b), 5, np.int32)
+    w = rng.integers(1, 9, b).astype(np.float32)
+    if pattern == "one_row":
+        cols = rng.integers(0, wc, (d, b)).astype(np.int32)
+    elif pattern == "zipf":
+        plane = np.sort(rng.integers(0, n, b)).astype(np.int32)
+        mult = rng.integers(1, 1 << 20, (d, 1))
+        rows = ((rng.zipf(1.2, b) % 1000)[None, :] * mult % wr).astype(np.int32)
+        cols = ((rng.zipf(1.2, b) % 1000)[None, :] * mult % wc).astype(np.int32)
+    elif pattern == "cancelling":
+        w = np.where(np.arange(b) % 2 == 0, w, -np.roll(w, 1)).astype(np.float32)
+    return plane, rows, cols, w
+
+
+@pytest.mark.parametrize("pattern", ["one_row", "one_cell", "zipf", "cancelling"])
+def test_stacked_ingest_ref_matches_reference_on_duplicate_heavy_batches(pattern):
+    """The semantics the stacked kernel's warp aggregation must keep: the
+    port's plain version against the reference's ``scatter_stacked`` bit for
+    bit on batches whose slots repeat rows and cells (integer weights), with
+    weights that cancel leaving the stack as it was; the same batch with
+    inert slots (rows -1, planes past N) added gives the same stack."""
+    n, d, wr, wc, b = 4, 3, 32, 16, 1500
+    rng = np.random.default_rng(1)
+    counters = rng.integers(0, 100, (n, d, wr, wc)).astype(np.float32)
+    rf, cf = counters.sum(axis=3), counters.sum(axis=2)
+    plane, rows, cols, w = _duplicate_heavy_batch(pattern, n, d, wr, wc, b, seed=len(pattern))
+    want = ref_scatter_stacked(*(jnp.asarray(x) for x in (counters, rf, cf, plane, rows, cols, w)))
+    state = [torch.from_numpy(x.copy()) for x in (counters, rf, cf)]
+    got = stacked_ingest_ref(*[x.clone() for x in state], *(torch.from_numpy(x) for x in (plane, rows, cols, w)))
+    inert_rows = np.full((d, 64), -1, np.int32)
+    padded = (np.concatenate([plane, np.zeros(64, np.int32), np.full(64, n, np.int32)]),
+              np.concatenate([rows, inert_rows, np.zeros((d, 64), np.int32)], axis=1),
+              np.concatenate([cols, np.zeros((d, 128), np.int32)], axis=1),
+              np.concatenate([w, np.ones(128, np.float32)]))
+    got_padded = stacked_ingest_ref(*[x.clone() for x in state], *(torch.from_numpy(x) for x in padded))
+    for g, gp, x, name in zip(got, got_padded, want, ("counters", "row_flows", "col_flows")):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(x), err_msg=name)
+        np.testing.assert_array_equal(gp.numpy(), np.asarray(x), err_msg=f"{name} with inert slots")
+    if pattern == "cancelling":
+        np.testing.assert_array_equal(got[0].numpy(), counters)
+
+
 def test_stacked_offsets_are_int64_past_2_31_cells():
     """The offsets of an (80, 5, 8192, 8192) stack (16 BASE tenants, 5.4e9
     cells) without allocating it: int64 and exact at the last plane, where

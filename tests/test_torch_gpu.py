@@ -541,6 +541,45 @@ def test_countsketch_median_kernel_bit_equals_plain_version(cuda, d, w):
     assert torch.equal(cs_ops.countsketch_median(table, fam, 5), want[:5])  # fewer than a block
 
 
+def _expected_decode_variant(d, w):
+    """``csrc/countsketch.cu::median_plan`` on this card: one CTA where its
+    shared memory holds the table; a CTA pair where each of two CTAs holds
+    L >= d/2 rows beside two exchange buffers of d - L floats for each of
+    2,048 coordinates and 32 barriers of 8 bytes; else the staged kernel."""
+    if d > 8:
+        return "runtime depth"
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    if 4 * d * w <= optin:
+        return "one CTA"
+    for rows in range(d - 1, 0, -1):
+        if 2 * rows >= d and 4 * ((rows * w + 3) // 4 * 4 + 2 * (d - rows) * 2048) + 256 <= optin:
+            return "CTA pair"
+    return "staged"
+
+
+# Widths that straddle each variant's capacity on an H100 (232,448 bytes of
+# shared memory a CTA): 14,528 fills one CTA at d = 4 and 14,529 takes a
+# pair; 16,384 a pair at d = 2..6; 50,000 a pair of one row each at d = 2;
+# 58,112 fills one CTA at d = 1; 2^17 fits neither (the staged kernel).
+@pytest.mark.parametrize("w", [300, 14528, 14529, 16384, 50000, 58112, 1 << 17])
+@pytest.mark.parametrize("d", range(1, 10))
+def test_countsketch_median_variants_bit_equal_plain_version(cuda, d, w):
+    """Every decode variant the shape picks, on integer cells with NaN, +inf
+    and -inf planted, bit-equal to the plain version (NaN positions
+    included), on a vector not a multiple of 4 and on one shorter than a
+    block."""
+    n = 100_003
+    fam = _family(d, w, 7 * d + w)
+    table = torch.randint(-50, 51, (d, w), generator=cuda, device="cuda").float()
+    cells = torch.randperm(d * w, generator=cuda, device="cuda")[:6]
+    flat = table.view(-1)
+    flat[cells[:2]], flat[cells[2:4]], flat[cells[4:]] = float("nan"), float("inf"), float("-inf")
+    assert cs_ops.median_variant(d, w) == _expected_decode_variant(d, w)
+    want = countsketch_median_ref(table, fam, n)
+    assert _same_with_nan(cs_ops.countsketch_median(table, fam, n), want)
+    assert _same_with_nan(cs_ops.countsketch_median(table, fam, 5), want[:5])
+
+
 def test_countsketch_family_and_median_refuse_bad_operands_on_the_card(cuda):
     fam = _family(2, 16, 0)
     vec = torch.zeros(10, device="cuda")
@@ -902,6 +941,97 @@ def test_stacked_ingest_kernel_past_2_31_cells(cuda):
         assert torch.equal(rf[p], want.sum(dim=2)) and torch.equal(cf[p], want.sum(dim=1))
     assert float(counters[n - 1, :, w - 1, w - 1].sum()) > 0
     assert float(counters[1 : n - 1].abs().sum()) == 0.0
+
+
+def _duplicate_heavy(pattern, n, d, wr, wc, b, index_dtype, plane_dtype):
+    """A batch whose slots repeat addresses within a warp: every slot in one
+    row of one plane (``one_row``), in one cell (``one_cell``), on one cell of
+    two planes alternating lane by lane (``alternating``), zipf(1.2) sources
+    and destinations grouped by plane as a fleet hands them over (``zipf``),
+    or on one cell with weights that cancel in pairs (``cancelling``); a
+    tenth of the slots inert (row -1 or plane out of range)."""
+    rng = np.random.default_rng(b + len(pattern))
+    plane = np.zeros(b, np.int64)
+    rows = np.full((d, b), 7, np.int64)
+    cols = np.full((d, b), 11, np.int64)
+    w = rng.integers(1, 9, b).astype(np.float32)
+    if pattern == "one_row":
+        cols = rng.integers(0, wc, (d, b))
+    elif pattern == "alternating":
+        plane = np.arange(b) % 2
+    elif pattern == "zipf":
+        plane = np.sort(rng.integers(0, n, b))
+        src, dst = rng.zipf(1.2, b) % 1000, rng.zipf(1.2, b) % 1000
+        mult = rng.integers(1, 1 << 20, (d, 1))
+        rows, cols = (src[None, :] * mult) % wr, (dst[None, :] * mult) % wc
+    elif pattern == "cancelling":
+        w = np.where(np.arange(b) % 2 == 0, w, -np.roll(w, 1))  # slot 2k + 1 takes -w[2k]
+    # Inert in pairs (2k, 2k + 1), so the cancelling pairs stay whole.
+    inert, first_half = np.repeat(rng.random(b // 2) < 0.1, 2), np.arange(b) < b // 2
+    rows[:, inert & first_half] = -1
+    plane[inert & ~first_half] = n
+    return (torch.from_numpy(plane).to("cuda", plane_dtype), torch.from_numpy(rows).to("cuda", index_dtype),
+            torch.from_numpy(cols).to("cuda", index_dtype), torch.from_numpy(w).cuda())
+
+
+@pytest.mark.parametrize("plane_dtype", [torch.int32, torch.int64], ids=["plane32", "plane64"])
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("pattern", ["one_row", "one_cell", "alternating", "zipf", "cancelling"])
+def test_stacked_ingest_kernel_bit_equal_on_duplicate_heavy_batches(cuda, pattern, index_dtype, plane_dtype):
+    """The warp aggregation (one RED a group of equal addresses, none for a
+    sum of 0) keeps every plane and all three outputs bit-equal to the plain
+    version, on a stack holding integers."""
+    n, d, wr, wc, b = 6, 5, 256, 512, 20_000
+    state = _stacked_batch(cuda, n, d, wr, wc, 1, index_dtype, plane_dtype)[0]
+    batch = _duplicate_heavy(pattern, n, d, wr, wc, b, index_dtype, plane_dtype)
+    got = stacked_ops.stacked_ingest(*(t.clone() for t in state), *batch)
+    want = stacked_ingest_ref(*(t.clone() for t in state), *batch)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    if pattern == "cancelling":  # every group sums to 0: nothing changed
+        assert all(torch.equal(g, s) for g, s in zip(got, state))
+
+
+@pytest.mark.parametrize("pattern", ["one_cell", "zipf"])
+def test_stacked_ingest_kernel_aggregates_past_2_31_cells(cuda, pattern):
+    """Duplicate-heavy batches into the last planes of a stack past 2^31
+    cells (64-bit offsets and 64-bit match keys), against the plain version
+    on the planes they touch."""
+    n, d, w = 17, 2, 8192  # 17 * 2 * 8192^2 cells, 9.1 GB
+    state = (torch.zeros((n, d, w, w), device="cuda"), torch.zeros((n, d, w), device="cuda"),
+             torch.zeros((n, d, w), device="cuda"))
+    plane, rows, cols, wts = _duplicate_heavy(pattern, 2, d, w, w, 8192, torch.int64, torch.int32)
+    plane = torch.where((plane >= 0) & (plane < 2), plane + n - 2, plane + n)  # planes n - 2 and n - 1
+    got = stacked_ops.stacked_ingest(*state, plane, rows, cols, wts)
+    for p in (n - 2, n - 1):
+        m = plane == p
+        want = ingest_scatter_ref(torch.zeros((d, w, w), device="cuda"), rows[:, m], cols[:, m], wts[m])
+        assert torch.equal(got[0][p], want)
+        assert torch.equal(got[1][p], want.sum(dim=2)) and torch.equal(got[2][p], want.sum(dim=1))
+    assert float(got[0][: n - 2].abs().sum()) == 0.0
+
+
+def test_stacked_ingest_kernel_with_64_bit_match_keys(cuda):
+    """A stack of 2^19 + 1 planes of 4,096 x 1 cells, whose register keys
+    (plane * wr + row) pass 32 bits, so the warp matches take 64-bit keys:
+    four rows of the last four planes, each warp's slots on one plane,
+    against the plain version plane by plane."""
+    n, d, wr, wc = (1 << 19) + 1, 1, 4096, 1  # 2^31 + 4,096 cells and row registers, 17.2 GB
+    state = (torch.zeros((n, d, wr, wc), device="cuda"), torch.zeros((n, d, wr), device="cuda"),
+             torch.zeros((n, d, wc), device="cuda"))
+    assert n * wr >= 2**31
+    b = 4096
+    plane = (n - 1 - torch.arange(b, device="cuda") // 1024).to(torch.int32)  # the last 4 planes
+    rows = torch.randint(wr - 4, wr, (d, b), generator=cuda, device="cuda")
+    cols = torch.zeros((d, b), dtype=torch.int64, device="cuda")
+    wts = torch.randint(-3, 9, (b,), generator=cuda, device="cuda").float()
+    got = stacked_ops.stacked_ingest(*state, plane, rows, cols, wts)
+    for p in range(n - 4, n):
+        m = plane == p
+        want = ingest_scatter_ref(torch.zeros((d, wr, wc), device="cuda"), rows[:, m], cols[:, m], wts[m])
+        assert torch.equal(got[0][p], want)
+        assert torch.equal(got[1][p], want.sum(dim=2)) and torch.equal(got[2][p], want.sum(dim=1))
+    assert not bool((got[1][: n - 4] != 0).any())
 
 
 def test_stacked_ingest_refuses_bad_operands_on_the_card(cuda):
