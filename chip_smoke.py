@@ -8,9 +8,12 @@ Run from the root of a checkout, on a machine with one CUDA card:
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
 per source, all at once) and holds each kernel against its plain PyTorch
 version on the card at the BASE shapes (``configs/glava.py``: d=5,
-8192 x 8192 counters): the ingest scatter (B=50,000 int32, and serve BASE's
-first batch as the session hands it over: pre-aggregated, padded, int64
-buckets; host us per call, a cold-L2 time); the fused multi-query and the
+8192 x 8192 counters): the ingest scatter's bucket entry (B=50,000 int32,
+and serve BASE's first batch pre-aggregated, padded, hashed into int64
+buckets) and its key entry (that batch's keys as the session hands them
+over, hashed in the kernel, directed and mirrored), with host us per call,
+warm and cold-L2 times after a dirty and a clean fill, the random-sector
+floor of the card and the earlier design's readings; the fused multi-query and the
 per-sketch edge-query gather (Q=1,024 and 65,536, on int64 buckets from the
 BASE family's hash and on their int32 copy, timed in turns with the library
 call, with a host breakdown of one call); the closure step (8-bit, int8 wgmma: bit-equal with its
@@ -53,8 +56,9 @@ before and read just after:
   point's own traffic, on the kernels and on the plain backends; the two
   runs must agree bit for bit (counters, registers, transcript), the
   closure kernel must run 13 times per full rebuild and the multi-query
-  once a tick and the ingest scatter once a batch; one edge-family tick under
-  the profiler must show no cast of the int64 buckets;
+  once a tick and the ingest scatter's key entry once a batch (its bucket
+  entry never); one edge-family tick under the profiler must show no cast
+  of the int64 buckets, and one ingest batch one kernel on its counter side;
 - fused serve BASE: the same traffic through a fused session
   (``ingest_backend="fused"`` on the parsed arguments), which must equal
   both runs above and launch the fused kernel once per batch; one ingest
@@ -211,15 +215,15 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, kernel: Optional[str] = None):
+def device_ms(fn, reps: int, kernel: Optional[str] = None, exclude=()):
     """Mean device milliseconds per call of the CUDA kernels whose names hold
-    ``kernel`` (of every kernel and copy when ``kernel`` is None), from the
-    profiler's CUPTI trace (the events above also count the host's launch
-    overhead whenever it exceeds the kernel).  A trace of one call gives the
-    number of matching events a call makes; the trace of ``reps`` calls
-    counts only if it holds exactly ``reps`` times that many, so a trace
-    that lost launches is never read as a faster kernel.  ``None`` when no
-    complete trace came back in three tries."""
+    ``kernel`` (of every kernel and copy when ``kernel`` is None, but those
+    named in ``exclude``), from the profiler's CUPTI trace (the events above
+    also count the host's launch overhead whenever it exceeds the kernel).
+    A trace of one call gives the number of matching events a call makes;
+    the trace of ``reps`` calls counts only if it holds exactly ``reps``
+    times that many, so a trace that lost launches is never read as a faster
+    kernel.  ``None`` when no complete trace came back in five tries."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -232,12 +236,12 @@ def device_ms(fn, reps: int, kernel: Optional[str] = None):
                 fn()
             torch.cuda.synchronize()
         sel = [e for e in prof.key_averages() if getattr(e, "device_time_total", 0.0)
-               and (kernel is None or kernel in e.key) and "spin_kernel" not in e.key]
+               and (kernel is None or kernel in e.key) and "spin_kernel" not in e.key and e.key not in exclude]
         return sum(e.count for e in sel), sum(e.device_time_total for e in sel)
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # now and then a trace comes back without some of its kernels
+    for _ in range(5):  # now and then a trace comes back without some of its kernels
         per_call, _ = trace(1)
         count, total_us = trace(reps)
         if per_call and count == per_call * reps:
@@ -245,14 +249,65 @@ def device_ms(fn, reps: int, kernel: Optional[str] = None):
     return None
 
 
-def cold_device_ms(fn, kernel: str, reps: int = 20):
-    """``device_ms`` of ``kernel`` with the 50 MB L2 emptied before each call
-    (a 256 MB fill between calls), as a batch meets counters it has not
-    touched; the fill itself is not counted."""
+def kernel_keys(fn) -> set:
+    """The names of the CUDA kernels one call of ``fn`` runs (profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if getattr(e, "device_time_total", 0.0)}
+
+
+# The two ways to empty the 50 MB L2 before a timed call, each through 256 MB:
+# "dirty" writes them (zero_), so the lines left are dirty and every miss of
+# the call also writes one back; "clean" reads them (amax), so no write-back.
+FILLS = ("dirty", "clean")
+
+
+def cold_device_ms(fn, kernel: Optional[str], reps: int = 20, fill: str = "dirty"):
+    """``device_ms`` of ``kernel`` (of every kernel of ``fn`` when None) with
+    the 50 MB L2 emptied before each call by a 256 MB ``fill`` (``FILLS``),
+    as a batch meets counters it has not touched; the fill itself is not
+    counted."""
     import torch
 
     flush = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
-    return device_ms(lambda: (flush.zero_(), fn()), reps, kernel)
+    empty = {"dirty": flush.zero_, "clean": flush.amax}[fill]
+    exclude = kernel_keys(empty) if kernel is None else ()
+    return device_ms(lambda: (empty(), fn()), reps, kernel, exclude)
+
+
+# csrc/ingest.cu's FloorRecord: the buffer; its 32-byte sectors, the adds, the
+# adds a thread and a seed; the stream.
+FLOOR_RECORD_FORMAT = "=Q4qQ"
+
+
+def floor_ms(torch, buffer, n_adds: int, per_thread: int, fill: Optional[str]):
+    """Device ms of the random-sector floor (``glava_ingest_floor``):
+    ``n_adds`` REDs of 1.0, ``per_thread`` (1, 5 or 10) back to back a
+    thread, each at a random 32-byte sector of ``buffer`` (its address hashed
+    in registers, no index loads), the L2 emptied by ``fill`` before each
+    launch (warm, the same sectors every launch, when None).  Adds into
+    ``buffer``."""
+    import ctypes
+    import struct
+
+    from repro_torch.kernels import build
+
+    fn = build.function("ingest", "glava_ingest_floor", [ctypes.c_char_p])
+    record = struct.pack(FLOOR_RECORD_FORMAT, buffer.data_ptr(), buffer.numel() // 8, n_adds, per_thread, 1,
+                         torch._C._cuda_getCurrentRawStream(buffer.get_device()))
+
+    def launch():
+        check(fn(record) == 0, "the random-sector floor did not launch")
+
+    if fill is None:
+        return device_ms(launch, 20, "floor_kernel")
+    return cold_device_ms(launch, "floor_kernel", fill=fill)
 
 
 def _fmt(ms) -> str:
@@ -339,22 +394,31 @@ def serve_raw_batch(torch):
     return (src, dst, wts), family, rows, cols, torch.from_numpy(wts).cuda()
 
 
-def serve_first_batch(torch):
-    """Serve BASE's first batch as a session hands it to an ingest kernel:
-    the first ``--batch`` edges of ``launch/serve.py``'s traffic (zipf a=1.2
-    sources and destinations, seed 0), pre-aggregated on the host, padded by
-    ``pad_bucket`` (key 0, weight 0) and hashed by the square BASE session's
-    family (drawn as GraphStream seed 0 draws it) into int64 buckets.
-    Returns ``(rows, cols, weights, pairs)``."""
+def serve_first_keys(torch):
+    """Serve BASE's first batch as a session hands it to
+    ``update_preaggregated_``: the first ``--batch`` edges of
+    ``launch/serve.py``'s traffic (zipf a=1.2 sources and destinations, seed
+    0), pre-aggregated on the host, padded by ``pad_bucket`` (key 0, weight
+    0), the keys as int64 on the card.  Returns ``(src, dst, weights,
+    family, pairs)`` with the square BASE session's family (drawn as
+    GraphStream seed 0 draws it)."""
     from repro_torch.core.hashing import keys_to_tensor
     from repro_torch.core.ingest import pad_bucket, preaggregate_host
 
     (src, dst, wts), family, *_ = serve_raw_batch(torch)
     pre = preaggregate_host(src, dst, wts)
-    rows = family(keys_to_tensor(pad_bucket(pre.src), "cuda"))
-    cols = family(keys_to_tensor(pad_bucket(pre.dst), "cuda"))
+    keys = [keys_to_tensor(pad_bucket(x), "cuda") for x in (pre.src, pre.dst)]
+    return (*keys, torch.from_numpy(pad_bucket(pre.weights)).cuda(), family, pre.n_pairs)
+
+
+def serve_first_batch(torch):
+    """Serve BASE's first batch (``serve_first_keys``) hashed by the BASE
+    family into int64 buckets, as the bucket entry takes it.  Returns
+    ``(rows, cols, weights, pairs)``."""
+    src, dst, wts, family, n_pairs = serve_first_keys(torch)
+    rows, cols = family(src), family(dst)
     check(rows.dtype == torch.int64 and cols.dtype == torch.int64, f"the hash gave {rows.dtype} buckets")
-    return rows, cols, torch.from_numpy(pad_bucket(pre.weights)).cuda(), pre.n_pairs
+    return rows, cols, wts, n_pairs
 
 
 # Calls per CUDA-event timing of the ingest wrappers (10-20 us a call, about
@@ -371,13 +435,41 @@ def ingest_bound_bytes(rows, wts) -> int:
     return n_adds * 64 + d * b * 2 * rows.element_size() + b * wts.element_size()
 
 
+# The earlier B1 design (one thread a (slot, sketch)) on serve BASE's first
+# batch's int64 buckets, device ms warm, with a cold L2 after the dirty fill
+# and after the clean one: tools/ablate_ingest.py --parent on an NVIDIA H100
+# 80GB HBM3, 700.00 W, in the run that chose the design.
+EARLIER_INGEST_MS = (0.0033, 0.0108, 0.0053)
+
+
+def key_bound_bytes(wts, depth: int, mirror: bool) -> int:
+    """Bytes a key-entry batch needs: each add of a weighted slot reads and
+    writes one 32-byte sector of counters (d adds a slot, 2d mirrored); the
+    two int64 keys and the float32 weight of each slot are read once."""
+    n_adds = depth * int((wts != 0).sum()) * (2 if mirror else 1)
+    return n_adds * 64 + wts.shape[0] * (8 + 8 + 4)
+
+
+def cold_pair(fn, kernel):
+    """Device ms of ``kernel`` under ``fn`` with a cold L2, by each fill."""
+    return {fill: cold_device_ms(fn, kernel, fill=fill) for fill in FILLS}
+
+
+def _cold(times) -> str:
+    return ", ".join(f"{fill} fill {_fmt(ms)}" for fill, ms in times.items())
+
+
 def phase_ingest(torch, gen):
-    """B1 on a synthetic int32 batch (B=50,000, a tenth of its slots inert)
-    and on serve BASE's first batch (int64 buckets, as the serve path hands
-    them over): bit-equal to the plain version; wrapper ms by CUDA events,
-    host us per call, device ms beside the bound."""
-    from repro_torch.kernels.ingest.ops import ingest_scatter
-    from repro_torch.kernels.ingest.ref import ingest_scatter_ref
+    """B1's two entries.  The bucket entry on a synthetic int32 batch
+    (B=50,000, a tenth of its slots inert) and on serve BASE's first batch's
+    int64 buckets; the key entry on that batch as the serve path hands it to
+    ``update_preaggregated_`` (pre-aggregated keys, the BASE family; the
+    kernel hashes), directed and mirrored.  Each bit-equal to its plain
+    version; wrapper ms by CUDA events, host us per call, device ms warm and
+    with a cold L2 after both fills beside the bound, the random-sector floor
+    and the earlier design's readings; the library calls warm and cold."""
+    from repro_torch.kernels.ingest.ops import ingest_keys, ingest_scatter
+    from repro_torch.kernels.ingest.ref import ingest_keys_ref, ingest_scatter_ref
 
     d, w, b = BASE_DEPTH, BASE_WIDTH, INGEST_BATCH
     base = torch.randint(0, 1000, (d, w, w), generator=gen, device="cuda").float()
@@ -385,18 +477,26 @@ def phase_ingest(torch, gen):
     rows[torch.rand((d, b), generator=gen, device="cuda") < 0.1] = -1  # inert slots
     cols = torch.randint(0, w, (d, b), generator=gen, device="cuda", dtype=torch.int32)
     wts = torch.randint(1, 9, (b,), generator=gen, device="cuda").float()
-    srows, scols, swts, n_pairs = serve_first_batch(torch)
-    err = 0.0
+    src, dst, swts, fam, n_pairs = serve_first_keys(torch)
+    srows, scols = fam(src), fam(dst)
+    err = key_err = 0.0
     for r, c, wt in ((rows, cols, wts), (srows, scols, swts)):
         got = ingest_scatter(base.clone(), r, c, wt)
         want = ingest_scatter_ref(base.clone(), r, c, wt)
         torch.cuda.synchronize()
         err = max(err, float((got - want).abs().max()))
         check(torch.equal(got, want), f"ingest kernel differs from its plain version on {r.dtype} buckets (max err {err})")
+        del got, want
+    for mirror in (False, True):
+        got = ingest_keys(base.clone(), src, dst, swts, fam, fam, mirror=mirror)
+        want = ingest_keys_ref(base.clone(), src, dst, swts, fam, fam, mirror=mirror)
+        torch.cuda.synchronize()
+        key_err = max(key_err, float((got - want).abs().max()))
+        check(torch.equal(got, want), f"ingest_keys (mirror={mirror}) differs from its plain version (max err {key_err})")
         del want
     ms = time_ms(lambda: ingest_scatter(got, rows, cols, wts), INGEST_REPS)
     host = host_us(lambda: ingest_scatter(got, rows, cols, wts))
-    dev_ms = device_ms(lambda: ingest_scatter(got, rows, cols, wts), 20, "ingest_scatter_kernel")
+    dev_ms = device_ms(lambda: ingest_scatter(got, rows, cols, wts), 20, "ingest_kernel")
     plain_ms = time_ms(lambda: ingest_scatter_ref(got, rows, cols, wts), 20)
     valid = rows >= 0
     d_idx = torch.arange(d, device="cuda")[:, None].expand(d, b)[valid]
@@ -412,22 +512,61 @@ def phase_ingest(torch, gen):
         + f"; plain {plain_ms:.4f} ms, index_put_ {library_ms:.4f} ms (device {_fmt(library_dev_ms)}); "
         f"bound {bound_ms:.5f} ms"
     )
-    s_ms = time_ms(lambda: ingest_scatter(got, srows, scols, swts), INGEST_REPS)
-    s_host = host_us(lambda: ingest_scatter(got, srows, scols, swts))
-    s_dev = device_ms(lambda: ingest_scatter(got, srows, scols, swts), 20, "ingest_scatter_kernel")
-    s_cold = cold_device_ms(lambda: ingest_scatter(got, srows, scols, swts), "ingest_scatter_kernel")
+    scatter = lambda: ingest_scatter(got, srows, scols, swts)  # noqa: E731
+    s_ms, s_host = time_ms(scatter, INGEST_REPS), host_us(scatter)
+    s_dev, s_cold = device_ms(scatter, 20, "ingest_kernel"), cold_pair(scatter, "ingest_kernel")
     s_bound = ingest_bound_bytes(srows, swts) / PEAK_BYTES_PER_S * 1e3
+    s_idx = (torch.arange(d, device="cuda")[:, None], srows, scols)
+    s_lib = lambda: got.index_put_(s_idx, swts.expand(d, -1), accumulate=True)  # noqa: E731
+    s_lib_ms, s_lib_dev, s_lib_cold = time_ms(s_lib, 20), device_ms(s_lib, 20), cold_pair(s_lib, None)
     print(
         f"[chip_smoke] ingest on serve BASE's first batch ({n_pairs} pre-aggregated pairs padded to "
         f"{srows.shape[1]}, int64 buckets): bit-equal; wrapper {s_ms:.4f} ms, host {s_host:.3f} us/call, "
         f"device {_fmt(s_dev)}" + (f" ({100 * s_bound / s_dev:.1f}% of the bound)" if s_dev else "")
-        + f", with a cold L2 {_fmt(s_cold)}; bound {s_bound:.5f} ms"
+        + f", with a cold L2: {_cold(s_cold)}; bound {s_bound:.5f} ms; index_put_ on the buckets {s_lib_ms:.4f} ms "
+        f"(device {_fmt(s_lib_dev)}; cold: {_cold(s_lib_cold)})"
     )
-    return dict(
-        name="ingest_scatter", route="cuda", source="src/repro_torch/csrc/ingest.cu",
-        replaces="src/repro/kernels/ingest/kernel.py:59", max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
+
+    keys = lambda: ingest_keys(got, src, dst, swts, fam, fam)  # noqa: E731
+    mirrored = lambda: ingest_keys(got, src, dst, swts, fam, fam, mirror=True)  # noqa: E731
+    k_ms, k_host = time_ms(keys, INGEST_REPS), host_us(keys)
+    k_dev, k_cold = device_ms(keys, 20, "ingest_kernel"), cold_pair(keys, "ingest_kernel")
+    m_dev, m_cold = device_ms(mirrored, 20, "ingest_kernel"), cold_pair(mirrored, "ingest_kernel")
+    k_plain = time_ms(lambda: ingest_keys_ref(got, src, dst, swts, fam, fam), 20)
+    k_idx = lambda: (torch.arange(d, device="cuda")[:, None], fam(src), fam(dst))  # noqa: E731
+    k_lib = lambda: got.index_put_(k_idx(), swts.expand(d, -1), accumulate=True)  # noqa: E731
+    k_lib_ms, k_lib_dev, k_lib_cold = time_ms(k_lib, 20), device_ms(k_lib, 20), cold_pair(k_lib, None)
+    k_bound = key_bound_bytes(swts, d, False) / PEAK_BYTES_PER_S * 1e3
+    m_bound = key_bound_bytes(swts, d, True) / PEAK_BYTES_PER_S * 1e3
+    adds = d * int((swts != 0).sum())
+    floors = {(fill, per): floor_ms(torch, got, adds, per, fill) for fill in FILLS for per in (1, d)}
+    floor = {fill: min((ms for (f, _), ms in floors.items() if f == fill and ms), default=None) for fill in FILLS}
+    share = lambda ms, bound: f" ({100 * bound / ms:.1f}% of the bound)" if ms else ""  # noqa: E731
+    print(
+        f"[chip_smoke] ingest_keys on serve BASE's first batch ({n_pairs} pairs padded to {src.shape[0]}, int64 "
+        f"keys hashed in the kernel, {adds} adds): bit-equal directed and mirrored; wrapper {k_ms:.4f} ms, host "
+        f"{k_host:.3f} us/call; device {_fmt(k_dev)}{share(k_dev, k_bound)}, with a cold L2: {_cold(k_cold)}"
+        f"{share(k_cold['clean'], k_bound)} against the clean fill; bound {k_bound:.5f} ms; mirrored device "
+        f"{_fmt(m_dev)}, cold: {_cold(m_cold)}, bound {m_bound:.5f} ms; plain (hash + scatter) {k_plain:.4f} ms; "
+        f"two affine_hash + index_put_ {k_lib_ms:.4f} ms (device {_fmt(k_lib_dev)}; cold: {_cold(k_lib_cold)})"
     )
+    print(
+        f"[chip_smoke] random-sector floor, {adds} REDs at random sectors of the 1.34 GB counters, no index loads: "
+        + "; ".join(f"{fill} fill, {per} a thread, {_fmt(ms)}" for (fill, per), ms in floors.items())
+        + f"; ingest_keys cold over the floor: "
+        + ", ".join(f"{fill} {k_cold[fill] / floor[fill]:.2f}x" for fill in FILLS if k_cold[fill] and floor[fill])
+        + f"; the earlier design read {EARLIER_INGEST_MS[0]:.4f} ms warm, {EARLIER_INGEST_MS[1]:.4f} dirty and "
+        f"{EARLIER_INGEST_MS[2]:.4f} clean on these buckets"
+    )
+    del got, base
+    return [
+        dict(name="ingest_scatter", route="cuda", source="src/repro_torch/csrc/ingest.cu",
+             replaces="src/repro/kernels/ingest/kernel.py:59", max_abs_err=err, ms=ms,
+             plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms),
+        dict(name="ingest_keys", route="cuda", source="src/repro_torch/csrc/ingest.cu",
+             replaces="src/repro/kernels/ingest/kernel.py:59", max_abs_err=key_err, ms=k_ms,
+             plain_ms=k_plain, bound_ms=k_bound, bound_by="bytes", library_ms=k_lib_ms),
+    ]
 
 
 # Calls per CUDA-event timing of the edge-query wrappers and their library
@@ -666,7 +805,7 @@ def phase_fused_ingest(torch, gen):
           f"library call updates counters, both registers and the bitmap (library_ms null)")
     # The adds and marks must compile to RED (no value returned), not ATOM.
     for source, kernel, ops in (("ingest_fused", "fused_ingest_kernel", "RED|ATOM|MATCH|VOTE|STG"),
-                                ("ingest", "ingest_scatter_kernel", "RED|ATOM")):
+                                ("ingest", "ingest_kernel", "RED|ATOM")):
         sass = sass_ops(source, kernel, ops)
         check("RED" in sass and "ATOM" not in sass, f"{kernel}: the adds are not all RED: {sass}")
         print(f"[chip_smoke] {source} SASS: {sass}")
@@ -817,7 +956,13 @@ def phase_countsketch(torch, gen):
     vals = (s.float() * gvec[None, :]).reshape(-1)
     library = lambda: torch.zeros(d * w, device="cuda").index_add_(0, flat, vals)  # noqa: E731
     library_ms, library_dev_ms = time_ms(library, 10), device_ms(library, 10, "index")
-    del flat, vals, library
+    # The second launch's library call: index_add_ of its 4,096 nonzero values.
+    nz = sparse.nonzero().squeeze(1)
+    sp_flat = (torch.arange(d, device="cuda")[:, None] * w + h[:, nz].long()).reshape(-1)
+    sp_vals = (s[:, nz].float() * sparse[None, nz]).reshape(-1)
+    sparse_library = lambda: torch.zeros(d * w, device="cuda").index_add_(0, sp_flat, sp_vals)  # noqa: E731
+    sparse_lib_ms, sparse_lib_dev = time_ms(sparse_library, 20), device_ms(sparse_library, 20, "index")
+    del flat, vals, library, sp_flat, sp_vals, sparse_library
     bound_ms = countsketch_bound_bytes(n, d, w) / PEAK_BYTES_PER_S * 1e3
     sparse_bytes = n * 4 + d * w * 4  # the same bytes; the zeros are read and skipped
     print(
@@ -827,7 +972,8 @@ def phase_countsketch(torch, gen):
         f"plain by {plain_err:.3g}, kernel off plain by {diff:.3g}); dense Gaussian: wrapper {ms:.4f} ms (device "
         f"{_fmt(dev_ms)}), bound {bound_ms:.5f} ms (4n + 4dw bytes); the step's second launch (a 4,096-sparse vector): "
         f"wrapper {sparse_ms:.4f} ms (device {_fmt(sparse_dev_ms)}), bound {sparse_bytes / PEAK_BYTES_PER_S * 1e3:.5f} "
-        f"ms; pre-hashed form {pre_ms:.4f} ms (device {_fmt(pre_dev_ms)}, bound "
+        f"ms, index_add_ of its {nz.numel()} nonzero values {sparse_lib_ms:.4f} ms (device {_fmt(sparse_lib_dev)}); "
+        f"pre-hashed form {pre_ms:.4f} ms (device {_fmt(pre_dev_ms)}, bound "
         f"{prehashed_bound_bytes(n, d, w) / PEAK_BYTES_PER_S * 1e3:.5f} ms); plain (hash + index_add_) "
         f"{plain_ms:.4f} ms; index_add_ on a precomputed flat index {library_ms:.4f} ms (device "
         f"{_fmt(library_dev_ms)})"
@@ -1440,30 +1586,48 @@ def profile_ingest_batch(torch, session, counted, fused: bool):
     live = session._live()
     keys = lambda x: keys_to_tensor(pad_bucket(x), "cuda")  # noqa: E731
     vals = lambda x: torch.from_numpy(pad_bucket(x)).cuda()  # noqa: E731
+    marginals = None
     if fused:
         name, kernel, label = "fused_ingest", "fused_ingest_kernel", "fused serve BASE"
         args = (keys(pre.src), keys(pre.dst), vals(pre.weights))
         batch = lambda: live.update_fused_(*args)  # noqa: E731
     else:
-        name, kernel, label = "ingest_scatter", "ingest_scatter_kernel", "serve BASE"
+        name, kernel, label = "ingest_keys", "ingest_kernel", "serve BASE"
         args = (keys(pre.src), keys(pre.dst), vals(pre.weights), keys(pre.src_unique), vals(pre.src_totals),
                 keys(pre.dst_unique), vals(pre.dst_totals))
         batch = lambda: live.update_preaggregated_(*args, backend=session.ingest_backend)  # noqa: E731
+        marginals = lambda: live.update_marginals_(*args[3:])  # noqa: E731
     torch.cuda.synchronize()
-    before = counted[name].launches
+    before = {k: f.launches for k, f in counted.items()}
     with AtenLog() as log:
         batch()
         torch.cuda.synchronize()
-    check(counted[name].launches == before + 1, f"{label} ingest batch: {name} not launched once")
-    for _ in range(3):  # now and then a trace comes back without its kernels
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            batch()
-            torch.cuda.synchronize()
-        kernels = [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
-                   if getattr(e, "device_time_total", 0.0) > 0]
-        if any(kernel in k for k, _, _ in kernels):
-            break
+    launched = {k: f.launches - before[k] for k, f in counted.items() if f.launches != before[k]}
+    check(launched == {name: 1}, f"{label} ingest batch: launches {launched}, not {name} once")
+
+    def trace(fn):
+        for _ in range(3):  # now and then a trace comes back without its kernels
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                # A first kernel of the session, left out: a session may come
+                # back without its first kernel record (device_ms).
+                torch.cuda._sleep(1000)
+                fn()
+                torch.cuda.synchronize()
+            found = [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
+                     if getattr(e, "device_time_total", 0.0) > 0 and "spin_kernel" not in e.key]
+            if fn is marginals or any(kernel in k for k, _, _ in found):
+                return found
+        return found
+
+    kernels = trace(batch)
     check(any(kernel in k for k, _, _ in kernels), f"{label} ingest batch: no {kernel} in the trace: {kernels}")
+    if marginals is not None:
+        # The counter side is the batch's kernels less the register side's.
+        n_batch, n_registers = sum(c for _, c, _ in kernels), sum(c for _, c, _ in trace(marginals))
+        check(n_batch - n_registers == 1, f"{label} ingest batch: {n_batch - n_registers} counter-side kernels "
+              f"({n_batch} in the batch, {n_registers} on the register side), not 1")
+        print(f"[chip_smoke] {label} ingest batch: the counter side {n_batch - n_registers} kernel (ingest_keys, "
+              f"hashing in the kernel; 13 before: 12 of the hash, 1 scatter), the register side {n_registers}")
     narrow = (torch.int32, torch.int16, torch.int8, torch.uint8, torch.float32, torch.float64)
     casts = [(op, dt) for op, dt in log.ops if op in ("aten._to_copy", "aten.copy_", "aten.to")
              and torch.int64 in dt and any(t in narrow for t in dt)]
@@ -1904,7 +2068,7 @@ def same_events(ev_a, ev_b, label):
     check(all(_same_results(x, y) for x, y in zip(ev_a, ev_b)), f"{label}: subscription results differ")
 
 
-def phase_durable_window(torch, serve, counted):
+def phase_durable_window(torch, serve, counted, rows):
     """The durable window serve BASE cell and its checks: (a) the windowed
     event-time serve on the kernels and on the plain backends, plus one late
     batch; (b) genesis replay of its WAL; (c) checkpoint plus WAL suffix on a
@@ -1915,7 +2079,9 @@ def phase_durable_window(torch, serve, counted):
 
     tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-durable-"))
     try:
-        kern, kev = window_serve(torch, serve, counted, tmp)
+        kern, kev, launches = window_serve(torch, serve, counted, tmp)
+        # The bucket entry's main path: one launch a (batch, slot) group.
+        rows["ingest_scatter"]["launches"] = launches["ingest_scatter"]
         window_replay(torch, serve, kern, kev, tmp)
         window_times(torch, serve, kern, tmp)
         del kern, kev
@@ -1958,6 +2124,7 @@ def window_serve(torch, serve, counted, tmp):
     launches = {name: counted[name].launches for name in ("ingest_scatter", "edge_query_min", "closure_step")}
     for name, count in launches.items():
         check(count > 0, f"durable window serve BASE: {name} was not launched")
+    check(counted["ingest_keys"].launches == 0, "durable window serve BASE: a slot group took the key entry")
     plain, pev, plain_s = run(SERVE_WINDOW + PLAIN_BACKENDS + ["--wal-dir", str(tmp / "wal-plain")])
     same_window(torch, kern, plain, "durable window serve BASE vs plain")
     same_events(kev, pev, "durable window serve BASE vs plain")
@@ -1981,7 +2148,7 @@ def window_serve(torch, serve, counted, tmp):
         f"({kern.engine.closure_refreshes} full rebuilds); the window materialized {kern.window_sums} times; "
         f"ring, registers, tracker and transcript identical to the plain run"
     )
-    return kern, kev
+    return kern, kev, launches
 
 
 def window_replay(torch, serve, kern, kev, tmp):
@@ -2039,8 +2206,12 @@ def window_times(torch, serve, kern, tmp):
     cols = win.template.col_hash(keys_to_tensor(dd, "cuda"))
     wt = torch.from_numpy(w).cuda()
     slot = win.slices[win.current]
-    grp_dev = device_ms(lambda: ingest_scatter(slot, rows, cols, wt), 20, "ingest_scatter_kernel")
+    group_add = lambda: ingest_scatter(slot, rows, cols, wt)  # noqa: E731
+    grp_dev, grp_cold = device_ms(group_add, 20, "ingest_kernel"), cold_pair(group_add, "ingest_kernel")
     grp_bound = ingest_bound_bytes(rows, wt) / PEAK_BYTES_PER_S * 1e3
+    grp_idx = (torch.arange(d, device="cuda")[:, None], rows, cols)
+    grp_lib = lambda: slot.index_put_(grp_idx, wt.expand(d, -1), accumulate=True)  # noqa: E731
+    lib_ms, lib_dev, lib_cold = time_ms(grp_lib, 20), device_ms(grp_lib, 20), cold_pair(grp_lib, None)
     wal = WriteAheadLog(tmp / "wal-timing")
     append_ms = []
     for a in range(0, args.edges, args.batch):
@@ -2054,7 +2225,8 @@ def window_times(torch, serve, kern, tmp):
         f"{sum_ms:.3f} ms a call (bound {sum_bound:.3f} ms, {100 * sum_bound / sum_ms:.1f}%), advance "
         f"{adv_ms:.3f} ms (bound {adv_bound:.3f} ms, {100 * adv_bound / adv_ms:.1f}%) by CUDA events; "
         f"one slot group's ingest kernel ({int(group.sum())} edges padded to {rows.shape[1]}) device "
-        f"{_fmt(grp_dev)} (bound {grp_bound:.5f} ms); WAL append of a {args.batch}-edge batch "
+        f"{_fmt(grp_dev)}, cold: {_cold(grp_cold)} (bound {grp_bound:.5f} ms), index_put_ on its buckets "
+        f"{lib_ms:.4f} ms (device {_fmt(lib_dev)}; cold: {_cold(lib_cold)}); WAL append of a {args.batch}-edge batch "
         f"({(args.batch + 1) * RECORD_SIZE / 1e6:.2f} MB, fsync each) median {float(np.median(append_ms)):.2f} ms, "
         f"max {max(append_ms):.2f} ms (host clock)"
     )
@@ -3163,6 +3335,7 @@ def main() -> int:
 
     counted = {
         "ingest_scatter": ingest_ops.ingest_scatter,
+        "ingest_keys": ingest_ops.ingest_keys,
         "edge_query_min": query_ops.edge_query_min,
         "closure_step": closure_ops.closure_step,
         "fused_ingest": fused_ops.fused_ingest,
@@ -3187,9 +3360,11 @@ def main() -> int:
     # The main path, at BASE, on the kernels (counts read from this run
     # only), then on the plain backends, which launch nothing.
     base, base_ev, base_s = drive(
-        ("ingest_scatter", "edge_query_min", "closure_step"),
+        ("ingest_keys", "edge_query_min", "closure_step"),
         lambda: timed_run(torch, lambda: serve.main(SERVE_BASE)),
     )
+    check(counted["ingest_scatter"].launches == 0,
+          f"serve BASE: the bucket entry launched {counted['ingest_scatter'].launches} times")
     plain, plain_ev, plain_s = timed_run(torch, lambda: serve.main(SERVE_BASE + PLAIN_BACKENDS))
     check_same(torch, base, base_ev, plain, plain_ev, "serve BASE vs plain")
     check(base.engine.closure_refreshes >= 1, "serve BASE: no closure build")
@@ -3200,13 +3375,14 @@ def main() -> int:
     check(rows["edge_query_min"]["launches"] == len(base_ev),
           f"serve BASE: {rows['edge_query_min']['launches']} edge-query launches for {len(base_ev)} ticks")
     n_batches = -(-flag(SERVE_BASE, "--edges") // flag(SERVE_BASE, "--batch"))
-    check(rows["ingest_scatter"]["launches"] == n_batches,
-          f"serve BASE: {rows['ingest_scatter']['launches']} ingest launches for {n_batches} batches")
+    check(rows["ingest_keys"]["launches"] == n_batches,
+          f"serve BASE: {rows['ingest_keys']['launches']} ingest_keys launches for {n_batches} batches")
     print(
         f"[chip_smoke] serve BASE: kernels {base_s:.3f} s, plain {plain_s:.3f} s (host wall clock, "
         f"build excluded); {len(base_ev)} ticks; {want_launches} closure launches "
         f"({base.engine.closure_refreshes} full rebuilds), {rows['edge_query_min']['launches']} edge-query "
-        f"launches, {rows['ingest_scatter']['launches']} ingest launches; counters, registers and transcript identical"
+        f"launches, {rows['ingest_keys']['launches']} ingest_keys launches (0 of the bucket entry); counters, "
+        f"registers and transcript identical"
     )
     profile_edge_tick(torch, base, SERVE_BASE, counted)
 
@@ -3287,7 +3463,7 @@ def main() -> int:
     # BASE (ingest_scatter once per slot group and retraction), its genesis
     # replay, a checkpoint plus WAL suffix, the small session against the
     # CPU, and the trainer's resume.
-    phase_durable_window(torch, serve, counted)
+    phase_durable_window(torch, serve, counted, rows)
     torch.cuda.empty_cache()
 
     # The multi-tenant fleet: 16 BASE tenants on one stacked ingest launch a

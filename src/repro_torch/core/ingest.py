@@ -22,6 +22,9 @@ Ingest-backend selection
              vectorized ``index_add_`` (the kernel's plain version).
 ``cuda``     The hand-written CUDA scatter (``repro_torch.kernels.ingest``);
              given CPU tensors its wrapper computes the plain version.
+             Batches given as keys (:meth:`IngestEngine.keys`, the serve
+             path's pre-aggregated pairs) take its key entry, which hashes
+             in the kernel: one launch a batch, mirrored edges included.
 ``auto``     ``cuda`` for counters on a CUDA device, ``scatter`` on the CPU.
              There is no environment override.
 
@@ -37,8 +40,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels.ingest.ops import ingest_scatter
-from repro_torch.kernels.ingest.ref import ingest_scatter_ref
+from repro_torch.kernels.ingest.ops import ingest_keys, ingest_scatter
+from repro_torch.kernels.ingest.ref import ingest_keys_ref, ingest_scatter_ref
 
 BACKENDS = ("scatter", "cuda")
 
@@ -68,6 +71,7 @@ def touched_row_keys(src, dst=None, cap: Optional[int] = None):
 
 
 _BACKEND_FNS = {"scatter": ingest_scatter_ref, "cuda": ingest_scatter}
+_KEY_FNS = {"scatter": ingest_keys_ref, "cuda": ingest_keys}
 
 
 def ingest(
@@ -102,6 +106,15 @@ class IngestEngine:
         return ingest(
             counters, rows, cols, weights, backend=self.backend, row_offset=row_offset
         )
+
+    def keys(self, counters, src, dst, weights, row_hash, col_hash, row_offset=0, mirror=False):
+        """Fold a batch of ``(src, dst)`` keys into ``counters`` in place,
+        hashed by ``row_hash`` and ``col_hash``, and with ``mirror`` the
+        edges ``(dst, src)`` too: :func:`ingest` of the hashed batch, in one
+        launch of the kernel's key entry on ``cuda``; ``scatter`` hashes,
+        then scatters."""
+        fn = _KEY_FNS[resolve_backend(self.backend, counters.device)]
+        return fn(counters, src, dst, weights.to(torch.float32), row_hash, col_hash, row_offset, mirror)
 
 
 # ---------------------------------------------------------------------------

@@ -265,16 +265,24 @@ class GLavaSketch:
         """Ingest a HOST-COLLAPSED batch (``preaggregate_host``) in place:
         one counter slot per distinct pair, one register slot per distinct
         endpoint.  Zero-weight padding slots are no-ops in the counting
-        regime, so callers may pad all seven arrays freely."""
-        weights = weights.to(torch.float32)
-        engine = IngestEngine(backend)
-        r, c = self.hash_edges(src, dst)
-        engine(self.counters, r, c, weights)
+        regime, so callers may pad all seven arrays freely.  The counters
+        take the pairs as keys (:meth:`IngestEngine.keys`: on the card one
+        launch that hashes them, the mirrored pairs of an undirected sketch
+        included); the registers take the marginals
+        (:meth:`update_marginals_`)."""
+        IngestEngine(backend).keys(
+            self.counters, src, dst, weights, self.row_hash, self.col_hash, mirror=not self.config.directed
+        )
+        return self.update_marginals_(src_unique, src_totals, dst_unique, dst_totals)
+
+    def update_marginals_(self, src_unique, src_totals, dst_unique, dst_totals) -> "GLavaSketch":
+        """The register side of :meth:`update_preaggregated_`, in place: each
+        distinct source's total into ``row_flows``, each distinct
+        destination's into ``col_flows``, and for an undirected sketch the
+        mirrored roles too."""
         scatter_register(self.row_flows, self.row_hash(src_unique), src_totals)
         scatter_register(self.col_flows, self.col_hash(dst_unique), dst_totals)
         if not self.config.directed:
-            r2, c2 = self.hash_edges(dst, src)
-            engine(self.counters, r2, c2, weights)
             scatter_register(self.row_flows, self.row_hash(dst_unique), dst_totals)
             scatter_register(self.col_flows, self.col_hash(src_unique), src_totals)
         return self

@@ -1,9 +1,13 @@
-"""Plain PyTorch version of the ingest scatter (port of
+"""Plain PyTorch versions of the ingest scatter (port of
 ``src/repro/kernels/ingest/ref.py``): the paper's per-edge scatter
-``M_i[r_i(b), c_i(b)] += w(b)``, vectorized, in place."""
+``M_i[r_i(b), c_i(b)] += w(b)``, vectorized, in place, on buckets hashed
+before (:func:`ingest_scatter_ref`) or on the keys, hashed here
+(:func:`ingest_keys_ref`)."""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.hashing import HashFamily
 
 
 def ingest_scatter_ref(
@@ -25,4 +29,23 @@ def ingest_scatter_ref(
     d_idx = torch.arange(d, device=counters.device)[:, None]
     flat = ((d_idx * wr + safe_r) * wc + cols.long()).reshape(-1)
     counters.view(-1).index_add_(0, flat, w.reshape(-1))
+    return counters
+
+
+def ingest_keys_ref(
+    counters: torch.Tensor,   # (d, wr_local, wc) float32, updated in place
+    src: torch.Tensor,        # (B,) int64 holding uint32 keys
+    dst: torch.Tensor,        # (B,) int64 holding uint32 keys
+    weights: torch.Tensor,    # (B,) float32
+    row_hash: HashFamily,     # d hashes onto the GLOBAL rows
+    col_hash: HashFamily,     # d hashes onto [0, wc)
+    row_offset: int = 0,
+    mirror: bool = False,
+) -> torch.Tensor:
+    """The reference's route: hash ``(src, dst)`` by both families, then
+    :func:`ingest_scatter_ref`; with ``mirror`` (an undirected sketch) the
+    mirrored edges ``(dst, src)`` too, by a second scatter."""
+    ingest_scatter_ref(counters, row_hash(src), col_hash(dst), weights, row_offset)
+    if mirror:
+        ingest_scatter_ref(counters, row_hash(dst), col_hash(src), weights, row_offset)
     return counters

@@ -16,7 +16,7 @@ from repro_torch.kernels.countsketch.ref import countsketch_median_ref, countske
 from repro_torch.kernels.flow import ops as flow_ops
 from repro_torch.kernels.flow.ref import flows_ref
 from repro_torch.kernels.ingest import ops as ingest_ops
-from repro_torch.kernels.ingest.ref import ingest_scatter_ref
+from repro_torch.kernels.ingest.ref import ingest_keys_ref, ingest_scatter_ref
 from repro_torch.kernels.ingest_fused import ops as fused_ops
 from repro_torch.kernels.ingest_fused.ref import fused_ingest_ref
 from repro_torch.kernels.ingest_stacked import ops as stacked_ops
@@ -1109,3 +1109,174 @@ def test_distributed_plane_on_the_card(cuda, tmp_path, backend, mesh_shape):
                                      mesh_shape=mesh_shape):
         assert all(res["same"].values()), res["same"]
         assert res["launches"] == [1, 1, 2], res["launches"]
+
+
+# The key entry of B1 (``ingest_keys``): keys at the edges of the hash's
+# arithmetic, p = 2^31 - 1.
+MERSENNE = (1 << 31) - 1
+EDGE_KEYS = [0, 1, MERSENNE - 1, MERSENNE, MERSENNE + 1, 2 * MERSENNE, 2 * MERSENNE + 1, 2**32 - 2, 2**32 - 1]
+
+
+def _key_family(seed, d, w):
+    rng = np.random.default_rng(seed)
+    return HashFamily.from_host(rng.integers(1, MERSENNE, d), rng.integers(0, MERSENNE, d), w, "cuda")
+
+
+def _key_batch(seed, b, pad=0, float_w=False):
+    """(B,) int64 keys over the whole uint32 range with the edge keys planted,
+    integer weights of both signs (or Gaussian ones), ``pad`` trailing
+    slots of key 0 and weight 0, on the card."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, 2**32, b, dtype=np.uint64).astype(np.int64)
+    dst = rng.integers(0, 2**32, b, dtype=np.uint64).astype(np.int64)
+    n = min(b, len(EDGE_KEYS))
+    src[:n], dst[:n] = EDGE_KEYS[:n], EDGE_KEYS[::-1][:n]
+    w = rng.normal(0, 1, b) if float_w else rng.integers(-4, 9, b)
+    w = w.astype(np.float32)
+    if pad:
+        src[-pad:], dst[-pad:], w[-pad:] = 0, 0, 0.0
+    return (torch.from_numpy(x).cuda() for x in (src, dst, w))
+
+
+@pytest.mark.parametrize("mirror", [False, True], ids=["directed", "mirrored"])
+@pytest.mark.parametrize("d,wr,wc,distinct,b", [
+    (1, 64, 64, False, 33), (5, 8192, 8192, False, 32768), (3, 1000, 700, True, 5000), (9, 256, 300, True, 4096),
+    (10, 512, 512, False, 20000),
+])
+def test_ingest_keys_kernel_bit_equals_plain_version(cuda, d, wr, wc, distinct, b, mirror):
+    """The key entry against its plain version (the families' hash, then the
+    plain scatter): edge keys, padding, negative weights, power-of-two and
+    other widths, distinct families, depths past the 8 inline rows."""
+    row = _key_family(d, d, wr)
+    col = _key_family(d + 100, d, wc) if distinct else row
+    src, dst, w = _key_batch(b, b, pad=b // 7)
+    base = torch.randint(0, 1000, (d, wr, wc), generator=cuda, device="cuda").float()
+    before = ingest_ops.ingest_keys.launches
+    got = ingest_ops.ingest_keys(base.clone(), src, dst, w, row, col, mirror=mirror)
+    assert ingest_ops.ingest_keys.launches == before + 1
+    want = ingest_keys_ref(base.clone(), src, dst, w, row, col, mirror=mirror)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mirror", [False, True], ids=["directed", "mirrored"])
+@pytest.mark.parametrize("offset", [0, 256, 700, 1024])
+def test_ingest_keys_kernel_with_row_offset(cuda, offset, mirror):
+    """A shard of 256 rows of a 1,024-row family at ``row_offset``: rows
+    outside it add nothing."""
+    row, col = _key_family(1, 3, 1024), _key_family(2, 3, 300)
+    src, dst, w = _key_batch(3, 6000, pad=100)
+    base = torch.randint(0, 1000, (3, 256, 300), generator=cuda, device="cuda").float()
+    got = ingest_ops.ingest_keys(base.clone(), src, dst, w, row, col, row_offset=offset, mirror=mirror)
+    want = ingest_keys_ref(base.clone(), src, dst, w, row, col, row_offset=offset, mirror=mirror)
+    assert torch.equal(got, want)
+    assert offset < 1024 or torch.equal(got, base)
+
+
+def test_ingest_keys_kernel_into_a_ring_slot_view(cuda):
+    """A ring slot's view (``slices[slot]``) is a valid target; the other
+    slots stay as they were."""
+    ring = torch.randint(0, 1000, (4, 5, 512, 512), generator=cuda, device="cuda").float()
+    fam = _key_family(4, 5, 512)
+    src, dst, w = _key_batch(4, 8192, pad=50)
+    want = ingest_keys_ref(ring[2].clone(), src, dst, w, fam, fam, mirror=True)
+    before = ring.clone()
+    ingest_ops.ingest_keys(ring[2], src, dst, w, fam, fam, mirror=True)
+    assert torch.equal(ring[2], want)
+    for slot in (0, 1, 3):
+        assert torch.equal(ring[slot], before[slot])
+
+
+def test_ingest_keys_kernel_on_empty_and_all_zero_batches(cuda):
+    fam = _key_family(5, 3, 256)
+    base = torch.randint(0, 1000, (3, 256, 256), generator=cuda, device="cuda").float()
+    src, dst, w = _key_batch(5, 3000)
+    for s, t, wt in ((src[:0], dst[:0], w[:0]), (src, dst, torch.zeros_like(w))):
+        for mirror in (False, True):
+            got = ingest_ops.ingest_keys(base.clone(), s, t, wt, fam, fam, mirror=mirror)
+            torch.cuda.synchronize()
+            assert torch.equal(got, base)
+
+
+def test_ingest_keys_kernel_float_weights_close(cuda):
+    """Float weights: atomics add in any order (``rtol=1e-6, atol=1e-5``)."""
+    row, col = _key_family(6, 2, 128), _key_family(7, 2, 96)
+    src, dst, w = _key_batch(6, 7000, float_w=True)
+    src, dst = src % 300, dst % 300  # repeated cells
+    got = ingest_ops.ingest_keys(torch.zeros(2, 128, 96, device="cuda"), src, dst, w, row, col, mirror=True)
+    want = ingest_keys_ref(torch.zeros(2, 128, 96, device="cuda"), src, dst, w, row, col, mirror=True)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+
+
+def test_ingest_keys_kernel_launches_on_the_current_stream(cuda):
+    """Its weights are written behind a sleep on a side stream, so a launch
+    on another stream would read them before."""
+    fam = _key_family(8, 3, 256)
+    src, dst, w = _key_batch(8, 5000)
+    base = torch.randint(0, 1000, (3, 256, 256), generator=cuda, device="cuda").float()
+    got = base.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(1_000_000)
+        w += 1
+        ingest_ops.ingest_keys(got, src, dst, w, fam, fam, mirror=True)
+    side.synchronize()
+    assert torch.equal(got, ingest_keys_ref(base.clone(), src, dst, w, fam, fam, mirror=True))
+
+
+def test_ingest_keys_wrapper_refuses_bad_operands_on_the_card(cuda):
+    fam = _key_family(9, 2, 64)
+    counters = torch.zeros(2, 64, 64, device="cuda")
+    src, dst, w = _key_batch(9, 100)
+    bad = [
+        (src.int(), dst, w, fam), (src, dst.float(), w, fam), (src, dst, w.double(), fam), (src, dst, w.half(), fam),
+        (src.cpu(), dst, w, fam), (src, dst, w, fam.to("cpu")),
+    ]
+    for s, t, wt, f in bad:
+        with pytest.raises(ValueError):
+            ingest_ops.ingest_keys(counters, s, t, wt, f, f)
+    assert not counters.any()
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("d", [1, 5, 8, 9, 17])
+def test_ingest_bucket_entry_bit_equal_by_depth_and_index_dtype(cuda, d, index_dtype):
+    """The bucket entry's body (one thread a slot, its d sketches' buckets
+    loaded a chunk of 8 at a time): -1 rows, weight-0 slots, negative
+    weights."""
+    b, wr, wc = 9000, 300, 200
+    base = torch.randint(0, 1000, (d, wr, wc), generator=cuda, device="cuda").float()
+    rows = torch.randint(0, wr, (d, b), generator=cuda, device="cuda", dtype=index_dtype)
+    rows[torch.rand((d, b), generator=cuda, device="cuda") < 0.1] = -1
+    cols = torch.randint(0, wc, (d, b), generator=cuda, device="cuda", dtype=index_dtype)
+    w = torch.randint(-3, 9, (b,), generator=cuda, device="cuda").float()
+    w[torch.rand(b, generator=cuda, device="cuda") < 0.2] = 0.0
+    got = ingest_ops.ingest_scatter(base.clone(), rows, cols, w)
+    assert torch.equal(got, ingest_scatter_ref(base.clone(), rows, cols, w))
+
+
+@pytest.mark.parametrize("directed", [True, False], ids=["directed", "undirected"])
+def test_update_preaggregated_on_card_one_key_launch_equals_cpu(cuda, directed):
+    """``GLavaSketch.update_preaggregated_`` on the card: one key-entry launch
+    a batch (mirrored pairs included), no bucket-entry launch, and the CPU's
+    counters and registers."""
+    from repro_torch.core.hashing import keys_to_tensor
+    from repro_torch.core.ingest import pad_bucket, preaggregate_host
+    from repro_torch.core.sketch import GLavaSketch, SketchConfig
+
+    cfg = SketchConfig(depth=4, width_rows=512, width_cols=256, directed=directed)
+    rng = np.random.default_rng(10)
+    src = rng.zipf(1.3, 20000).astype(np.uint32) % 3000
+    dst = rng.zipf(1.3, 20000).astype(np.uint32) % 3000
+    pre = preaggregate_host(src, dst, rng.integers(-2, 7, 20000).astype(np.float32))
+    fields = ("src", "dst", "weights", "src_unique", "src_totals", "dst_unique", "dst_totals")
+    host = [pad_bucket(getattr(pre, f)) for f in fields]
+    cpu = GLavaSketch.empty(cfg, 3)
+    gpu = cpu.to("cuda")
+    keys, scatters = ingest_ops.ingest_keys.launches, ingest_ops.ingest_scatter.launches
+    gpu.update_preaggregated_(*(keys_to_tensor(x, "cuda") if x.dtype == np.uint32 else torch.from_numpy(x).cuda()
+                                for x in host))
+    assert ingest_ops.ingest_keys.launches == keys + 1 and ingest_ops.ingest_scatter.launches == scatters
+    cpu.update_preaggregated_(*(keys_to_tensor(x) if x.dtype == np.uint32 else torch.from_numpy(x) for x in host))
+    for name in ("counters", "row_flows", "col_flows"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name))
