@@ -139,6 +139,24 @@ before and read just after:
   at every step each rank's table, reduced table, parameters, sketch
   momentum, error feedback and loss bit-equal to the emulation's; wall
   times, all-reduce times and peak memory a rank.  The kernels are built before any rank is spawned.
+- durable distributed serve BASE: the same traffic through a mesh session
+  with a WAL and checkpoints (one log of the global stream, written by rank
+  0): a checkpoint after batch 5, a crash after batch 8, then ``seek``,
+  ``recover()`` and the rest; (i) one NCCL rank, whose counters, registers,
+  consumed transcript and log records equal the uninterrupted single
+  session's (B1 once a batch and once a replayed batch), with the seconds
+  of ``recover()``, of its restore and replay and rank 0's append ms; (ii)
+  four gloo ranks on the card, each shard equal to its rows of (i); (iii)
+  ``merge()`` of two one-rank mesh sessions fed the halves of the stream,
+  of a local half into a mesh session and of a mesh half into a local one,
+  each equal to the whole-stream session;
+- gnn sketch sampling (``launch/gnn_sketch_sampling.py``): the example's
+  settings on the card for 120 steps (B1 once an observed block), the first
+  5 losses within rtol 1e-4 of the CPU's run, the loss falling and the final
+  seed accuracy above chance; then graphsage-reddit's widths at the
+  minibatch_lg shape on a synthetic graph of 232,965 nodes and 114,615,892
+  edges streamed through a BASE degree sketch, 8 steps: the median step ms
+  and the peak GiB.
 
 Output: the card's name and power limit as ``nvidia-smi`` reports them, the
 build log, one line per phase, one JSON line listing every kernel (launches
@@ -215,6 +233,21 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# The spin kernels a profiler session starts with, left out of its readings:
+# a session may come back without the records of the kernels it saw first
+# (the serve BASE ingest batch's B1 record, or the edge tick's first hash
+# kernel, in some processes), so the work it reads starts after them.
+PREROLL_SPINS, PREROLL_CYCLES = 8, 250_000
+
+
+def trace_preroll(torch) -> None:
+    """Start a profiler session with ``PREROLL_SPINS`` spin kernels (about a
+    millisecond in all), then wait for them."""
+    for _ in range(PREROLL_SPINS):
+        torch.cuda._sleep(PREROLL_CYCLES)
+    torch.cuda.synchronize()
+
+
 def device_ms(fn, reps: int, kernel: Optional[str] = None, exclude=()):
     """Mean device milliseconds per call of the CUDA kernels whose names hold
     ``kernel`` (of every kernel and copy when ``kernel`` is None, but those
@@ -229,9 +262,7 @@ def device_ms(fn, reps: int, kernel: Optional[str] = None, exclude=()):
 
     def trace(calls):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            # A first kernel of the session, left out of the counts: a session
-            # may come back without its first kernel record.
-            torch.cuda._sleep(1000)
+            trace_preroll(torch)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -1530,10 +1561,11 @@ def profile_edge_tick(torch, session, argv, counted):
     torch.cuda.synchronize()
     for _ in range(3):  # now and then a trace comes back without its kernels
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trace_preroll(torch)
             tick()
             torch.cuda.synchronize()
         kernels = [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
-                   if getattr(e, "device_time_total", 0.0) > 0]
+                   if getattr(e, "device_time_total", 0.0) > 0 and "spin_kernel" not in e.key]
         if any("multi_query_min_kernel" in k for k, _, _ in kernels):
             break
     check(any("multi_query_min_kernel" in k for k, _, _ in kernels), f"edge tick: no B2 kernel in the trace: {kernels}")
@@ -1608,9 +1640,7 @@ def profile_ingest_batch(torch, session, counted, fused: bool):
     def trace(fn):
         for _ in range(3):  # now and then a trace comes back without its kernels
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                # A first kernel of the session, left out: a session may come
-                # back without its first kernel record (device_ms).
-                torch.cuda._sleep(1000)
+                trace_preroll(torch)
                 fn()
                 torch.cuda.synchronize()
             found = [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
@@ -3271,6 +3301,353 @@ def phase_distributed(torch, serve, rows, argv=SERVE_BASE, device="cuda", backen
     return ranks, train
 
 
+# Durable distributed serve BASE: a checkpoint after this many batches, a
+# crash (the session dropped, no checkpoint) after this many.
+DURABLE_CHECKPOINT_AT, DURABLE_CRASH_AT = 5, 8
+DURABLE_KERNELS = ("ingest_scatter", "edge_query_cells", "closure_step")
+
+
+def median(xs) -> float:
+    import numpy as np
+
+    return float(np.median(xs))
+
+
+def log_records_digest(wal_dir: Path) -> str:
+    """SHA-256 of a WAL's records in seq order: every segment's bytes after
+    its 16-byte header (a crash opens a new segment where an uninterrupted
+    run goes on writing the old one; the records are the same bytes)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for seg in sorted(wal_dir.glob("wal-*.seg")):
+        h.update(seg.read_bytes()[16:])
+    return h.hexdigest()
+
+
+def durable_serve(torch, serve, argv, device, workdir: Path, mesh=None, crash: bool = True):
+    """serve's traffic (the flags ``argv``) through a durable session (a mesh
+    session when ``mesh`` is given) with ``wal_dir`` and ``checkpoint_dir``
+    under ``workdir``: the standing workload ticks every ``--every`` batches,
+    a checkpoint after batch ``DURABLE_CHECKPOINT_AT``; with ``crash``, the
+    session is dropped after batch ``DURABLE_CRASH_AT`` and a fresh one
+    subscribes, seeks to the consumed tick, recovers and finishes the stream.
+    Returns the final session and digests of its state, the consumed
+    transcript and the log's records, the report, the seconds of
+    ``recover()`` and of its restore, and the host ms of each of this rank's
+    appends (rank 0 alone appends on a mesh)."""
+    from repro_torch.api import GraphStream
+
+    args = serve.build_parser().parse_args(argv)
+    data, _, workload = serve.traffic(args)
+    spans = [(lo, min(args.edges, lo + args.batch)) for lo in range(0, args.edges, args.batch)]
+    dirs = dict(wal_dir=str(workdir / "wal"), checkpoint_dir=str(workdir / "ckpt"))
+    appends = []
+
+    def durable():
+        gs = GraphStream.open(serve._config(args), device=device, mesh=mesh, **dirs)
+        inner = gs._wal.append_edges
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            seq = inner(*a, **kw)
+            appends.append(1e3 * (time.perf_counter() - t0))
+            return seq
+
+        gs._wal.append_edges = timed
+        return gs, gs.subscribe(workload, every=args.every, name="mixed-workload")
+
+    def feed(gs, sub, part, events):
+        for i, (lo, hi) in part:
+            gs.ingest(data["src"][lo:hi], data["dst"][lo:hi], data["weight"][lo:hi])
+            events.extend(sub.poll())
+            if i + 1 == DURABLE_CHECKPOINT_AT:
+                gs.checkpoint()
+
+    numbered = list(enumerate(spans))
+    cut = DURABLE_CRASH_AT if crash else len(spans)
+    gs, sub = durable()
+    events = []
+    feed(gs, sub, numbered[:cut], events)
+    report = recover_s = restore_s = None
+    if crash:
+        consumed = sub.ticks
+        del gs, sub
+        if device != "cpu":
+            release(torch)
+        gs, sub = durable()
+        sub.seek(consumed)
+        inner_restore, spent = gs.restore, []
+
+        def timed_restore(*a, **kw):
+            t0 = time.perf_counter()
+            out = inner_restore(*a, **kw)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            spent.append(time.perf_counter() - t0)
+            return out
+
+        gs.restore = timed_restore
+        t0 = time.perf_counter()
+        report = gs.recover()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        recover_s, restore_s = time.perf_counter() - t0, spent[0]
+        events.extend(sub.poll())
+        feed(gs, sub, numbered[cut:], events)
+    gs.flush()
+    whole = gs.sketch
+    return {
+        "session": gs,
+        "counters": digest(whole.counters),
+        "registers": digest(whole.row_flows, whole.col_flows),
+        "shard": digest(gs._sketch.counters),
+        "transcript": transcript_digest(events),
+        "events": len(events),
+        "log": log_records_digest(workdir / "wal"),
+        "report": None if report is None else (report.step, report.mutations_replayed, report.epoch, report.wal_seq),
+        "recover_s": recover_s,
+        "restore_s": restore_s,
+        "append_ms": appends,
+        "batches": len(spans),
+    }
+
+
+def durable_rank(rank, world, tmp, device, argv):
+    """(ii) One rank of the durable mesh session on ``DIST_MESH``, the log
+    and checkpoints in the ranks' shared directory: digests, report, times
+    and this rank's launches."""
+    import torch
+
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.launch import serve
+
+    rank_device(torch, device)
+    mesh = Mesh(DIST_MESH, ("data", "model"))
+    kernels = counted_kernels()
+    for f in kernels.values():
+        f.launches = 0
+    t0 = time.time()
+    out = durable_serve(torch, serve, argv, device, Path(tmp) / "durable", mesh=mesh)
+    out["wall_s"] = time.time() - t0
+    out["launches"] = {name: kernels[name].launches for name in DURABLE_KERNELS}
+    out["coords"] = [mesh.coords["data"], mesh.coords["model"]]
+    del out["session"]
+    return out
+
+
+def merge_checks(torch, serve, argv, mesh, device):
+    """(iii) ``merge()`` with a mesh session on either side, held to the
+    whole-stream session: two mesh sessions fed the halves of the stream,
+    merged; a local session's half into a mesh session; a mesh session's
+    half into a local session.  Returns the seconds of each merge."""
+    from repro_torch.api import GraphStream
+
+    args = serve.build_parser().parse_args(argv)
+    data, _, _ = serve.traffic(args)
+    spans = [(lo, min(args.edges, lo + args.batch)) for lo in range(0, args.edges, args.batch)]
+    half = len(spans) // 2
+
+    def fed(part, on_mesh):
+        gs = GraphStream.open(serve._config(args), device=device, mesh=mesh if on_mesh else None)
+        for lo, hi in part:
+            gs.ingest(data["src"][lo:hi], data["dst"][lo:hi], data["weight"][lo:hi])
+        return gs
+
+    whole = fed(spans, False).sketch
+    times = {}
+    for name, (first, second) in {"mesh into mesh": (True, True), "local into mesh": (True, False),
+                                  "mesh into local": (False, True)}.items():
+        a, b = fed(spans[:half], first), fed(spans[half:], second)
+        before = b.sketch
+        t0 = time.perf_counter()
+        a.merge(b)
+        merged = a.sketch
+        times[name] = time.perf_counter() - t0
+        for f in ("counters", "row_flows", "col_flows"):
+            check(torch.equal(getattr(merged, f), getattr(whole, f)), f"merge {name}: {f} differ from the whole stream's")
+            check(torch.equal(getattr(b.sketch, f), getattr(before, f)), f"merge {name}: the merged-in session changed")
+        check(a.stats.edges_ingested == args.edges, f"merge {name}: {a.stats.edges_ingested} edges counted")
+        del a, b, before, merged
+        if device != "cpu":
+            release(torch)
+    return times
+
+
+def phase_durable_distributed(torch, serve, argv=SERVE_BASE, device="cuda", backend="nccl"):
+    """Durable distributed serve BASE: (i) one ``backend`` rank (NCCL on the
+    card), a (1, 1) mesh, in this process: checkpoint after batch 5, crash
+    after batch 8, ``seek`` + ``recover()`` + the rest, against the
+    uninterrupted single session with the same WAL and checkpoint (counters,
+    registers, consumed transcript, the log's records); (ii) the same on
+    four gloo ranks on one card, a (2, 2) mesh, against (i); (iii) the
+    three ``merge()`` pairings on one-rank meshes against the whole-stream
+    session.  Each run's launches are counted from 0."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh import Mesh
+
+    cuda = device != "cpu"
+    kernels = counted_kernels()
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-durable-"))
+    try:
+        single = durable_serve(torch, serve, argv + ["--device", device], device, tmp / "single", crash=False)
+        del single["session"]
+        if cuda:
+            release(torch)
+            torch.cuda.set_device(0)
+        dist.init_process_group(backend, store=dist.FileStore(str(tmp / "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = Mesh((1, 1), ("data", "model"))
+            for f in kernels.values():
+                f.launches = 0
+            one = durable_serve(torch, serve, argv + ["--device", device], device, tmp / "one", mesh=mesh)
+            launches = {name: kernels[name].launches for name in DURABLE_KERNELS}
+            sk = one.pop("session")._sketch
+            wr_local = sk.counters.shape[1] // DIST_MESH[1]
+            want_shards = [digest(sk.counters[:, m * wr_local:(m + 1) * wr_local]) for m in range(DIST_MESH[1])]
+            del sk
+            if cuda:
+                release(torch)
+            for f in kernels.values():
+                f.launches = 0
+            merges = merge_checks(torch, serve, argv + ["--device", device], mesh, device)
+            merge_launches = kernels["ingest_scatter"].launches
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n = one["batches"]
+    replayed = DURABLE_CRASH_AT - DURABLE_CHECKPOINT_AT
+    for key in ("counters", "registers", "transcript", "log"):
+        check(one[key] == single[key], f"durable distributed serve BASE (i): {key} differ from the single session's")
+    check(one["report"] == (DURABLE_CHECKPOINT_AT, replayed, DURABLE_CRASH_AT, one["report"][3]),
+          f"durable distributed serve BASE (i): report {one['report']}")
+    check(not cuda or launches["ingest_scatter"] == n + replayed,
+          f"durable distributed serve BASE (i): {launches['ingest_scatter']} ingest_scatter launches for {n} batches "
+          f"and {replayed} replayed")
+    check(not cuda or all(v > 0 for v in launches.values()), f"durable distributed serve BASE (i): launches {launches}")
+    check(not cuda or merge_launches > 0, "merge: ingest_scatter was not launched")
+    med = median(one["append_ms"])
+    print(
+        f"[chip_smoke] durable distributed serve BASE (i) {backend}, 1 rank, (1, 1) mesh: checkpoint after batch "
+        f"{DURABLE_CHECKPOINT_AT}, crash after batch {DURABLE_CRASH_AT}, recover() {one['recover_s']:.3f} s (restore "
+        f"{one['restore_s']:.3f} s, replay of {replayed} batches {one['recover_s'] - one['restore_s']:.3f} s; host "
+        f"wall clock), rank 0's appends {med:.3f} ms median, {max(one['append_ms']):.3f} ms max over "
+        f"{len(one['append_ms'])} (fsync each); launches {launches}; report {one['report']}; counters, registers, "
+        f"consumed transcript ({one['events']} events) and the log's records equal to the uninterrupted single "
+        f"session's"
+    )
+    t0 = time.time()
+    ranks = spawn_ranks(durable_rank, DIST_MESH[0] * DIST_MESH[1], device, (argv + ["--device", device],))
+    spawn_s = time.time() - t0
+    for rank, res in enumerate(ranks):
+        label = f"durable distributed serve BASE (ii): rank {rank}"
+        check(res["shard"] == want_shards[res["coords"][1]], f"{label}: its shard differs from its rows of (i)")
+        for key in ("counters", "registers", "transcript", "log", "report"):
+            check(res[key] == one[key], f"{label}: {key} differ from (i)")
+        check(res["launches"] == launches, f"{label}: launches {res['launches']}, (i) {launches}")
+    walls, recovers, restores = (", ".join(f"{r[k]:.2f}" for r in ranks) for k in ("wall_s", "recover_s", "restore_s"))
+    print(
+        f"[chip_smoke] durable distributed serve BASE (ii) gloo, {len(ranks)} ranks on one card, {DIST_MESH} mesh, "
+        f"all {n} batches (no cut): {walls} s by rank ({spawn_s:.1f} s with the ranks' start); recover() {recovers} "
+        f"s by rank (restore {restores}); rank 0's appends {median(ranks[0]['append_ms']):.3f} ms median; launches "
+        f"per rank {ranks[0]['launches']}; shards equal to (i)'s rows, registers, transcripts, reports and the log "
+        f"equal"
+    )
+    print(
+        f"[chip_smoke] durable distributed merge BASE (iii), (1, 1) meshes: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in merges.items())
+        + f" (host wall clock, the gather of a mesh operand included); each equal to the whole-stream session, the "
+        f"merged-in session unchanged; {merge_launches} ingest_scatter launches"
+    )
+    return one, ranks
+
+
+# The GNN path: examples/gnn_sketch_sampling.py's settings, then the
+# published widths of configs/graphsage_reddit.py at the minibatch_lg shape
+# (src/repro/configs/base.py:87-97) on a synthetic citation graph of its
+# size, its edges streamed through a BASE degree sketch.
+GNN_EXAMPLE_STEPS = 120
+GNN_LOSS_RTOL = 1e-4  # the card's float32 sums (atomics, other GEMM orders) against the CPU's, 5 steps
+GNN_LG = dict(n_nodes=232_965, n_edges=114_615_892, d_feat=602, n_classes=41, d_hidden=128, fanouts=(15, 10),
+              batch=1024)
+GNN_LG_STEPS = 8
+GNN_LG_OBSERVE = 1 << 20
+
+
+def phase_gnn(torch, rows, device="cuda", lg=GNN_LG, lg_steps=GNN_LG_STEPS):
+    """The sketch-sampled GraphSAGE path (``launch/gnn_sketch_sampling.py``):
+    the example's settings on the card, 120 steps (B1 once an observed
+    block), its first 5 losses against the CPU's run of the same seed, the
+    loss falling and the final seed accuracy above chance; then
+    graphsage-reddit's widths at the minibatch_lg shape, a few steps, with
+    the median step ms and the peak GiB."""
+    import numpy as np
+
+    from repro_torch.configs.glava import BASE
+    from repro_torch.kernels.ingest import ops as ingest_ops
+    from repro_torch.launch import gnn_sketch_sampling as gnn
+
+    b1 = ingest_ops.ingest_scatter
+    cuda = device != "cpu"
+    lines = []
+    b1.launches = 0
+    run = gnn.main(device=device, steps=GNN_EXAMPLE_STEPS, log=lines.append)
+    launches = b1.launches
+    cpu = gnn.main(device="cpu", steps=5, log=lambda line: None)
+    for line in lines:
+        print(f"[chip_smoke] {line}")
+    want = -(-gnn.E // gnn.OBSERVE_BATCH)
+    check(not cuda or launches == want, f"gnn: {launches} ingest_scatter launches for {want} observed blocks")
+    check(np.array_equal(run.estimates, cpu.estimates), "gnn: degree estimates differ from the CPU's")
+    check(np.allclose(run.losses[:5], cpu.losses, rtol=GNN_LOSS_RTOL, atol=0.0),
+          f"gnn: first losses {run.losses[:5]} differ from the CPU's {cpu.losses}")
+    check(all(np.isfinite(run.losses)) and np.mean(run.losses[-10:]) < np.mean(run.losses[:10]),
+          f"gnn: the loss does not fall: {run.losses[:3]} ... {run.losses[-3:]}")
+    chance = 1.0 / gnn.C
+    check(run.accs[-1] > chance, f"gnn: final seed accuracy {run.accs[-1]} not above chance {chance}")
+    err = float(np.max(np.abs(np.asarray(run.losses[:5]) - np.asarray(cpu.losses))))
+    print(
+        f"[chip_smoke] gnn sketch sampling, the example's settings (N={gnn.N:,}, E={gnn.E:,}, F={gnn.F}, C={gnn.C}, "
+        f"sketch {gnn.SKETCH.depth}x{gnn.SKETCH.width_rows}x{gnn.SKETCH.width_cols}, fanouts {gnn.FANOUTS}, batch "
+        f"{gnn.BATCH}, {GNN_EXAMPLE_STEPS} steps): ingest_scatter {launches} launches; loss {run.losses[0]:.4f} -> "
+        f"{run.losses[-1]:.4f}; final seed accuracy {run.accs[-1]:.2f} (chance {chance:.2f}); first 5 losses within "
+        f"{err:.2e} of the CPU run (rtol {GNN_LOSS_RTOL}), degree estimates equal; step {1e3 * median(run.step_s):.2f} "
+        f"ms median (host wall clock, ending in a host read of the loss)"
+    )
+    del run, cpu
+    if cuda:
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+    b1.launches = 0
+    t0 = time.time()
+    big = gnn.main(device=device, steps=lg_steps, sketch_config=BASE if cuda else gnn.SKETCH,
+                   observe_batch=GNN_LG_OBSERVE, log=lambda line: None, **lg)
+    total_s = time.time() - t0
+    launches = b1.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    want = -(-lg["n_edges"] // GNN_LG_OBSERVE)
+    check(not cuda or launches == want, f"gnn minibatch_lg: {launches} ingest_scatter launches for {want} blocks")
+    check(all(np.isfinite(big.losses)), f"gnn minibatch_lg: non-finite losses {big.losses}")
+    check(bool(np.all(big.estimates >= big.exact)), "gnn minibatch_lg: a degree estimate under the exact degree")
+    cut = "all of them (no cut)" if lg["n_edges"] == GNN_LG["n_edges"] else f"cut from {GNN_LG['n_edges']:,}"
+    print(
+        f"[chip_smoke] gnn sketch sampling, graphsage-reddit minibatch_lg widths (d_in {lg['d_feat']}, "
+        f"d_hidden {lg['d_hidden']}, {lg['n_classes']} classes, batch {lg['batch']}, fanouts {lg['fanouts']}): a "
+        f"synthetic citation_graph of {lg['n_nodes']:,} nodes and {lg['n_edges']:,} edges, {cut}, streamed through "
+        f"a BASE degree sketch in blocks of {GNN_LG_OBSERVE:,} (ingest_scatter {launches} launches); graph "
+        f"{big.timings['graph_s']:.1f} s, CSR {big.timings['csr_s']:.1f} s, sketch pass {big.timings['stream_s']:.2f} "
+        f"s (host wall clock); degree estimates corr {big.corr:.3f}, none under the exact degree; {lg_steps} steps, "
+        f"losses {[round(x, 4) for x in big.losses]}, step {1e3 * median(big.step_s[1:]):.1f} ms median after the "
+        f"first ({1e3 * big.step_s[0]:.1f} ms), peak {peak:.2f} GiB; {total_s:.1f} s in all"
+    )
+    return big
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -3485,6 +3862,13 @@ def main() -> int:
     # The distributed plane: one NCCL rank, four gloo ranks on the card, and
     # the data-parallel compressed step on two.
     phase_distributed(torch, serve, rows)
+    release(torch)
+    # The durable mesh session: its WAL, recovery and merges.
+    phase_durable_distributed(torch, serve)
+    release(torch)
+
+    # The sketch-sampled GraphSAGE path: B1 under the degree sketch.
+    phase_gnn(torch, rows)
     release(torch)
 
     print(f"[chip_smoke] total {time.time() - t_start:.1f} s, build included")

@@ -55,14 +55,27 @@ gives the local session's answer and subscriptions tick as locally.  An
 undirected sketch ingests each batch and its mirror, as a local session
 does.  ``checkpoint()`` writes the assembled state in the local format from
 rank 0 and ``restore()`` gives every rank its rows, so checkpoints move
-between mesh and local sessions of either package.  The reference's
-refusals stand (a mesh with a window, a mesh with fused ingest); a WAL,
-``recover()`` and ``merge()`` on a mesh session wait for ROADMAP A9b.
+between mesh and local sessions of either package.
+
+A mesh session is durable as a local one is.  The ranks share one
+``wal_dir``, which holds one log of the GLOBAL stream, written by rank 0
+alone and byte-identical to the log a local session writes for the same
+calls.  After each append rank 0's commit seq goes to every rank, which
+waits for it on the host, so no rank acknowledges a batch before rank 0's
+append has returned, and receipts and ``wal_seq`` are the local session's
+on every rank.  The other ranks only read the log, in ``recover()``, which
+restores each rank's rows and replays the shared log's suffix through
+``distributed_ingest`` on every rank; opening and recovering check that the
+ranks see one log.  ``merge()`` takes a mesh session on either side: shard plus shard on
+one mesh layout, a local summary's rows into a mesh session, or a mesh
+session's gathered summary into a local one.  The reference's refusals
+stand: a mesh with a window, a mesh with fused ingest.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import math
 import time
 from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
@@ -197,10 +210,6 @@ def _preset(name: str) -> SketchConfig:
     return presets[name]
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 class GraphStream:
     """One graph-stream session: a summary plus its ingest/query engines.
 
@@ -243,8 +252,6 @@ class GraphStream:
                 raise TypeError(f"mesh must be a repro_torch.distributed.mesh.Mesh, got {type(mesh).__name__}")
             if "model" not in mesh.shape:
                 raise ValueError(f"a mesh session splits its rows over a 'model' axis; the mesh has {mesh.axis_names}")
-            if wal_dir is not None:
-                raise _not_ported("a write-ahead log on a mesh session", "A9b")
         # Event-time plane: slice_width maps event times onto the window
         # ring; max_lateness bounds out-of-orderness (how far behind the
         # per-source maximum the watermark trails).
@@ -344,10 +351,16 @@ class GraphStream:
         self._max_inflight = max_inflight if double_buffer else 0
         self._inflight: collections.deque = collections.deque()
         # Durability: the WAL (appended before any dispatch) and checkpoints.
+        # A mesh session's log is written by rank 0 alone and read by all.
         self._wal = WriteAheadLog(wal_dir, fsync_every=wal_fsync_every) if wal_dir is not None else None
+        self._wal_seq = None if self._wal is None else self._wal.last_seq
         self._replaying = False
         self._last_restore_meta: Dict = {}
         self._ckpt = CheckpointManager(checkpoint_dir, keep=keep) if checkpoint_dir is not None else None
+        if self._wal is not None and mesh is not None:
+            # Also a barrier: every rank has read where the log ends before
+            # rank 0 can append again.
+            self._check_shared_log()
 
     # -- construction ---------------------------------------------------------
 
@@ -414,7 +427,7 @@ class GraphStream:
     @property
     def wal_seq(self) -> Optional[int]:
         """The WAL's last durable record seq (None without a WAL)."""
-        return None if self._wal is None else self._wal.last_seq
+        return self._wal_seq
 
     @property
     def sketch(self) -> GLavaSketch:
@@ -500,6 +513,45 @@ class GraphStream:
         source_key = DEFAULT_SOURCE if source is None else int(encode_label(source))
         return self._ingest_encoded(s_np, d_np, w_np, ts_np, source_key)
 
+    def _log(self, append: Callable[[], int]) -> int:
+        """Append to the WAL (``append()`` returns the commit seq) and return
+        the seq.  On a mesh session rank 0 alone appends (and fsyncs per
+        ``wal_fsync_every``); then every rank takes rank 0's seq through a
+        collective over all axes that returns to the host only after rank 0
+        has entered it.  So no rank dispatches the mutation, or acknowledges
+        it, before rank 0's append has returned; and an append that fails on
+        rank 0 raises on every rank."""
+        if self._mesh is None:
+            self._wal_seq = append()
+            return self._wal_seq
+        seq, error = -1, None
+        if self._mesh.rank == 0:
+            try:
+                seq = append()
+            except Exception as exc:  # told to every rank, then re-raised
+                error = exc
+        (seq,) = self._mesh.from_rank0([seq])
+        if error is not None:
+            raise error
+        if seq < 0:
+            raise RuntimeError("rank 0 failed to append to the write-ahead log; the mutation was not applied")
+        self._wal_seq = seq
+        return seq
+
+    def _check_shared_log(self, after_seq: int = 0) -> None:
+        """Raise on every rank of a mesh session unless all read one log:
+        the same commit seq, segments (start seqs and sizes on disk) and,
+        in ``recover()``, the same checkpointed position to replay from."""
+        segs = self._wal.segments()
+        layout = hashlib.blake2b(repr([(p.name, p.stat().st_size) for p in segs]).encode(), digest_size=7)
+        mine = [self._wal_seq, after_seq, len(segs), int.from_bytes(layout.digest(), "little")]
+        if not self._mesh.agree(mine):
+            raise RuntimeError(
+                f"the ranks of a mesh session read different write-ahead logs (rank {self._mesh.rank} reads "
+                f"seq {self._wal_seq}, {len(segs)} segments and replays after seq {after_seq} from "
+                f"{self._wal.dir}); open every rank on one shared wal_dir and checkpoint_dir"
+            )
+
     def _ingest_encoded(
         self,
         s_np: np.ndarray,
@@ -516,7 +568,7 @@ class GraphStream:
         n_edges = int(s_np.shape[0])
         wal_seq = None
         if self._wal is not None and not self._replaying:
-            wal_seq = self._wal.append_edges(s_np, d_np, w_np, ts_np, source_key=source_key)
+            wal_seq = self._log(lambda: self._wal.append_edges(s_np, d_np, w_np, ts_np, source_key=source_key))
         ev_min = ev_max = None
         if ts_np is not None and n_edges:
             ev_min, ev_max = float(ts_np.min()), float(ts_np.max())
@@ -990,7 +1042,7 @@ class GraphStream:
         if self._window is None:
             return
         if self._wal is not None and not self._replaying:
-            self._wal.append_advance()
+            self._log(self._wal.append_advance)
         if self._head_slice is not None:
             self._head_slice += 1
         self._advance_once()
@@ -1010,9 +1062,14 @@ class GraphStream:
     def merge(self, other: "GraphStream") -> "GraphStream":
         """Merge another session's summary into this one (linearity; the
         paper's distributed merge-by-add).  Both must share a hash family.
-        The merged summary is a new tensor: neither operand is aliased."""
-        if self._mesh is not None or other._mesh is not None:
-            raise _not_ported("merge() on a mesh session", "A9b")
+        The merged summary is a new tensor: neither operand is aliased.
+
+        Either side may be a mesh session.  Mesh into mesh on one mesh
+        layout adds shard to shard and registers to registers on each rank,
+        with no collective; a local summary (or a mesh session on another
+        layout, gathered first) adds its rows of this rank and its whole
+        registers; a mesh session into a local one is gathered first
+        (``gather_rows``, a collective every rank calls)."""
         if self._window is not None or other._window is not None:
             raise ValueError("merge() runs on non-windowed sessions")
         self.flush()
@@ -1026,8 +1083,16 @@ class GraphStream:
             # The merged-in state never went through this WAL: log a barrier
             # replay refuses to cross, and checkpoint() right after so
             # recovery never needs to.
-            self._wal.append_merge_barrier()
-        self._sketch = self._sketch.merge(other._sketch)
+            self._log(self._wal.append_merge_barrier)
+        theirs = other._sketch
+        if other._mesh is not None and (
+            self._mesh is None or (other._mesh.shape, other._mesh.axis_names) != (self._mesh.shape, self._mesh.axis_names)
+        ):
+            theirs = dist_mod.gather_rows(other._mesh, theirs)
+        if self._mesh is not None and theirs.counters.shape != self._sketch.counters.shape:
+            self._sketch = dist_mod.merge_rows(self._mesh, self._sketch, theirs)
+        else:
+            self._sketch = self._sketch.merge(theirs)
         self.stats.edges_ingested += other.stats.edges_ingested
         self._epoch += 1
         self._note_touched(None)  # foreign rows everywhere: full rebuild
@@ -1051,7 +1116,7 @@ class GraphStream:
         meta: Dict = {"epoch": self._epoch}
         if self._wal is not None:
             self._wal.sync()
-            meta["wal_seq"] = self._wal.last_seq
+            meta["wal_seq"] = self._wal_seq
         if self._tracker is not None:
             meta["watermark"] = self._tracker.state()
             meta["head_slice"] = self._head_slice
@@ -1064,28 +1129,37 @@ class GraphStream:
             meta["subs"] = subs
         if self._mesh is None:
             self._ckpt.save(step, state, metadata=meta)
+            self._retire_segments()
         else:
-            # The assembled state, written once, in the local format.
+            # The assembled state, written once, in the local format; rank 0
+            # alone rotates and collects the log's segments, before the
+            # barrier, so no rank is still reading one it deletes.
             whole = dist_mod.gather_rows(self._mesh, self._sketch)
             if self._mesh.rank == 0:
                 self._ckpt.save(step, whole, metadata=meta)
+                self._retire_segments()
             del whole
             self._mesh.barrier()
-        if self._wal is not None:
-            # Rotation keyed to the checkpoint step: the next mutation opens
-            # a fresh segment, so no segment straddles the boundary and GC
-            # can reason per whole segment.
-            self._wal.rotate()
-            covered = None
-            for s in self._ckpt.all_steps():
-                try:
-                    seq = int(self._ckpt.read_metadata(s).get("wal_seq", 0))
-                except CheckpointCorruptError:
-                    seq = 0  # unreadable manifest: assume it covers nothing
-                covered = seq if covered is None else min(covered, seq)
-            if covered:
-                self._wal.gc(covered)
         return step
+
+    def _retire_segments(self) -> None:
+        """After a checkpoint: rotate the WAL's segment and drop the segments
+        every retained checkpoint covers (nothing without a WAL).  Rotation
+        is keyed to the checkpoint step: the next mutation opens a fresh
+        segment, so no segment straddles the boundary and GC can reason per
+        whole segment."""
+        if self._wal is None:
+            return
+        self._wal.rotate()
+        covered = None
+        for s in self._ckpt.all_steps():
+            try:
+                seq = int(self._ckpt.read_metadata(s).get("wal_seq", 0))
+            except CheckpointCorruptError:
+                seq = 0  # unreadable manifest: assume it covers nothing
+            covered = seq if covered is None else min(covered, seq)
+        if covered:
+            self._wal.gc(covered)
 
     def restore(self, step: Optional[int] = None) -> int:
         """Restore session state from the checkpoint directory (latest step
@@ -1148,9 +1222,11 @@ class GraphStream:
         pre-crash session did: ticks resume from the checkpointed progress,
         and events a consumer already processed are deduplicated by
         (subscription, tick) via :meth:`Subscription.seek`: together,
-        exactly-once delivery."""
-        if self._mesh is not None:
-            raise _not_ported("recover() on a mesh session", "A9b")
+        exactly-once delivery.
+
+        On a mesh session every rank restores its rows and replays the same
+        suffix of the shared log through ``distributed_ingest``; the report
+        is the same on every rank."""
         if self._wal is None:
             raise ValueError("open the session with wal_dir= to recover")
         restored_step = None
@@ -1161,6 +1237,8 @@ class GraphStream:
                 after_seq = int(self._last_restore_meta.get("wal_seq", 0))
             except FileNotFoundError:
                 restored_step = None  # genesis replay over the empty summary
+        if self._mesh is not None:
+            self._check_shared_log(after_seq)
         self._replaying = True
         replayed = 0
         try:
@@ -1180,11 +1258,14 @@ class GraphStream:
         finally:
             self._replaying = False
         self.flush()
+        if self._mesh is not None:
+            # No rank appends again before every rank has read the log.
+            self._mesh.barrier()
         return RecoveryReport(
             step=restored_step,
             mutations_replayed=replayed,
             epoch=self._epoch,
-            wal_seq=self._wal.last_seq,
+            wal_seq=self._wal_seq,
         )
 
     def summary(self) -> Dict[str, float]:

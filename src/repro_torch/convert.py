@@ -22,7 +22,8 @@ The four baselines convert from their leaves too
 hash coefficients, and gSketch's widths and partition hash.
 
 The training side converts the same way: a transformer's parameter tree
-(:func:`transformer_params_from_arrays`), an AdamW state
+(:func:`transformer_params_from_arrays`), a GraphSAGE parameter tree
+(:func:`graphsage_params_from_arrays`), an AdamW state
 (:func:`adamw_state_from_arrays`) and a gradient compressor's state
 (:func:`compressor_state_from_arrays`), each from the reference's leaves
 read out as numpy arrays (bfloat16 leaves as float32: the widening is
@@ -38,6 +39,7 @@ import torch
 from repro_torch.core.hashing import HashFamily
 from repro_torch.core.sketch import CountMin, CountSketch, GLavaSketch, GSketch, NodeCountMin, SketchConfig
 from repro_torch.core.window import SlidingWindowSketch
+from repro_torch.models.gnn import graphsage
 from repro_torch.models.transformer import TransformerConfig, param_shapes
 from repro_torch.train.compression import CompressorConfig, CompressorState
 from repro_torch.train.optimizer import AdamWConfig, AdamWState
@@ -258,6 +260,25 @@ def transformer_params_from_arrays(
             if name != "layers" and tuple(np.shape(leaf)) != shape:
                 raise ValueError(f"{group}{name} has shape {np.shape(leaf)}, {cfg.name} needs {shape}")
     return tree_map(lambda x: _tensor(x, cfg.param_dtype, device), tree)
+
+
+def graphsage_params_from_arrays(
+    cfg: graphsage.SAGEConfig, tree: Any, device: Optional[torch.device] = None
+) -> dict:
+    """The port's GraphSAGE parameter tree from the reference's (the same
+    names, one dict a layer, ``(in, out)`` matrices), in float32."""
+    shapes = graphsage.param_shapes(cfg)
+    if tree.keys() != shapes.keys() or len(tree["layers"]) != len(shapes["layers"]):
+        raise ValueError(f"parameter tree differs from {cfg.name}'s")
+    for i, (layer, want) in enumerate(zip(tree["layers"], shapes["layers"])):
+        if layer.keys() != want.keys():
+            raise ValueError(f"layers[{i}] has {sorted(layer)}, {cfg.name} needs {sorted(want)}")
+        for name, shape in want.items():
+            if tuple(np.shape(layer[name])) != shape:
+                raise ValueError(f"layers[{i}].{name} has shape {np.shape(layer[name])}, {cfg.name} needs {shape}")
+    if tuple(np.shape(tree["head"])) != shapes["head"]:
+        raise ValueError(f"head has shape {np.shape(tree['head'])}, {cfg.name} needs {shapes['head']}")
+    return tree_map(lambda x: _tensor(x, torch.float32, device), tree)
 
 
 def adamw_state_from_arrays(

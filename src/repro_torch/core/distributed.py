@@ -98,6 +98,17 @@ def shard_sketch(mesh: Mesh, sketch: GLavaSketch, model_axis: str = "model") -> 
     )
 
 
+def merge_rows(mesh: Mesh, shard: GLavaSketch, whole: GLavaSketch, model_axis: str = "model") -> GLavaSketch:
+    """A new shard: ``shard`` plus this rank's rows of the WHOLE sketch
+    ``whole`` (rows ``[offset, offset + rows)``), and the two sketches'
+    registers added, with no collective; neither operand is aliased."""
+    rows = local_shard(whole.counters, counter_placement(mesh, model_axis))
+    return dataclasses.replace(
+        shard, counters=shard.counters + rows,
+        row_flows=shard.row_flows + whole.row_flows, col_flows=shard.col_flows + whole.col_flows,
+    )
+
+
 def gather_rows(mesh: Mesh, shard: GLavaSketch, model_axis: str = "model") -> GLavaSketch:
     """The WHOLE sketch on every rank, from each rank's shard: the counters
     assembled by ``all_reduce(SUM)`` over ``model`` of zero-filled buffers

@@ -1,7 +1,11 @@
-"""Synthetic graph streams: Zipf or uniform endpoints, integer weights.
+"""Synthetic graph data: Zipf or uniform edge streams with integer weights,
+citation-style node-classification graphs, and the triplet lists for
+directional message passing.
 
-Port of ``src/repro/data/graphs.py`` (``random_edges`` and ``edge_stream``;
-host-side numpy, so the same ``rng`` gives the same stream on both sides)."""
+Port of ``src/repro/data/graphs.py`` (``random_edges``, ``edge_stream``,
+``citation_graph``, ``build_triplets``; host-side numpy, so the same ``rng``
+gives the same arrays on both sides).  ``triplet_budget`` and its two
+constants are copied from ``src/repro/configs/base.py:87-112``."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -34,3 +38,89 @@ def edge_stream(
     w = rng.integers(1, max_weight + 1, n_edges).astype(np.float32)
     t = np.sort(rng.random(n_edges)).astype(np.float32)
     return {"src": src.astype(np.uint32), "dst": dst.astype(np.uint32), "weight": w, "time": t}
+
+
+TRIPLET_FACTOR = 8          # static triplet budget = factor × n_edges …
+TRIPLET_CAP = 1 << 26       # … capped (documented coverage bound; log at use)
+
+
+def triplet_budget(n_edges: int) -> int:
+    return min(TRIPLET_FACTOR * n_edges, TRIPLET_CAP)
+
+
+def build_triplets(
+    edge_src: np.ndarray,
+    edge_dst: np.ndarray,
+    budget: Optional[int] = None,
+    edge_mask: Optional[np.ndarray] = None,
+) -> Dict[str, np.ndarray]:
+    """Directional triplet lists for DimeNet: for every edge e_out=(j→i),
+    pair with every edge e_in=(k→j), k != i.
+
+    Returns padded {"in": (T,), "out": (T,), "mask": (T,)} with
+    T = budget or triplet_budget(len(edges)).  Truncation (rare; only on
+    pathological degree skew) is recorded in the returned "truncated" flag.
+    """
+    e = len(edge_src)
+    t_cap = budget if budget is not None else triplet_budget(e)
+    valid = np.ones(e, bool) if edge_mask is None else edge_mask.astype(bool)
+    in_by_node: Dict[int, list] = {}
+    for idx in np.nonzero(valid)[0]:
+        in_by_node.setdefault(int(edge_dst[idx]), []).append(idx)
+    t_in, t_out = [], []
+    truncated = False
+    for e_out in np.nonzero(valid)[0]:
+        j, i = int(edge_src[e_out]), int(edge_dst[e_out])
+        for e_in in in_by_node.get(j, ()):
+            if int(edge_src[e_in]) == i:
+                continue  # exclude backtracking k == i
+            t_in.append(e_in)
+            t_out.append(e_out)
+            if len(t_in) >= t_cap:
+                truncated = True
+                break
+        if truncated:
+            break
+    n = len(t_in)
+    out = {
+        "in": np.zeros(t_cap, np.int32),
+        "out": np.zeros(t_cap, np.int32),
+        "mask": np.zeros(t_cap, np.float32),
+        "truncated": truncated,
+    }
+    out["in"][:n] = t_in
+    out["out"][:n] = t_out
+    out["mask"][:n] = 1.0
+    return out
+
+
+def citation_graph(
+    n_nodes: int, n_edges: int, d_feat: int, n_classes: int, rng
+) -> Dict[str, np.ndarray]:
+    """Cora/products-style node-classification graph with correlated
+    class/feature structure (so training actually learns)."""
+    labels = rng.integers(0, n_classes, n_nodes).astype(np.int32)
+    centroids = rng.normal(0, 1, (n_classes, d_feat)).astype(np.float32)
+    feats = centroids[labels] + 0.5 * rng.normal(0, 1, (n_nodes, d_feat)).astype(
+        np.float32
+    )
+    # homophilous edges: 70% within class
+    n_homo = int(0.7 * n_edges)
+    src_h = rng.integers(0, n_nodes, n_homo)
+    # partner within same class via sorted-by-label trick
+    order = np.argsort(labels, kind="stable")
+    pos_of = np.empty(n_nodes, np.int64)
+    pos_of[order] = np.arange(n_nodes)
+    jitter = rng.integers(-5, 6, n_homo)
+    dst_h = order[np.clip(pos_of[src_h] + jitter, 0, n_nodes - 1)]
+    src_r, dst_r = random_edges(n_nodes, n_edges - n_homo, rng)
+    src = np.concatenate([src_h, src_r]).astype(np.int32)
+    dst = np.concatenate([dst_h, dst_r]).astype(np.int32)
+    positions = rng.normal(0, 3, (n_nodes, 3)).astype(np.float32)  # for molecular nets
+    return {
+        "node_feat": feats,
+        "edge_src": src,
+        "edge_dst": dst,
+        "labels": labels,
+        "positions": positions,
+    }

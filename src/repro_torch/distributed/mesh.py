@@ -15,13 +15,15 @@ The caller initialises the default process group, as torch users do
 never does.  Constructing a mesh is collective: every rank constructs the
 same mesh at the same point of its program.
 
-Collectives.  The port uses only ``all_reduce`` (``SUM`` and ``MIN``): gloo
+Collectives.  The port uses only ``all_reduce`` (``SUM``, ``MIN`` and
+``MAX``): gloo
 runs only ``all_reduce`` and ``broadcast`` on CUDA tensors (no
 ``all_gather``, no ``reduce_scatter``, no ``ReduceOp.AVG``, no barrier on
 device tensors), and several ranks on one card need gloo, because NCCL
 refuses two ranks on one GPU.  A mean is a ``SUM`` divided by the group's
 size; a gather is a ``SUM`` of zero-filled buffers that each hold one
-rank's disjoint block (exact); a barrier is a ``SUM`` of one element.  For
+rank's disjoint block (exact); a broadcast from rank 0 is a ``SUM`` to which
+the other ranks add zeros; a barrier is a ``SUM`` of one element.  For
 the same reason the port builds plain groups, not ``DeviceMesh``/``DTensor``,
 whose redistributions need ``all_gather`` and ``reduce_scatter``.
 """
@@ -29,7 +31,7 @@ from __future__ import annotations
 
 import itertools
 import math
-from typing import Dict, Sequence, Tuple, Union
+from typing import Dict, List, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -130,12 +132,31 @@ class Mesh:
         dist.all_reduce(tensor, op=op, group=self.group(axes))
         return tensor
 
-    def barrier(self) -> None:
-        """Wait for every rank: a ``SUM`` of one element over all axes, on
-        the CPU for gloo and on the current CUDA device for NCCL."""
+    def _to_host(self, values: Sequence[int], op) -> List[int]:
+        """``all_reduce`` of int64 ``values`` over all axes, on the CPU for
+        gloo and on the current CUDA device for NCCL, read back on the
+        host: it returns only once every rank has entered it."""
         group = self.group(self.axis_names)
         device = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
-        dist.all_reduce(torch.zeros(1, device=device), group=group)
+        out = torch.tensor(list(values), dtype=torch.int64, device=device)
+        dist.all_reduce(out, op=op, group=group)
+        return out.tolist()
+
+    def barrier(self) -> None:
+        """Wait on the host for every rank: a ``SUM`` of one element."""
+        self._to_host([0], dist.ReduceOp.SUM)
+
+    def from_rank0(self, values: Sequence[int]) -> List[int]:
+        """Rank 0's int64 ``values`` on every rank, once rank 0 has reached
+        this call: a ``SUM`` to which the other ranks add zeros."""
+        return self._to_host(values if self.rank == 0 else [0] * len(values), dist.ReduceOp.SUM)
+
+    def agree(self, values: Sequence[int]) -> bool:
+        """Whether every rank passed the same int64 ``values`` (the same
+        answer on every rank): one ``MAX`` of ``values`` and their negation."""
+        values = list(values)
+        both = self._to_host(values + [-v for v in values], dist.ReduceOp.MAX)
+        return both[: len(values)] == [-v for v in both[len(values):]]
 
 
 def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:

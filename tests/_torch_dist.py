@@ -187,20 +187,22 @@ def mesh_session(rank, world, out, mesh_shape, cases):
         rs = back.sketch
         res[f"{tag}/ref_restored"] = [_np(getattr(rs, f)) for f in ("counters", "row_flows", "col_flows")]
         res[f"{tag}/ref_restored_results"] = _values(back.query(batch))
-    res["refusals"] = _mesh_refusals(mesh)
+    res["refusals"] = _mesh_refusals(mesh, Path(out))
     return res
 
 
-def _mesh_refusals(mesh):
-    """What a mesh session refuses, as (kind, message) pairs."""
+def _mesh_refusals(mesh, out_dir):
+    """What a mesh session refuses, as (kind, message) pairs: a window and
+    fused ingest; then a WAL, ``recover()`` and ``merge()`` with a local
+    session, which it accepts (``("none", "")``)."""
     from repro_torch.api import GraphStream
 
     out = []
     attempts = [
         lambda: GraphStream.open("smoke", device="cpu", mesh=mesh, window_slices=4),
         lambda: GraphStream.open("smoke", device="cpu", mesh=mesh, ingest_backend="fused"),
-        lambda: GraphStream.open("smoke", device="cpu", mesh=mesh, wal_dir="unused"),
-        lambda: GraphStream.open("smoke", device="cpu", mesh=mesh).recover(),
+        lambda: GraphStream.open("smoke", device="cpu", mesh=mesh, wal_dir=str(out_dir / "wal-open")),
+        lambda: GraphStream.open("smoke", device="cpu", mesh=mesh, wal_dir=str(out_dir / "wal-recover")).recover(),
         lambda: GraphStream.open("smoke", device="cpu", mesh=mesh).merge(GraphStream.open("smoke", device="cpu")),
     ]
     for attempt in attempts:
@@ -210,6 +212,237 @@ def _mesh_refusals(mesh):
         except (ValueError, NotImplementedError) as e:
             out.append((type(e).__name__, str(e)))
     return out
+
+
+# -- the durable mesh session, against the reference's local session ------------------
+#
+# The scenario functions below take a session (or a function that opens
+# one) and the Query class of its package, so one function runs the
+# reference's local session in the test process and the port's mesh session
+# on every rank.
+
+
+def event_key(ev):
+    """A subscription event as plain values: name, tick, epoch, every
+    answer as floats, alarm."""
+    vals = tuple(float(x) for r in ev.results for x in np.asarray(r.value).ravel())
+    return (ev.name, ev.tick, ev.epoch, vals, ev.alarm)
+
+
+def _subscribed(gs, query):
+    return gs.subscribe(query.in_flow(7), query.reach(3, 9), every=1, name="m",
+                        alarm=lambda rs: bool(np.asarray(rs[0].value) > 5))
+
+
+def state_of(gs):
+    """A session's whole summary (gathered on a mesh) as numpy, from either
+    package and any device."""
+    sk = gs.sketch
+    leaves = (getattr(sk, f) for f in ("counters", "row_flows", "col_flows"))
+    return [x.cpu().numpy().copy() if isinstance(x, torch.Tensor) else np.asarray(x).copy() for x in leaves]
+
+
+def _drive(gs, sub, batches, transcript, seqs, ckpt_every):
+    for s, d, w, i in batches:
+        seqs.append(gs.ingest(s, d, w).wal_seq)
+        transcript.extend(event_key(e) for e in sub.poll())
+        if (i + 1) % ckpt_every == 0:
+            gs.checkpoint()
+
+
+def crash_run(open_session, query, batches, crash_at, ckpt_every):
+    """Drive ``batches`` through a durable session, checkpointing every
+    ``ckpt_every`` batches; crash after ``crash_at`` (drop the session, no
+    checkpoint); a fresh session subscribes, seeks to the consumed tick,
+    recovers and finishes the stream.  Returns the consumed transcript,
+    the report, each receipt's ``wal_seq``, the deduplicated events and the
+    final state."""
+    numbered = [(s, d, w, i) for i, (s, d, w) in enumerate(batches)]
+    gs = open_session()
+    sub = _subscribed(gs, query)
+    got, seqs = [], []
+    _drive(gs, sub, numbered[:crash_at], got, seqs, ckpt_every)
+    consumed = sub.ticks
+    del gs, sub  # the crash: no close, no last checkpoint
+    gs = open_session()
+    sub = _subscribed(gs, query)
+    sub.seek(consumed)
+    report = gs.recover()
+    got.extend(event_key(e) for e in sub.poll())
+    _drive(gs, sub, numbered[crash_at:], got, seqs, ckpt_every)
+    return {"transcript": got, "report": (report.step, report.mutations_replayed, report.epoch, report.wal_seq),
+            "seqs": seqs, "wal_seq": gs.wal_seq, "deduped": sub.events_deduped, "state": state_of(gs)}
+
+
+def barrier_run(open_session, open_other, batches):
+    """Ingest, merge another session in, ingest, crash; a fresh session's
+    ``recover()`` must refuse to replay past the merge barrier.  Returns
+    its error message (None if it recovered)."""
+    gs = open_session()
+    gs.ingest(*batches[0])
+    other = open_other()
+    other.ingest(*batches[1])
+    gs.merge(other)
+    gs.ingest(*batches[2])
+    del gs
+    try:
+        open_session().recover()
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
+def merge_run(receiver, giver, batches, query):
+    """``receiver`` takes the first half of ``batches``, ``giver`` the second,
+    then ``receiver.merge(giver)`` and one more batch into ``receiver``.
+    Returns the merged state, the giver's state before the merge and after
+    the receiver's next batch (merge aliases neither operand), the
+    receiver's epoch, edge count and the transcript of a subscription that
+    ticks on the merge."""
+    half = len(batches) // 2
+    sub = _subscribed(receiver, query)
+    for b in batches[:half]:
+        receiver.ingest(*b)
+    for b in batches[half:]:
+        giver.ingest(*b)
+    before = state_of(giver)
+    receiver.merge(giver)
+    merged = state_of(receiver)
+    receiver.ingest(*batches[0])
+    return {"merged": merged, "giver_before": before, "giver_after": state_of(giver),
+            "after": state_of(receiver), "epoch": receiver.epoch,
+            "edges": receiver.stats.edges_ingested, "transcript": [event_key(e) for e in sub.poll()]}
+
+
+def family_refusal(receiver, giver):
+    """The error ``receiver.merge(giver)`` raises for a foreign hash family."""
+    try:
+        receiver.merge(giver)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def gc_run(open_session, batches, oldest_step):
+    """Checkpoint after every batch (the session keeps 2), crash after the
+    last batch, and recover from the OLDER retained checkpoint
+    (``oldest_step(session)``): the WAL must still hold its suffix.  Returns
+    the report and the state."""
+    gs = open_session()
+    for b in batches[:-1]:
+        gs.ingest(*b)
+        gs.checkpoint()
+    gs.ingest(*batches[-1])
+    del gs
+    gs = open_session()
+    report = gs.recover(step=oldest_step(gs))
+    return {"report": (report.step, report.mutations_replayed, report.epoch, report.wal_seq),
+            "state": state_of(gs)}
+
+
+def durable_mesh(rank, world, out, mesh_shape, inputs):
+    """The durable mesh session on ``mesh_shape`` (the reference's family,
+    integer batches, from the npz ``inputs``): a crash at every batch
+    boundary and recovery, the merge barrier, the three merge pairings, the
+    refused foreign family, and WAL GC against a retained checkpoint.  Rank
+    0 writes every log under ``out``; the test reads their bytes."""
+    from repro_torch.api import GraphStream, Query
+    from repro_torch.convert import sketch_from_arrays
+    from repro_torch.core.sketch import SketchConfig
+    from repro_torch.distributed.mesh import Mesh
+
+    mesh = Mesh(mesh_shape, ("data", "model"))
+    data = dict(np.load(inputs))
+    out = Path(out)
+    d, wr, wc = (int(x) for x in data["shape"])
+    cfg = SketchConfig(depth=d, width_rows=wr, width_cols=wc)
+    zeros = (np.zeros((d, wr, wc), np.float32), np.zeros((d, wr), np.float32), np.zeros((d, wc), np.float32))
+
+    def whole(tag):
+        return sketch_from_arrays(cfg, *zeros, data[f"{tag}/row_a"], data[f"{tag}/row_b"])
+
+    batches = [(data[f"b{i}/src"], data[f"b{i}/dst"], data[f"b{i}/w"]) for i in range(int(data["n_batches"]))]
+    ckpt_every = int(data["ckpt_every"])
+
+    def opener(on_mesh=True, family="a", **kw):
+        def open_session():
+            return GraphStream.open(sketch=whole(family), device="cpu", mesh=mesh if on_mesh else None,
+                                    double_buffer=False, **kw)
+        return open_session
+
+    def durable(name, **kw):
+        return opener(wal_dir=str(out / name / "wal"), checkpoint_dir=str(out / name / "ckpt"), **kw)
+
+    res = {}
+    for k in range(len(batches) + 1):
+        res[f"crash{k}"] = crash_run(durable(f"crash{k}"), Query, batches, k, ckpt_every)
+    res["barrier"] = barrier_run(durable("barrier"), opener(), batches)
+    pairings = {
+        "mesh_into_mesh": (durable("merge-mm"), opener()),
+        "local_into_mesh": (durable("merge-lm"), opener(on_mesh=False)),
+        "mesh_into_local": (opener(on_mesh=False), opener()),
+    }
+    for name, (rec, giv) in pairings.items():
+        res[name] = merge_run(rec(), giv(), batches, Query)
+    res["foreign"] = [
+        family_refusal(opener()(), opener(family="b")()),
+        family_refusal(opener()(), opener(on_mesh=False, family="b")()),
+        family_refusal(opener(on_mesh=False)(), opener(family="b")()),
+    ]
+    res["gc"] = gc_run(durable("gc", keep=2), batches, lambda gs: gs._ckpt.all_steps()[0])
+    return res
+
+
+def log_guarantees(rank, world, out, mesh_shape, delay):
+    """What every rank of a durable mesh session on ``mesh_shape`` waits for
+    and refuses.  Rank 0's first append is held back ``delay`` seconds:
+    each rank returns the wall time its ``ingest`` returned, and rank 0 the
+    time its append did.  Rank 0's next append fails: each rank returns
+    the error its ``ingest`` raised, and its summary after.  Then the other
+    ranks open the session on a directory of their own while rank 0's holds
+    a log: each rank returns the error the opening raised."""
+    import time
+
+    from repro_torch.api import GraphStream
+    from repro_torch.distributed.mesh import Mesh
+
+    mesh = Mesh(mesh_shape, ("data", "model"))
+    out = Path(out)
+    rng = np.random.default_rng(5)
+    batch = (rng.integers(0, 100, 40).astype(np.uint32), rng.integers(0, 100, 40).astype(np.uint32),
+             np.ones(40, np.float32))
+    gs = GraphStream.open("smoke", device="cpu", mesh=mesh, double_buffer=False, wal_dir=str(out / "shared"))
+    res = {}
+    if rank == 0:
+        append = gs._wal.append_edges
+
+        def held_back(*args, **kwargs):
+            time.sleep(delay)
+            seq = append(*args, **kwargs)
+            res["appended"] = time.time()
+            return seq
+
+        gs._wal.append_edges = held_back
+    res["seq"] = gs.ingest(*batch).wal_seq
+    res["returned"] = time.time()
+    if rank == 0:
+        def failing(*args, **kwargs):
+            raise OSError("disk full")
+
+        gs._wal.append_edges = failing
+    try:
+        gs.ingest(*batch)
+        res["failed"] = None
+    except (OSError, RuntimeError) as e:
+        res["failed"] = (type(e).__name__, str(e))
+    res["after"] = (gs.wal_seq, gs.stats.edges_ingested, float(gs.sketch.counters.sum()))
+    own = out / ("shared" if rank == 0 else f"own-{rank}")
+    try:
+        GraphStream.open("smoke", device="cpu", mesh=mesh, wal_dir=str(own))
+        res["own_dir"] = None
+    except RuntimeError as e:
+        res["own_dir"] = str(e)
+    return res
 
 
 # -- the data-parallel compressed step ------------------------------------------------
@@ -361,3 +594,37 @@ def card_plane(rank, world, out, mesh_shape):
         same[direction] = torch.equal(got.cpu(), fn(local, src[:300]))
     after = [f.launches for f in (ingest_ops.ingest_scatter, query_ops.edge_query_cells, flow_ops.flows)]
     return {"same": same, "launches": [b - a for a, b in zip(launches, after)]}
+
+
+def card_durable(rank, world, out, mesh_shape, crash_at):
+    """The durable mesh session on CUDA tensors (every rank on card 0): a
+    crash after ``crash_at`` of 8 integer batches (a checkpoint every 3),
+    recovery and the rest, against the same run of a local session on the
+    CPU on the same hash family; this rank's B1 launches."""
+    from repro_torch.api import GraphStream, Query
+    from repro_torch.core.sketch import GLavaSketch, SketchConfig
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.kernels.ingest import ops as ingest_ops
+
+    torch.cuda.set_device(0)
+    mesh = Mesh(mesh_shape, ("data", "model"))
+    whole = GLavaSketch.empty(SketchConfig(depth=3, width_rows=256, width_cols=256), 7)
+    rng = np.random.default_rng(3)
+    batches = [(rng.integers(0, 100, n).astype(np.uint32), rng.integers(0, 100, n).astype(np.uint32),
+                rng.integers(1, 5, n).astype(np.float32)) for n in (40, 40, 1100, 40, 40, 40, 40, 40)]
+    out = Path(out)
+
+    def opener(name, device, on_mesh):
+        dirs = dict(wal_dir=str(out / name / "wal"), checkpoint_dir=str(out / name / "ckpt"))
+        return lambda: GraphStream.open(sketch=whole, device=device, mesh=mesh if on_mesh else None, **dirs)
+
+    before = ingest_ops.ingest_scatter.launches
+    card = crash_run(opener("card", "cuda", True), Query, batches, crash_at, 3)
+    launches = ingest_ops.ingest_scatter.launches - before
+    host = crash_run(opener(f"cpu-{rank}", "cpu", False), Query, batches, crash_at, 3)
+    card_log = {p.name: p.read_bytes() for p in sorted((out / "card" / "wal").glob("wal-*.seg"))}
+    host_log = {p.name: p.read_bytes() for p in sorted((out / f"cpu-{rank}" / "wal").glob("wal-*.seg"))}
+    same = {key: card[key] == host[key] for key in ("transcript", "report", "seqs", "wal_seq", "deduped")}
+    same["state"] = all(np.array_equal(a, b) for a, b in zip(card["state"], host["state"]))
+    same["log"] = card_log == host_log and bool(card_log)
+    return {"same": same, "launches": launches, "replayed": card["report"][1]}

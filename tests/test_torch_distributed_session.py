@@ -165,7 +165,9 @@ def test_mesh_checkpoints_move_to_and_from_local_sessions(mesh_run, tag):
 
 def test_mesh_session_refusals_match_the_reference(mesh_run):
     """Mesh + window and mesh + fused raise the reference's ValueErrors word
-    for word; a WAL, recover() and merge() on a mesh session wait for A9b."""
+    for word; a WAL, recover() and merge() with a local session, which the
+    reference accepts on a mesh session, succeed
+    (``tests/test_torch_distributed_durable.py`` holds them to it)."""
     _, ranks, _ = mesh_run
     small = RefConfig(depth=2, width_rows=32, width_cols=32)
     with pytest.raises(ValueError) as window:
@@ -176,8 +178,7 @@ def test_mesh_session_refusals_match_the_reference(mesh_run):
         kinds = res["refusals"]
         assert kinds[0] == ("ValueError", str(window.value))
         assert kinds[1] == ("ValueError", str(fused.value))
-        for kind, message in kinds[2:]:
-            assert kind == "NotImplementedError" and "A9b" in message
+        assert kinds[2:] == [("none", "")] * 3
     with pytest.raises(TypeError, match="Mesh"):
         GraphStream.open("smoke", device="cpu", mesh=object())
 

@@ -1111,6 +1111,53 @@ def test_distributed_plane_on_the_card(cuda, tmp_path, backend, mesh_shape):
         assert res["launches"] == [1, 1, 2], res["launches"]
 
 
+@pytest.mark.parametrize("backend,mesh_shape", [("nccl", (1, 1)), ("gloo", (2, 2))])
+def test_durable_mesh_recovery_on_the_card_equals_cpu(cuda, tmp_path, backend, mesh_shape):
+    """A durable mesh session on the card (one NCCL rank; four gloo ranks)
+    crashes after batch 4 of 8 and recovers: the transcript, report, seqs,
+    summary and WAL bytes equal a local CPU session's same run, and B1
+    launched once a batch a rank, the replayed batch included."""
+    import _torch_dist
+
+    world = mesh_shape[0] * mesh_shape[1]
+    for res in _torch_dist.run_ranks(_torch_dist.card_durable, world, tmp_path, timeout=300, backend=backend,
+                                     mesh_shape=mesh_shape, crash_at=4):
+        assert all(res["same"].values()), res["same"]
+        assert res["replayed"] == 1 and res["launches"] == 8 + res["replayed"], res
+
+
+def test_gnn_step_on_the_card_close_to_cpu(cuda):
+    """One GraphSAGE step of the example's loop (a sampled subgraph, the
+    loss, ``torch.autograd`` gradients, AdamW) on the card against the CPU:
+    the loss and the parameters after the step within float32 rounding of
+    the card's sums (rtol 1e-4, atol 1e-6)."""
+    from repro_torch.data.graphs import citation_graph
+    from repro_torch.launch import gnn_sketch_sampling as gnn
+    from repro_torch.models.gnn import graphsage
+    from repro_torch.models.gnn.sampler import CSRGraph, sample_subgraph
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.tree import tree_leaves
+
+    rng = np.random.default_rng(0)
+    g = citation_graph(gnn.N, gnn.E, gnn.F, gnn.C, rng)
+    csr = CSRGraph.from_edges(g["edge_src"], g["edge_dst"], gnn.N)
+    seeds = rng.choice(gnn.N, gnn.BATCH, replace=False).astype(np.int32)
+    sub = sample_subgraph(csr, seeds, gnn.FANOUTS, rng)
+    cfg = graphsage.SAGEConfig(name="sage-stream", n_layers=2, d_in=gnn.F, d_hidden=32, out_dim=gnn.C)
+    ocfg = opt_mod.AdamWConfig(lr=5e-3, warmup_steps=10, total_steps=120, weight_decay=0.0)
+    out = {}
+    for device in ("cpu", "cuda"):
+        params = graphsage.init_params(cfg, torch.Generator().manual_seed(0), device)
+        feats = torch.from_numpy(g["node_feat"]).to(device)
+        labels = torch.from_numpy(g["labels"][seeds]).to(device)
+        new, _, loss, _ = gnn.train_step(cfg, ocfg, params, opt_mod.init_adamw(ocfg, params),
+                                         gnn.device_batch(sub, feats), labels)
+        out[device] = (float(loss), [x.cpu() for x in tree_leaves(new)])
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-4)
+    for a, b in zip(out["cuda"][1], out["cpu"][1], strict=True):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
 # The key entry of B1 (``ingest_keys``): keys at the edges of the hash's
 # arithmetic, p = 2^31 - 1.
 MERSENNE = (1 << 31) - 1
