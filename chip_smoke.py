@@ -156,7 +156,17 @@ before and read just after:
   seed accuracy above chance; then graphsage-reddit's widths at the
   minibatch_lg shape on a synthetic graph of 232,965 nodes and 114,615,892
   edges streamed through a BASE degree sketch, 8 steps: the median step ms
-  and the peak GiB.
+  and the peak GiB;
+- analysis (``repro_torch.analysis`` on the kernels): (a) every hot entry
+  point of the registry at the fixture size and at BASE under
+  ``torch.cuda.set_sync_debug_mode("error")``, those baselined for
+  ``no-host-sync`` exempt; (b) the cost pass on the card, each fitted
+  exponent equal to the CPU run's within 0.05 (the kernel wrappers count
+  their declared costs on both), and serve BASE's first batch through
+  ``GraphStream.ingest`` raising the peak allocation by less than the 1.34
+  GB of counters; (c) the sketch dry run at BASE on one NCCL rank: the
+  modelled bound, the measured device time and the fraction for one ingest
+  batch of 2^20 edges and 65,536 edge queries.
 
 Output: the card's name and power limit as ``nvidia-smi`` reports them, the
 build log, one line per phase, one JSON line listing every kernel (launches
@@ -3648,6 +3658,127 @@ def phase_gnn(torch, rows, device="cuda", lg=GNN_LG, lg_steps=GNN_LG_STEPS):
     return big
 
 
+# Exponents of the cost pass on the card and on the CPU agree within this.
+EXPONENT_AGREEMENT = 0.05
+
+
+def phase_analysis(torch, device="cuda", base=None, config=None, dryrun=None):
+    """The analysis and cost planes on the kernels: (a) the sync check of
+    every hot entry point at the fixture size and at ``base`` (BASE), (b)
+    the cost pass against the CPU's and the memory proof on ``config``
+    (BASE), (c) the sketch dry run (``dryrun``: ``sketch_dryrun.run``'s
+    arguments, BASE on one NCCL rank).  Prints a line each; a failure
+    raises."""
+    import contextlib
+    import dataclasses
+
+    from repro_torch.analysis import contracts
+    from repro_torch.analysis.baseline import BASELINE
+    from repro_torch.analysis.costlint import run_cost_pass
+    from repro_torch.api import GraphStream
+    from repro_torch.configs.glava import BASE
+    from repro_torch.launch import sketch_dryrun
+
+    base = base or contracts.BASE_FIXTURE
+    config = config or BASE
+    dryrun = dryrun or {"config_name": "base"}
+    # (a) no synchronizing operation in a hot entry, at two sizes.
+    t0 = time.time()
+    exempt = sorted({s for (rule, s) in BASELINE if rule == "no-host-sync"})
+    hot = [ep for ep in contracts.ENTRY_POINTS if "no-host-sync" in ep.contracts and ep.name not in exempt]
+    fixtures = (dataclasses.replace(contracts.FIXTURE, device=device), base)
+    for fx in fixtures:
+        for ep in hot:
+            group = contracts.one_rank_group(device) if ep.name.startswith("distributed.") else contextlib.nullcontext()
+            with group:
+                entry = ep.build(fx)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    entry.fn(*entry.args)
+                except RuntimeError as exc:
+                    raise SmokeFailure(f"analysis (a): {ep.name} at d={fx.depth} w={fx.width} synchronizes: {exc}")
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                del entry
+            if fx is base:
+                release(torch)
+    print(f"[chip_smoke] analysis (a): {len(hot)} hot entry points at d=2 w=64 and at d={base.depth} w={base.width} under "
+          f"sync debug mode 'error': no synchronizing operation; exempt (baselined no-host-sync): "
+          f"{', '.join(exempt) or 'none'} ({time.time() - t0:.1f} s)")
+
+    # (b) the cost pass on the card, against the CPU's exponents.
+    t0 = time.time()
+    card_v, card = run_cost_pass(check_budgets=False, device=device)
+    cpu_v, cpu = run_cost_pass(check_budgets=False, device="cpu")
+    check(not card_v and not cpu_v, "analysis (b): " + "; ".join(v.render() for v in card_v + cpu_v))
+    check([m["entry"] for m in card] == [m["entry"] for m in cpu], "analysis (b): the two runs measured other entries")
+    worst = 0.0
+    rows = []
+    for mc, mg in zip(cpu, card):
+        for fc, fg in zip(mc["axes"], mg["axes"]):
+            gap = abs(fc["measured"] - fg["measured"])
+            worst = max(worst, gap)
+            rows.append(f"{mg['entry'][5:]}[{fg['axis']}] {fg['measured']:.3f}")
+            check(gap <= EXPONENT_AGREEMENT, f"analysis (b): {mg['entry']}[{fg['axis']}] exponent "
+                                             f"{fg['measured']} on the card, {fc['measured']} on the CPU")
+    print(f"[chip_smoke] analysis (b): cost pass on the kernels, {len(card)} entries, every exponent within its "
+          f"ceiling and within {worst:.3f} of the CPU's ({time.time() - t0:.1f} s): {', '.join(rows)}")
+    # What the cost scope (kernels/build.py::costed) costs a wrapper call
+    # with no listener: the wrapper against its undecorated body, in turns.
+    from repro_torch.kernels.query import ops as query_ops
+
+    counters = torch.zeros((5, 1024, 1024), device=device)
+    buckets = torch.randint(0, 1024, (5, 1024), device=device)
+    scoped = lambda: query_ops.edge_query_min(counters, buckets, buckets)  # noqa: E731
+    bare = lambda: query_ops.edge_query_min.__wrapped__(counters, buckets, buckets)  # noqa: E731
+    turns = [host_us(f) for f in (bare, scoped, scoped, bare)]
+    print(f"[chip_smoke] analysis (b): the cost scope with no listener: edge_query_min host "
+          f"{(turns[1] + turns[2]) / 2:.3f} us/call scoped, {(turns[0] + turns[3]) / 2:.3f} bare "
+          f"(turns {', '.join(f'{t:.3f}' for t in turns)})")
+    del counters, buckets
+    (src, dst, wts), *_ = serve_raw_batch(torch) if config is BASE else ((np_batch(config.width_rows)),)
+    gs = GraphStream.open(config, device=device)
+    state = gs._sketch.counters.numel() * 4
+    gs.flush()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    gs.ingest(src, dst, wts)
+    gs.flush()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    check(peak < state, f"analysis (b): serve BASE's first batch raised the peak allocation by {peak} bytes, "
+                        f">= the {state} bytes of the counters")
+    print(f"[chip_smoke] analysis (b): serve BASE's first batch ({len(src):,} edges) through GraphStream.ingest "
+          f"raised the peak allocation by {peak / 2**20:.2f} MiB, {100 * peak / state:.3f}% of the "
+          f"{state / 1e9:.2f} GB of counters (updated in place)")
+    del gs
+    release(torch)
+
+    # (c) the sketch dry run at BASE, one NCCL rank.
+    t0 = time.time()
+    rec = sketch_dryrun.run(device=device, out=None, **dryrun)
+    for call in ("ingest", "query"):
+        m = rec["measured"][call]
+        check(m["device_ms"] is not None and m["fraction"] is not None and m["bound_ms"] > 0,
+              f"analysis (c): no device time for the dry run's {call}")
+    print(f"[chip_smoke] analysis (c): {sketch_dryrun.summary(rec)}; the ingest's peak allocation "
+          f"+{rec['measured']['ingest']['peak_alloc_bytes'] / 1e9:.3f} GB (distributed_ingest's per-batch "
+          f"shard clone, baselined) ({time.time() - t0:.1f} s)")
+    release(torch)
+
+
+def np_batch(nodes: int, b: int = 5000):
+    """A raw batch of ``b`` edges among ``nodes`` keys, weights 1..8 (seed 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return (rng.integers(0, nodes, b).astype(np.uint32), rng.integers(0, nodes, b).astype(np.uint32),
+            rng.integers(1, 9, b).astype(np.float32))
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -3870,6 +4001,9 @@ def main() -> int:
     # The sketch-sampled GraphSAGE path: B1 under the degree sketch.
     phase_gnn(torch, rows)
     release(torch)
+
+    # The analysis and cost planes on the kernels.
+    phase_analysis(torch)
 
     print(f"[chip_smoke] total {time.time() - t_start:.1f} s, build included")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

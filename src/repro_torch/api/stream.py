@@ -395,6 +395,54 @@ class GraphStream:
             raise TypeError(f"config must be SketchConfig or preset name, got {config!r}")
         return cls(config, sketch=sketch, **kwargs)
 
+    # -- cost-plane sizing hooks -------------------------------------------------
+
+    @classmethod
+    def _probe_session(cls, width: int, depth: int, device, backend: str, **kwargs) -> "GraphStream":
+        return cls.open(
+            SketchConfig(depth=depth, width_rows=width, width_cols=width), device=device,
+            ingest_backend=backend, query_backend=backend, **kwargs,
+        )
+
+    @staticmethod
+    def _probe_batch(batch: int, device, weight: float = 1.0):
+        src = np.arange(batch, dtype=np.uint32)
+        return (keys_to_tensor(src, device), keys_to_tensor(src + np.uint32(batch), device),
+                torch.full((batch,), weight, dtype=torch.float32, device=device))
+
+    @classmethod
+    def cost_probe_update(cls, *, width: int = 64, depth: int = 2, batch: int = 64, negative: bool = False,
+                          device: DeviceLike = "cpu", backend: str = "cuda"):
+        """The session's in-place device dispatch of an arrival batch
+        (:meth:`_update`, what :meth:`ingest` runs after the codec) on a new
+        session at (w, d, B): the sizing hook of the cost plane
+        (``repro_torch.analysis``), as the reference's ``cost_probe_update``
+        (``src/repro/api/stream.py:428``).  ``negative=True`` probes the
+        turnstile delete (the same dispatch, negative weights).  ``backend``
+        names the ingest and query backends: ``cuda`` takes the kernel
+        wrappers, which run their plain versions on CPU tensors.  Returns
+        ``(fn, args, counters_shape)``."""
+        gs = cls._probe_session(width, depth, device, backend)
+        args = cls._probe_batch(batch, gs.device, -1.0 if negative else 1.0)
+        return gs._update, args, tuple(gs._sketch.counters.shape)
+
+    @classmethod
+    def cost_probe_advance(cls, *, width: int = 64, depth: int = 2, slices: int = 4,
+                           device: DeviceLike = "cpu", backend: str = "cuda"):
+        """One in-place window advance (expiry of the oldest slice) of a new
+        windowed session at (w, d, K).  Returns ``(fn, args, slices_shape)``."""
+        gs = cls._probe_session(width, depth, device, backend, window_slices=slices)
+        return gs._advance_once, (), tuple(gs._window.slices.shape)
+
+    @classmethod
+    def cost_probe_update_slice(cls, *, width: int = 64, depth: int = 2, slices: int = 4, batch: int = 64,
+                                device: DeviceLike = "cpu", backend: str = "cuda"):
+        """The event-time dispatch of one batch into one ring slot
+        (:meth:`_update_slot`) of a new windowed session at (w, d, K, B),
+        the slot an argument.  Returns ``(fn, args, slices_shape)``."""
+        gs = cls._probe_session(width, depth, device, backend, window_slices=slices)
+        return gs._update_slot, (0, *cls._probe_batch(batch, gs.device)), tuple(gs._window.slices.shape)
+
     # -- state ---------------------------------------------------------------
 
     @property
@@ -602,9 +650,6 @@ class GraphStream:
                     s_np, None if self.config.directed else d_np, cap=self.config.width_rows
                 )
         touched_rows = None
-        # The summary the batch lands in: the plain sketch, or the window
-        # (whose active slice is a view of the ring).
-        live = self._sketch if self._window is None else self._window
         if self._mesh is not None:
             self._mesh_ingest(s_np, d_np, w_np, pre)
         elif self._fused:
@@ -621,18 +666,11 @@ class GraphStream:
         elif pre is not None:
             # Arrays are padded to power-of-two buckets (zero weights are the
             # identity), so batch shapes stay on a short ladder.
-            live.update_preaggregated_(
-                *(self._tensor(pad_bucket(x)) for x in (
-                    pre.src, pre.dst, pre.weights,
-                    pre.src_unique, pre.src_totals, pre.dst_unique, pre.dst_totals,
-                )),
-                backend=self.ingest_backend,
-            )
+            self._update_pre(*(self._tensor(pad_bucket(x)) for x in (
+                pre.src, pre.dst, pre.weights, pre.src_unique, pre.src_totals, pre.dst_unique, pre.dst_totals,
+            )))
         else:
-            live.update_(
-                self._tensor(s_np), self._tensor(d_np), self._tensor(w_np),
-                backend=self.ingest_backend,
-            )
+            self._update(self._tensor(s_np), self._tensor(d_np), self._tensor(w_np))
         self._ring_written()
         self._mark_inflight()
         self.stats.edges_ingested += n_edges
@@ -650,6 +688,19 @@ class GraphStream:
         )
         self._after_mutation()
         return receipt
+
+    def _update(self, src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor) -> None:
+        """The in-place device dispatch of an arrival batch on a local
+        session: into the summary, or the window's active slice (a view of
+        the ring)."""
+        live = self._sketch if self._window is None else self._window
+        live.update_(src, dst, weights, backend=self.ingest_backend)
+
+    def _update_pre(self, *arrays: torch.Tensor) -> None:
+        """The in-place device dispatch of a host-collapsed batch (the seven
+        padded arrays of ``preaggregate_host``) on a local session."""
+        live = self._sketch if self._window is None else self._window
+        live.update_preaggregated_(*arrays, backend=self.ingest_backend)
 
     def _mesh_ingest(self, s_np, d_np, w_np, pre) -> None:
         """One batch of a mesh session through ``distributed_ingest``, as the
@@ -676,10 +727,12 @@ class GraphStream:
         through the ingest engine (one ingest-kernel launch on the card, a
         second for an undirected sketch's mirrored edges).  Arrays are
         padded to power-of-two buckets (zero weights are the identity)."""
-        self._window.update_at_(
-            slot, *(self._tensor(pad_bucket(x)) for x in (s_np, d_np, w_np)), backend=self.ingest_backend
-        )
+        self._update_slot(slot, *(self._tensor(pad_bucket(x)) for x in (s_np, d_np, w_np)))
         self._ring_written()
+
+    def _update_slot(self, slot: int, src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor) -> None:
+        """The in-place device dispatch of one batch into ring slot ``slot``."""
+        self._window.update_at_(slot, src, dst, weights, backend=self.ingest_backend)
 
     def _ingest_eventtime(
         self,

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import queries, reach
 from repro_torch.core.hashing import keys_to_tensor
-from repro_torch.core.sketch import GLavaSketch
+from repro_torch.core.sketch import GLavaSketch, SketchConfig
 from repro_torch.kernels.closure.ops import transitive_closure as cuda_transitive_closure
 from repro_torch.kernels.query.ops import edge_query as cuda_edge_query
 
@@ -142,6 +142,35 @@ class QueryEngine:
         torch_fn, cuda_fn = _FAMILIES[family]
         return cuda_fn if resolve_query_backend(self.backend, device) == "cuda" else torch_fn
 
+    @staticmethod
+    def family_probe(family: str, *, width: int = 64, depth: int = 2, n_queries: int = 32,
+                     device="cpu", backend: str = "cuda"):
+        """The cost plane's sizing hook (``repro_torch.analysis``; the
+        reference's ``QueryEngine.family_probe``,
+        ``src/repro/core/query_engine.py:157``): ``family``'s estimator on
+        ``backend`` and its arguments on an empty sketch at (w, d, Q).
+        ``cuda`` takes the kernel wrappers, which run their plain versions
+        on CPU tensors.  Returns ``(fn, args, counters_shape)``."""
+        cfg = SketchConfig(depth=depth, width_rows=width, width_cols=width)
+        sk = GLavaSketch.empty(cfg, 0, torch.device(device))
+        keys = keys_to_tensor(np.arange(n_queries, dtype=np.uint32), sk.device)
+        shape = tuple(sk.counters.shape)
+        cuda = resolve_query_backend(backend, sk.device) == "cuda"
+        fn = _FAMILIES[family][cuda]
+        if family == "edge":
+            return fn, (sk, keys, keys + 1), shape
+        if family in ("in_flow", "out_flow", "flow"):
+            return fn, (sk, keys), shape
+        if family in ("heavy_vec", "heavy_rel_vec"):
+            thetas = torch.full((n_queries,), 0.5, dtype=torch.float32, device=sk.device)
+            return fn, (sk, keys, thetas), shape
+        if family == "closure":
+            return fn, (sk.counters,), shape
+        if family == "closure_refresh":
+            closure = _FAMILIES["closure"][cuda](sk.counters)
+            return fn, (closure, sk.counters, sk.row_hash(keys[: min(8, n_queries)])), shape
+        raise ValueError(f"no cost probe for query family {family!r}")
+
     # -- padding/chunking ----------------------------------------------------
 
     def _run_padded(self, family: str, sketch_args, keys, tail_args: Tuple = ()):
@@ -166,7 +195,7 @@ class QueryEngine:
         return self._run_padded("flow", (sketch,), (keys,))
 
     def heavy(self, sketch: GLavaSketch, keys, theta: float):
-        theta_t = torch.tensor(theta, dtype=torch.float32, device=sketch.device)
+        theta_t = torch.tensor(theta, dtype=torch.float32).to(sketch.device, non_blocking=True)
         return self._run_padded("heavy", (sketch,), (keys,), (theta_t,))
 
     def heavy_vec(self, sketch: GLavaSketch, keys, thetas):

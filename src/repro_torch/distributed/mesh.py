@@ -26,17 +26,27 @@ rank's disjoint block (exact); a broadcast from rank 0 is a ``SUM`` to which
 the other ranks add zeros; a barrier is a ``SUM`` of one element.  For
 the same reason the port builds plain groups, not ``DeviceMesh``/``DTensor``,
 whose redistributions need ``all_gather`` and ``reduce_scatter``.
+
+Each mesh keeps a record of its last :data:`COLLECTIVE_RECORD_MAXLEN`
+``all_reduce_`` calls (``Mesh.collectives``: the op, the payload's bytes,
+the group's size and axes), which the roofline's collective term reads
+(``repro_torch.roofline.analysis.parse_collectives``) where the reference
+parses the post-SPMD HLO.
 """
 from __future__ import annotations
 
+import collections
 import itertools
 import math
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Deque, Dict, List, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 Axes = Union[str, Sequence[str]]
+
+# The all-reduces a mesh keeps on record (the oldest drop out first).
+COLLECTIVE_RECORD_MAXLEN = 4096
 
 
 def mesh_coords(shape: Sequence[int], rank: int) -> Tuple[int, ...]:
@@ -92,6 +102,7 @@ class Mesh:
         self.axis_names = axis_names
         self.rank = dist.get_rank()
         self.coords: Dict[str, int] = dict(zip(axis_names, mesh_coords(shape, self.rank)))
+        self.collectives: Deque[Dict] = collections.deque(maxlen=COLLECTIVE_RECORD_MAXLEN)
         # Every rank calls new_group for every group, in one order.
         self._groups = {}
         for n in range(1, len(axis_names) + 1):
@@ -128,8 +139,13 @@ class Mesh:
         return self._groups[self._axes(axes)]
 
     def all_reduce_(self, tensor: torch.Tensor, op, axes: Axes) -> torch.Tensor:
-        """``dist.all_reduce`` of ``tensor`` in place over ``axes``; returns it."""
+        """``dist.all_reduce`` of ``tensor`` in place over ``axes``, kept on
+        record in :attr:`collectives`; returns it."""
         dist.all_reduce(tensor, op=op, group=self.group(axes))
+        self.collectives.append({
+            "op": "all_reduce", "reduce": str(op).split(".")[-1], "bytes": tensor.numel() * tensor.element_size(),
+            "group_size": self.size(axes), "axes": self._axes(axes),
+        })
         return tensor
 
     def _to_host(self, values: Sequence[int], op) -> List[int]:

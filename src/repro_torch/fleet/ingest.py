@@ -18,6 +18,7 @@ how many may be outstanding, as ``GraphStream`` does.
 from __future__ import annotations
 
 import collections
+import functools
 
 import numpy as np
 import torch
@@ -56,6 +57,26 @@ class FleetIngestEngine:
         self.max_inflight = max_inflight
         self._inflight: collections.deque = collections.deque()
         self.dispatches = 0
+
+    @classmethod
+    def cost_probe(cls, *, tenants: int = 4, width: int = 64, depth: int = 2, batch: int = 64,
+                   device="cpu", backend: str = "cuda"):
+        """The cost plane's sizing hook (the reference's
+        ``FleetIngestEngine.cost_probe``, ``src/repro/fleet/ingest.py:95``):
+        :meth:`dispatch` of a mixed batch of B edges over T tenants into a
+        new stack at (T, w, d).  Returns ``(fn, args, counters_shape)``."""
+        from repro_torch.core.hashing import keys_to_tensor
+        from repro_torch.core.sketch import SketchConfig
+
+        cfg = SketchConfig(depth=depth, width_rows=width, width_cols=width)
+        state = FleetSketch.empty(cfg, tenants, 0, device=torch.device(device))
+        dev = state.device
+        src = np.arange(batch, dtype=np.uint32)
+        args = (
+            torch.arange(batch, device=dev) % tenants, keys_to_tensor(src, dev),
+            keys_to_tensor(src + np.uint32(batch), dev), torch.ones(batch, dtype=torch.float32, device=dev),
+        )
+        return functools.partial(cls(backend).dispatch, state), args, tuple(state.counters.shape)
 
     def dispatch(
         self,

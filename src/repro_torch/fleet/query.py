@@ -133,7 +133,7 @@ def _window_sum(counters: torch.Tensor, sel: List[int]) -> torch.Tensor:
     """The selected tenants' window-summed counters, (S, d, w, w), summed
     slot by slot (no (S, K, d, w, w) gather)."""
     if counters.shape[1] == 1:
-        return counters[torch.tensor(sel, device=counters.device), 0]
+        return counters[torch.tensor(sel).to(counters.device, non_blocking=True), 0]
     return torch.stack([counters[s].sum(dim=0) for s in sel])
 
 
@@ -203,6 +203,41 @@ class FleetQueryEngine:
     def _fn(self, family: str, device: torch.device) -> Callable:
         torch_fn, cuda_fn = _FLEET_FAMILIES[family]
         return cuda_fn if resolve_query_backend(self.backend, device) == "cuda" else torch_fn
+
+    @staticmethod
+    def family_probe(family: str, *, tenants: int = 4, width: int = 64, depth: int = 2, n_queries: int = 32,
+                     touched: int = 2, device="cpu", backend: str = "cuda"):
+        """The cost plane's sizing hook (the reference's
+        ``FleetQueryEngine.family_probe``, ``src/repro/fleet/query.py:221``):
+        the fleet family's estimator on ``backend`` and its arguments on an
+        empty stack at (T, w, d, Q, S), ``touched`` being S, the number of
+        tenants a closure build or refresh takes.  Returns ``(fn, args,
+        counters_shape)``."""
+        from repro_torch.core.hashing import keys_to_tensor
+        from repro_torch.core.sketch import SketchConfig
+
+        cfg = SketchConfig(depth=depth, width_rows=width, width_cols=width)
+        state = FleetSketch.empty(cfg, tenants, 0, device=torch.device(device))
+        dev = state.device
+        slots = torch.arange(n_queries, device=dev) % tenants
+        keys = keys_to_tensor(np.arange(n_queries, dtype=np.uint32), dev)
+        shape = tuple(state.counters.shape)
+        cuda = resolve_query_backend(backend, dev) == "cuda"
+        fn = _FLEET_FAMILIES[family][cuda]
+        sel = [i % tenants for i in range(touched)]
+        if family == "edge":
+            return fn, (state, slots, keys, keys + 1), shape
+        if family in ("in_flow", "out_flow", "flow"):
+            return fn, (state, slots, keys), shape
+        if family == "heavy_rel_vec":
+            return fn, (state, slots, keys, torch.full((n_queries,), 0.5, dtype=torch.float32, device=dev)), shape
+        if family == "closure":
+            return fn, (state.counters, sel), shape
+        if family == "closure_refresh":
+            closures = _FLEET_FAMILIES["closure"][cuda](state.counters, sel)
+            rows = state.row_hash(keys[: min(8, n_queries)])[None].expand(touched, -1, -1).contiguous()
+            return fn, (closures, state.counters, sel, rows), shape
+        raise ValueError(f"no cost probe for fleet family {family!r}")
 
     # -- padding/chunking (QueryEngine's) -----------------------------------------
 

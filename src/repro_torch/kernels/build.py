@@ -6,16 +6,25 @@ of the checkout (the digest is of the source, so an edited source builds
 anew) and loaded with ``ctypes``.  Building happens at first use, never at
 import; :func:`build` compiles several sources at once, one ``nvcc`` process
 each, all started together.
+
+:func:`costed` marks a kernel wrapper's cost scope for the cost plane
+(``repro_torch.analysis``): a launch through :func:`launch` is invisible to
+a ``TorchDispatchMode``, so while a listener is registered each wrapper
+reports the work and bytes it declares from its operands' shapes, once a
+call, whichever backend runs; with none registered the scope costs one
+list check a call.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Sequence, Tuple
 
 import torch
 
@@ -30,6 +39,8 @@ NVCC_FLAGS = (
 SOURCES = ("ingest", "query", "closure", "ingest_fused", "flow", "countsketch", "sequential", "ingest_stacked")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# Loads of each library in this process (each should be loaded once).
+load_counts: collections.Counter = collections.Counter()
 _functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 # Whether the process sees one CUDA device (then an operand's device is
 # always the current one and :func:`launch` skips the guard check); set at
@@ -91,6 +102,7 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
+        load_counts[name] += 1
     return lib
 
 
@@ -131,3 +143,40 @@ def launch(name: str, symbol: str, dev: int, record: bytes) -> None:
             status = fn(record)
     if status:
         check(status, symbol)
+
+
+# The cost plane's listeners: objects with ``enter_kernel(name, work, nbytes)``
+# and ``exit_kernel()`` (``repro_torch.analysis.costlint.CostCounter``).
+cost_listeners: list = []
+
+
+def costed(cost: Callable[..., Tuple[int, int]]):
+    """Decorate a kernel wrapper with its cost scope.  ``cost`` takes the
+    wrapper's arguments and returns its declared ``(work, bytes)`` from
+    their shapes alone (no read of their values, so no host sync): the
+    Bound column's formulas of ``PERF.md`` section 6 with every slot taken as
+    weighted.  While a listener is registered, each call reports them to it
+    and the listener leaves out the aten ops the call makes (the plain
+    version's on the CPU, the launch path's on the card), so the CPU and the
+    card count the same for the same call."""
+
+    def wrap(fn):
+        name = fn.__name__
+
+        @functools.wraps(fn)
+        def scoped(*args, **kwargs):
+            if not cost_listeners:
+                return fn(*args, **kwargs)
+            listeners = tuple(cost_listeners)
+            work, nbytes = cost(*args, **kwargs)
+            for listener in listeners:
+                listener.enter_kernel(name, work, nbytes)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                for listener in listeners:
+                    listener.exit_kernel()
+
+        return scoped
+
+    return wrap

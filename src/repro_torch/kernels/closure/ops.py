@@ -38,6 +38,14 @@ def _check_buffer(t: torch.Tensor, like: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} must be a contiguous, 16-byte aligned (n, w, w) uint8 tensor like a")
 
 
+def _step_cost(a, a_t, out=None, out_t=None):
+    """2·n·w³ operations (an (n, w, w) product); a and a_t read, out and
+    out_t written, a byte an entry."""
+    n, w = a.shape[0], a.shape[-1]
+    return 2 * n * w ** 3, 4 * n * w * w
+
+
+@build.costed(_step_cost)
 def closure_step(
     a: torch.Tensor,
     a_t: torch.Tensor,
@@ -88,6 +96,16 @@ def closure_steps(w: int) -> int:
     return max(1, math.ceil(math.log2(max(2, w))))
 
 
+def _closure_cost(adj, include_self: bool = True):
+    """:func:`closure_steps` steps at the matrices' own width (not the
+    padded one); the adjacency read once, the bool closure written once."""
+    w = adj.shape[-1]
+    n = adj.numel() // (w * w)
+    steps = closure_steps(w)
+    return steps * 2 * n * w ** 3, steps * 4 * n * w * w + adj.numel() * (adj.element_size() + 1)
+
+
+@build.costed(_closure_cost)
 def transitive_closure(adj: torch.Tensor, include_self: bool = True) -> torch.Tensor:
     """(..., w, w) weighted adjacency -> bool closure, by ``ceil(log2 w)``
     fixed squaring steps of :func:`closure_step`, batched over the leading

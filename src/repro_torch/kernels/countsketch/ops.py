@@ -88,6 +88,26 @@ def _check_family(family: HashFamily, dev: int) -> None:
         raise ValueError(f"the hash family lies on {family.device}, the operands on device {dev}")
 
 
+def _prehashed_cost(vec, h, s, width):
+    """d adds an element; each value, its d buckets and d signs read once,
+    the float32 table written once."""
+    n, d = vec.numel(), h.shape[0]
+    return d * n, n * (4 + d * (h.element_size() + s.element_size())) + 4 * d * int(width)
+
+
+def _family_cost(vec, family):
+    """d adds an element (the hashes computed, not read): 4n + 4dw bytes."""
+    n, d, w = vec.numel(), family.depth, family.w
+    return d * n, 4 * n + 4 * d * w
+
+
+def _median_cost(table, family, n):
+    """d gathers a coordinate: 4n + 4dw bytes."""
+    d, w = family.depth, family.w
+    return d * int(n), 4 * int(n) + 4 * d * w
+
+
+@build.costed(_prehashed_cost)
 def countsketch(vec: torch.Tensor, h: torch.Tensor, s: torch.Tensor, width: int) -> torch.Tensor:
     """vec (n,) float32; h (d, n) integer buckets in [0, width); s (d, n) ±1
     (int8 or int32) -> (d, width) float32 table.  CPU tensors take the plain
@@ -124,6 +144,7 @@ def countsketch(vec: torch.Tensor, h: torch.Tensor, s: torch.Tensor, width: int)
 countsketch.launches = 0
 
 
+@build.costed(_family_cost)
 def countsketch_family(vec: torch.Tensor, family: HashFamily) -> torch.Tensor:
     """Compress a flat (n,) float32 vector with a HashFamily -> (d, family.w)
     float32 table; on the card the kernel hashes the coordinates itself.
@@ -145,6 +166,7 @@ def countsketch_family(vec: torch.Tensor, family: HashFamily) -> torch.Tensor:
     return table
 
 
+@build.costed(_median_cost)
 def countsketch_median(table: torch.Tensor, family: HashFamily, n: int) -> torch.Tensor:
     """The median decode of a (d, w) float32 CountSketch ``table`` under
     ``family`` for the coordinates ``0..n-1`` -> (n,) float32

@@ -19,6 +19,14 @@ _P = ctypes.c_void_p
 _ARGTYPES = [_P, _P, _P, _C, _C, _C, _P]
 
 
+def _flows_cost(counters):
+    """Every counter read once (a reduction's input elements); both sums
+    written once."""
+    d, wr, wc = counters.shape
+    return counters.numel(), 4 * counters.numel() + 4 * d * (wr + wc)
+
+
+@build.costed(_flows_cost)
 def flows(counters: torch.Tensor):
     """(d, wr, wc) float32 counters -> (row sums (d, wr), column sums
     (d, wc)) in one pass.  CPU tensors take the plain version."""

@@ -44,6 +44,21 @@ RECORD = struct.Struct("=7Q7qQ")
 KEY_RECORD = struct.Struct("=8Q7qQ")
 # The index dtypes the kernels take, with their size in bytes.
 INDEX_BYTES = {torch.int32: 4, torch.int64: 8}
+# Declared bytes of one add (kernels/build.py::costed): a 32-byte sector of
+# counters read and written.
+ADD_BYTES = 64
+
+
+def _scatter_cost(counters, rows, cols, weights, row_offset=0):
+    """An add a (sketch, slot); the indices and weights read once."""
+    adds = rows.numel()
+    return adds, adds * (ADD_BYTES + 2 * rows.element_size()) + 4 * weights.numel()
+
+
+def _keys_cost(counters, src, dst, weights, row_hash, col_hash, row_offset=0, mirror=False):
+    """d adds a slot (2d mirrored); two int64 keys and a weight read a slot."""
+    adds = counters.shape[0] * src.numel() * (2 if mirror else 1)
+    return adds, adds * ADD_BYTES + 20 * src.numel()
 
 
 def _check_counters(counters: torch.Tensor, stacked: bool = False) -> None:
@@ -107,6 +122,7 @@ def check_state(name: str, t: torch.Tensor, dtype, shape, dev: int) -> None:
         raise ValueError(f"{name} must be on the counters' device, got {t.device}")
 
 
+@build.costed(_scatter_cost)
 def ingest_scatter(
     counters: torch.Tensor,   # (d, wr_local, wc) float32, contiguous, updated in place
     rows: torch.Tensor,       # (d, B) int32 or int64 — global row buckets, -1 inert
@@ -144,6 +160,7 @@ def scatter_record(counters, rows, cols, weights, row_offset: int, dev: int) -> 
     )
 
 
+@build.costed(_keys_cost)
 def ingest_keys(
     counters: torch.Tensor,   # (d, wr_local, wc) float32, contiguous, updated in place
     src: torch.Tensor,        # (B,) int64 holding uint32 keys

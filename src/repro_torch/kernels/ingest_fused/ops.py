@@ -19,13 +19,21 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ingest.ops import INDEX_BYTES, RECORD, check_batch, check_state
+from repro_torch.kernels.ingest.ops import ADD_BYTES, INDEX_BYTES, RECORD, check_batch, check_state
 from repro_torch.kernels.ingest_fused.ref import fused_ingest_ref
 
 # The record's flag: OR into the caller's bitmap instead of zeroing a new one.
 KEEP_TOUCHED = 1
 
 
+def _fused_cost(counters, row_flows, col_flows, rows, cols, weights, touched=None):
+    """Three adds a (sketch, slot): a counter and both registers; the
+    (d, wr) bitmap written once, the indices and weights read once."""
+    adds = 3 * rows.numel()
+    return adds, adds * ADD_BYTES + row_flows.numel() + 2 * rows.numel() * rows.element_size() + 4 * weights.numel()
+
+
+@build.costed(_fused_cost)
 def fused_ingest(
     counters: torch.Tensor,    # (d, wr, wc) float32, contiguous, updated in place
     row_flows: torch.Tensor,   # (d, wr) float32, contiguous, updated in place

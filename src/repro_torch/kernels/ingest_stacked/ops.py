@@ -17,10 +17,19 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ingest.ops import INDEX_BYTES, RECORD, check_batch, check_state
+from repro_torch.kernels.ingest.ops import ADD_BYTES, INDEX_BYTES, RECORD, check_batch, check_state
 from repro_torch.kernels.ingest_stacked.ref import stacked_ingest_ref
 
 
+def _stacked_cost(counters, row_flows, col_flows, plane, rows, cols, weights):
+    """Three adds a (sketch, slot), whatever the number of planes; the
+    indices, planes and weights read once."""
+    adds = 3 * rows.numel()
+    b = weights.numel()
+    return adds, adds * ADD_BYTES + 2 * rows.numel() * rows.element_size() + b * (plane.element_size() + 4)
+
+
+@build.costed(_stacked_cost)
 def stacked_ingest(
     counters: torch.Tensor,   # (N, d, wr, wc) float32, contiguous, updated in place
     row_flows: torch.Tensor,  # (N, d, wr) float32, contiguous, updated in place

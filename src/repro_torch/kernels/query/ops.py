@@ -68,6 +68,17 @@ def _gather(symbol: str, counters: torch.Tensor, rows: torch.Tensor, cols: torch
     return out
 
 
+def _gather_cost(out_per_query: bool):
+    def cost(counters, rows, cols):
+        """A gather a (sketch, query): a 32-byte sector and its two indices
+        read; the output written once."""
+        d, q = rows.shape[0], rows.shape[-1]
+        return d * q, d * q * (32 + 2 * rows.element_size()) + 4 * q * (1 if out_per_query else d)
+
+    return cost
+
+
+@build.costed(_gather_cost(True))
 def edge_query_min(counters: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
     """(d, wr, wc) float32 counters + (d, Q) in-range int32 or int64 buckets
     -> (Q,) float32 ``min_i counters[i, rows[i,q], cols[i,q]]``.  CPU tensors
@@ -82,6 +93,7 @@ def edge_query_min(counters: torch.Tensor, rows: torch.Tensor, cols: torch.Tenso
 edge_query_min.launches = 0
 
 
+@build.costed(_gather_cost(False))
 def edge_query_cells(counters: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
     """(d, wr, wc) float32 counters + (d, Q) in-range int32 or int64 buckets
     -> (d, Q) float32 per-sketch cell values ``counters[i, rows[i,q],

@@ -24,6 +24,14 @@ MAX_DEPTH = 32
 CONSERVATIVE = 1
 
 
+def _sequential_cost(counters, rows, cols, weights, conservative):
+    """An update a (sketch, edge), each cell read and written (8 bytes);
+    the indices and weights read once."""
+    n = rows.numel()
+    return n, 8 * n + 2 * n * rows.element_size() + 4 * weights.numel()
+
+
+@build.costed(_sequential_cost)
 def sequential_update(
     counters: torch.Tensor,   # (d, wr, wc) float32, contiguous, updated in place
     rows: torch.Tensor,       # (d, B) int32 or int64 — row buckets in [0, wr)

@@ -1327,3 +1327,62 @@ def test_update_preaggregated_on_card_one_key_launch_equals_cpu(cuda, directed):
     cpu.update_preaggregated_(*(keys_to_tensor(x) if x.dtype == np.uint32 else torch.from_numpy(x) for x in host))
     for name in ("counters", "row_flows", "col_flows"):
         assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name))
+
+
+# ---------------------------------------------------------------------------
+# the analysis and cost planes on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("depth,width,batch", [(2, 64, 8), (3, 1024, 256)], ids=["fixture", "mid"])
+def test_hot_entry_points_do_not_synchronize_on_the_card(cuda, depth, width, batch):
+    """Every hot entry point of ``repro_torch.analysis`` on the kernels under
+    ``torch.cuda.set_sync_debug_mode("error")``; those baselined for
+    ``no-host-sync`` are exempt."""
+    import contextlib
+
+    from repro_torch.analysis import contracts
+    from repro_torch.analysis.baseline import BASELINE
+
+    exempt = {s for (rule, s) in BASELINE if rule == "no-host-sync"}
+    fx = contracts.Fixture(device="cuda", depth=depth, width=width, batch=batch)
+    for ep in contracts.ENTRY_POINTS:
+        if "no-host-sync" not in ep.contracts or ep.name in exempt:
+            continue
+        group = contracts.one_rank_group("cuda") if ep.name.startswith("distributed.") else contextlib.nullcontext()
+        with group:
+            entry = ep.build(fx)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                entry.fn(*entry.args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+
+
+def test_cost_exponents_on_the_card_equal_the_cpus(cuda):
+    """The cost pass on the kernels fits the CPU's exponents within 0.05:
+    each kernel wrapper counts its declared cost on either device."""
+    from repro_torch.analysis.costlint import run_cost_pass
+
+    card_v, card = run_cost_pass(check_budgets=False, device="cuda")
+    cpu_v, cpu = run_cost_pass(check_budgets=False, device="cpu")
+    assert card_v == [] and cpu_v == []
+    for mc, mg in zip(cpu, card, strict=True):
+        assert mc["entry"] == mg["entry"]
+        for fc, fg in zip(mc["axes"], mg["axes"], strict=True):
+            assert fg["ok"] and abs(fc["measured"] - fg["measured"]) <= 0.05, (mg["entry"], fc, fg)
+
+
+def test_analysis_cli_on_the_card(cuda, tmp_path):
+    """``python -m repro_torch.analysis --device cuda`` exits 0 with the
+    committed baseline (the budgets are the CPU's and are not checked)."""
+    from repro_torch.analysis.runner import main as analysis_main
+
+    out = tmp_path / "report.json"
+    assert analysis_main(["--device", "cuda", "--output", str(out)]) == 0
+    import json
+
+    report = json.loads(out.read_text())
+    assert report["device"] == "cuda" and report["ok"]

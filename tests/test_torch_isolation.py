@@ -41,6 +41,11 @@ def test_port_files_exist():
     assert {"src/repro_torch/distributed/mesh.py", "src/repro_torch/distributed/sharding.py",
             "src/repro_torch/distributed/spawn.py",
             "src/repro_torch/core/distributed.py"} <= names
+    # So are the analysis and cost planes.
+    assert {"src/repro_torch/analysis/contracts.py", "src/repro_torch/analysis/dispatch_lint.py",
+            "src/repro_torch/analysis/source_lint.py", "src/repro_torch/analysis/costlint.py",
+            "src/repro_torch/analysis/runner.py", "src/repro_torch/roofline/analysis.py",
+            "src/repro_torch/roofline/report.py", "src/repro_torch/launch/sketch_dryrun.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
