@@ -157,6 +157,22 @@ before and read just after:
   minibatch_lg shape on a synthetic graph of 232,965 nodes and 114,615,892
   edges streamed through a BASE degree sketch, 8 steps: the median step ms
   and the peak GiB;
+- lm serve: the LM serving path at Mixtral-8x22B's widths (2 of its 56
+  layers, bf16, random weights from a seed; no kernel of the port on it, so
+  every launch count stays 0): (a) ``prefill`` of 32,768 tokens in chunks of
+  512 queries at the config's capacity 1.25, window slicing on and off, the
+  last logits equal within 1e-2 x max|logit| with the same argmax, wall,
+  CUDA-event and profiled device ms and the peak GiB; (b) 16
+  ``decode_step``s at batch 128 against a full 4,096-slot ring cache, each
+  under ``torch.cuda.set_sync_debug_mode("error")``, ms a step beside the
+  byte bound; (c) in float32 at a capacity no token drops from, a prefill of
+  8,192 tokens (the ring wraps twice) and 16 decode steps against one
+  ``forward`` over all of them, within 1e-3 x max|logit| with the same
+  argmax; (d) four gloo ranks sharing the card on a (2, 2) mesh, one
+  layer's ``moe_ffn_sharded`` (both partitions, full capacity) and
+  ``swa_attention_halo`` on 4 x 2,048 tokens against their single-rank
+  forms within 2e-2 x max|output| (tokens within 1e-5 of a routing tie
+  counted and left out), the all-reduce MiB and ms a rank;
 - analysis (``repro_torch.analysis`` on the kernels): (a) every hot entry
   point of the registry at the fixture size and at BASE under
   ``torch.cuda.set_sync_debug_mode("error")``, those baselined for
@@ -3658,6 +3674,362 @@ def phase_gnn(torch, rows, device="cuda", lg=GNN_LG, lg_steps=GNN_LG_STEPS):
     return big
 
 
+# Mixtral-8x22B's widths (src/repro/configs/mixtral_8x22b.py:17-30) at 2 of
+# its 56 layers: depth is the cut, the widths are the config's.
+MIXTRAL = dict(n_layers=2, d_model=6144, n_heads=48, n_kv_heads=8, d_head=128, d_ff=16384, vocab=32768,
+               sliding_window=4096, rope_theta=1e6)
+MIXTRAL_MOE = dict(n_experts=8, top_k=2, capacity_factor=1.25, partition="ffn")
+# (a) prefill_32k's length at batch 1 (the shape's batch of 32 cut to one
+# card), chunks of 512 queries; (b) decode_32k's batch against a full ring;
+# (c) a prompt that wraps the ring twice, then decode steps; (d) one layer's
+# sharded forms on 4 x 2,048 tokens over four gloo ranks.
+LM = dict(prefill=32_768, q_chunk=512, decode_batch=128, decode_len=32_768, decode_steps=16, consist_prompt=8_192,
+          consist_steps=16, shard_tokens=(4, 2_048))
+LM_SLICING_ATOL = 1e-2     # (a) x max|logit|: bf16 prefill, sliced against masked chunks
+LM_CONSIST_ATOL = 1e-3     # (c) x max|logit|: float32, decode against forward (CPU tests: ~1e-6)
+LM_SHARD_ATOL = 2e-2       # (d) x max|output|: bf16, partial sums rounded and added in another order
+LM_NEAR_TIE = 1e-5         # (d) tokens whose top-2 router margin is under this are counted, not compared
+LM_SHARD_MESH = (2, 2)
+LM_NO_DROP = MIXTRAL_MOE["n_experts"] / MIXTRAL_MOE["top_k"]  # a capacity factor no token drops from
+
+
+def lm_config(torch, widths, **changes):
+    """The served model: ``widths`` (MIXTRAL) in bf16, MoE top-2 over 8
+    experts, chunked attention; then ``changes``."""
+    import dataclasses
+
+    from repro_torch.models.layers import MoEArgs
+    from repro_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig(name="mixtral-8x22b-2l", moe=MoEArgs(**MIXTRAL_MOE), param_dtype=torch.bfloat16,
+                            compute_dtype=torch.bfloat16, attn_q_chunk=LM["q_chunk"], **widths)
+    return dataclasses.replace(cfg, **changes)
+
+
+def lm_step_bytes(cfg, params, batch: int, cap: int) -> int:
+    """Bytes one decode step must move: every parameter read once (the
+    embedding only at the batch's rows), the whole cache read once, the new
+    slot and the float32 logits written."""
+    emb = params["embed"]
+    n = sum(p.numel() * p.element_size() for p in params["layers"].values())
+    n += sum(p.numel() * p.element_size() for k, p in params.items() if k not in ("layers", "embed"))
+    n += batch * emb.shape[1] * emb.element_size()
+    kv = 2 * cfg.n_layers * batch * cap * cfg.n_kv_heads * cfg.head_dim * 2
+    return n + kv + 2 * cfg.n_layers * batch * cfg.n_kv_heads * cfg.head_dim * 2 + batch * cfg.vocab * 4
+
+
+def lm_timed(torch, fn, device):
+    """(result, host wall ms, CUDA-event ms) of one call of ``fn``."""
+    if device == "cpu":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, 1e3 * (time.perf_counter() - t0), None
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0), start.elapsed_time(end)
+
+
+def lm_device_busy_ms(torch, fn):
+    """Milliseconds of kernels and copies in one profiled call of ``fn``
+    (the sum over the trace's device events), or None when the trace shows
+    none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trace_preroll(torch)
+        fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if getattr(e, "device_time_total", 0.0) and "spin_kernel" not in e.key)
+    return total / 1e3 if total else None
+
+
+def lm_prefill(torch, cfg, params, tokens, device):
+    """(a) Prefill at both slicing modes: warm-up, a timed call, a profiled
+    call; the last logits must agree within LM_SLICING_ATOL x max|logit|
+    with equal argmax.  Returns the mode's readings."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tfm
+
+    out = {}
+    for slicing in (True, False):
+        c = dataclasses.replace(cfg, attn_window_slicing=slicing)
+        run = lambda c=c: tfm.prefill(c, params, tokens)  # noqa: E731
+        with torch.no_grad():
+            logits, cache = run()
+            if device != "cpu":
+                torch.cuda.reset_peak_memory_stats()
+            _, wall, ev = lm_timed(torch, run, device)
+            peak = torch.cuda.max_memory_allocated() / 2**30 if device != "cpu" else None
+            busy = lm_device_busy_ms(torch, run) if device != "cpu" else None
+        check(bool(torch.isfinite(logits).all()), f"lm serve (a): non-finite logits (slicing={slicing})")
+        check(tuple(cache["k"].shape) == (cfg.n_layers, tokens.shape[0], min(cfg.sliding_window, tokens.shape[1]),
+                                          cfg.n_kv_heads, cfg.head_dim) and int(cache["len"]) == tokens.shape[1],
+              "lm serve (a): the cache's shape or length")
+        out[slicing] = dict(logits=logits, wall_ms=wall, event_ms=ev, busy_ms=busy, peak_gib=peak, cache=cache)
+    a, b = out[True]["logits"], out[False]["logits"]
+    err = float((a - b).abs().max())
+    scale = float(b.abs().max())
+    check(err <= LM_SLICING_ATOL * scale, f"lm serve (a): sliced and masked prefill differ by {err} (max |logit| {scale})")
+    check(torch.equal(a.argmax(-1), b.argmax(-1)), "lm serve (a): sliced and masked prefill pick other tokens")
+    out["err"], out["scale"] = err, scale
+    return out
+
+
+def lm_decode(torch, cfg, params, gen, device, batch, length, steps):
+    """(b) ``steps`` decode steps of ``batch`` tokens against a full ring
+    (``len`` = ``length``), each under the sync debug mode "error" on the
+    card: (step ms by CUDA events, host ms, the last logits)."""
+    from repro_torch.models import transformer as tfm
+
+    cache = tfm.init_cache(cfg, batch, length, device)
+    for t in (cache["k"], cache["v"]):
+        t.copy_(torch.randn(t.shape, generator=gen, device=device, dtype=torch.float32))
+    cache["len"].fill_(length)
+    tokens = torch.randint(0, cfg.vocab, (steps + 1, batch), generator=gen, device=device)
+    with torch.no_grad():
+        tfm.decode_step(cfg, params, tokens[-1], dict(cache, len=cache["len"].clone()))  # warm-up
+        ev, wall = [], []
+        for i in range(steps):
+            if device == "cpu":
+                (logits, cache), w, _ = lm_timed(torch, lambda: tfm.decode_step(cfg, params, tokens[i], cache), device)
+                ev.append(None)
+                wall.append(w)
+                continue
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                t0 = time.perf_counter()
+                start.record()
+                logits, cache = tfm.decode_step(cfg, params, tokens[i], cache)
+                end.record()
+            except RuntimeError as exc:
+                raise SmokeFailure(f"lm serve (b): decode step {i} synchronizes: {exc}")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            end.synchronize()
+            wall.append(1e3 * (time.perf_counter() - t0))
+            ev.append(start.elapsed_time(end))
+    check(bool(torch.isfinite(logits).all()), "lm serve (b): non-finite decode logits")
+    check(int(cache["len"]) == length + steps, "lm serve (b): the cache's length")
+    return ev, wall, cache
+
+
+def lm_consistency(torch, cfg, params, gen, device, prompt, steps):
+    """(c) In float32 compute at a capacity no token drops from: prefill
+    ``prompt`` tokens, then ``steps`` decode steps, against one ``forward``
+    over all of them; the logits at each position within LM_CONSIST_ATOL x
+    max|logit| and the same argmax.  Returns (max error, max |logit|)."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tfm
+
+    c = dataclasses.replace(cfg, compute_dtype=torch.float32, attn_window_slicing=True,
+                            moe=dataclasses.replace(cfg.moe, capacity_factor=LM_NO_DROP))
+    tokens = torch.randint(0, c.vocab, (1, prompt + steps), generator=gen, device=device)
+    with torch.no_grad():
+        logits, cache = tfm.prefill(c, params, tokens[:, :prompt], max_seq=prompt + steps)
+        got = [logits]
+        for j in range(prompt, prompt + steps):
+            logits, cache = tfm.decode_step(c, params, tokens[:, j], cache)
+            got.append(logits)
+        full, _ = tfm.forward(c, params, tokens)
+    want = full[0, prompt - 1:].float()
+    got = torch.cat(got)
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    check(err <= LM_CONSIST_ATOL * scale, f"lm serve (c): decode differs from forward by {err} (max |logit| {scale})")
+    check(torch.equal(got.argmax(-1), want.argmax(-1)), "lm serve (c): decode and forward pick other tokens")
+    return err, scale
+
+
+def lm_shard_inputs(torch, widths, device, tokens=None):
+    """(d)'s inputs, the same in every process from one seed: x (B, S, D),
+    the router and one layer's experts (bf16), and q, k, v (B, S, H, Dh)."""
+    b, s = tokens or LM["shard_tokens"]
+    gen = torch.Generator(device=device).manual_seed(2604)
+    d, f, e = widths["d_model"], widths["d_ff"], MIXTRAL_MOE["n_experts"]
+    hq, hkv, dh = widths["n_heads"], widths["n_kv_heads"], widths["d_head"]
+
+    def draw(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device, dtype=torch.bfloat16).mul_(scale)
+
+    return dict(x=draw((b, s, d)), router=draw((d, e), d ** -0.5), wg=draw((e, d, f), d ** -0.5),
+                wu=draw((e, d, f), d ** -0.5), wd=draw((e, f, d), f ** -0.5),
+                q=draw((b, s, hq, dh)), k=draw((b, s, hkv, dh)), v=draw((b, s, hkv, dh)))
+
+
+def lm_shard_rank(rank, world, tmp, device, widths, tokens):
+    """(d) One rank of the (2, 2) mesh: ``moe_ffn_sharded`` at both
+    partitions at full capacity and ``swa_attention_halo`` on its block of
+    the inputs; its outputs (on the host), all-reduce times and bytes."""
+    import torch
+
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.models import layers
+
+    rank_device(torch, device)
+    mesh = Mesh(LM_SHARD_MESH, ("data", "model"))
+    inp = lm_shard_inputs(torch, widths, device, tokens)
+    b, s = inp["x"].shape[0] // mesh.shape["data"], inp["x"].shape[1] // mesh.shape["model"]
+    i, j = mesh.coords["data"], mesh.coords["model"]
+
+    def block(t):
+        return t[i * b:(i + 1) * b, j * s:(j + 1) * s].contiguous()
+
+    out = {"coords": (i, j)}
+    clock = CollectiveClock(torch, mesh)
+    with torch.no_grad():
+        for partition in ("ffn", "expert"):
+            args = layers.MoEArgs(**dict(MIXTRAL_MOE, partition=partition, capacity_factor=LM_NO_DROP), mesh=mesh)
+            shards = layers.moe_weight_shards(inp["wg"], inp["wu"], inp["wd"], args)
+            first = len(clock.calls)
+            y, aux = layers.moe_ffn_sharded(block(inp["x"]), inp["router"], *shards, args)
+            out[partition] = (y.cpu(), float(aux), [c[:4] for c in clock.calls[first:]])
+            del shards, y
+        q, k, v = (block(inp[n]) for n in ("q", "k", "v"))
+        del inp
+        first = len(clock.calls)
+        o = layers.swa_attention_halo(q, k, v, sliding_window=widths["sliding_window"], mesh=mesh,
+                                      q_chunk=min(LM["q_chunk"], s))
+        out["halo"] = (o.cpu(), None, [c[:4] for c in clock.calls[first:]])
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if device != "cpu" else 0.0
+    return out
+
+
+def lm_sharded(torch, widths, device, tokens):
+    """(d) The sharded forms on four gloo ranks against their single-rank
+    counterparts computed here first: ``moe_block`` on all the tokens at
+    full capacity, dense masked ``gqa_attention``.  Returns a summary."""
+    from repro_torch.models import layers
+
+    inp = lm_shard_inputs(torch, widths, device, tokens)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        x = inp["x"]
+        flat = x.reshape(-1, x.shape[-1])
+        args = layers.MoEArgs(**dict(MIXTRAL_MOE, capacity_factor=LM_NO_DROP))
+        want_moe, want_aux = layers.moe_block(flat, inp["router"], inp["wg"], inp["wu"], inp["wd"], args)
+        want_moe = want_moe.reshape(x.shape).cpu()
+        probs = torch.softmax(flat.float() @ inp["router"].float(), -1)
+        top = torch.topk(probs, 3, dim=-1).values
+        near = (top[:, 1] - top[:, 2] <= LM_NEAR_TIE).reshape(x.shape[:2]).cpu()
+        want_halo = layers.gqa_attention(inp["q"], inp["k"], inp["v"], causal=True,
+                                         sliding_window=widths["sliding_window"]).cpu()
+    single_s = time.perf_counter() - t0
+    del inp, x, flat, probs
+    if device != "cpu":
+        release(torch)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(lm_shard_rank, 4, device, args=(widths, tokens), timeout=600.0)
+    ranks_s = time.perf_counter() - t0
+    b, s = want_moe.shape[0] // LM_SHARD_MESH[0], want_moe.shape[1] // LM_SHARD_MESH[1]
+    summary = {"near_ties": int(near.sum()), "single_s": single_s, "ranks_s": ranks_s,
+               "peak_gib": max(r["peak_gib"] for r in ranks)}
+    for name in ("ffn", "expert", "halo"):
+        want = want_halo if name == "halo" else want_moe
+        scale = float(want.float().abs().max())
+        errs, calls = [], []
+        for r in ranks:
+            i, j = r["coords"]
+            got = r[name][0].float()
+            mine = want[i * b:(i + 1) * b, j * s:(j + 1) * s].float()
+            tied = near[i * b:(i + 1) * b, j * s:(j + 1) * s]
+            keep = torch.ones_like(tied) if name == "halo" else ~tied
+            errs.append(float((got - mine).abs()[keep].max()))
+            calls.extend(r[name][-1])
+        if name != "halo":  # pmean'd: one value on every rank
+            check(len({r[name][1] for r in ranks}) == 1, f"lm serve (d): {name} aux differs between ranks")
+            summary[name + "_aux"] = (ranks[0][name][1], float(want_aux))
+        err = max(errs)
+        check(err <= LM_SHARD_ATOL * scale, f"lm serve (d): {name} differs from its single-rank form by {err} "
+                                            f"(max |output| {scale})")
+        summary[name] = dict(err=err, scale=scale, n_allreduce=len(calls) // 4,
+                             allreduce_ms=sum(c[3] for c in calls) / 4,
+                             allreduce_bytes=sum(c[2] for c in calls) / 4)
+    return summary
+
+
+def phase_lm_serve(torch, drive, counted, device="cuda", widths=MIXTRAL, sizes=None):
+    """The LM serving path at Mixtral-8x22B's widths (2 of 56 layers, random
+    bf16 weights from a seed): (a) prefill at prefill_32k's length, window
+    slicing on and off; (b) decode at decode_32k's batch against a full
+    ring cache, sync-free; (c) prefill + decode against one forward in
+    float32; (d) the sharded MoE and halo attention on four gloo ranks.
+    None of it launches a hand-written kernel (the reference computes the
+    LM in plain jnp): the counts stay 0.  Prints a line each; a failure
+    raises."""
+    import statistics
+
+    from repro_torch.models import transformer as tfm
+
+    sizes = sizes or LM
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip() if device != "cpu" else "cpu"
+    cfg = lm_config(torch, widths, attn_q_chunk=sizes["q_chunk"])
+    gen = torch.Generator(device=device).manual_seed(26)
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, gen, device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in [*params["layers"].values(), *(v for k, v in params.items() if k != "layers")])
+    tokens = torch.randint(0, cfg.vocab, (1, sizes["prefill"]), generator=gen, device=device)
+
+    def run():
+        pre = lm_prefill(torch, cfg, params, tokens, device)
+        dec = lm_decode(torch, cfg, params, gen, device, sizes["decode_batch"], sizes["decode_len"],
+                        sizes["decode_steps"])
+        return pre, dec
+
+    pre, (ev, wall, cache) = drive((), run)
+    launched = {name: f.launches for name, f in counted.items() if f.launches}
+    check(not launched, f"lm serve: the LM path launched the port's kernels {launched}")
+    s, m = pre[True], pre[False]
+    print(f"[chip_smoke] lm serve ({smi}): mixtral-8x22b widths, 2 of 56 layers, {n_params:,} bf16 parameters "
+          f"(drawn in {init_s:.1f} s), no kernel of the port on the path (launch counts 0)")
+    gib = {k: "not measured" if v["peak_gib"] is None else f"{v['peak_gib']:.4f} GiB" for k, v in ((0, s), (1, m))}
+    print(f"[chip_smoke] lm serve (a) prefill 1 x {sizes['prefill']:,}, q_chunk {cfg.attn_q_chunk}, capacity 1.25: "
+          f"window-sliced wall {s['wall_ms']:.1f} ms, events {_fmt(s['event_ms'])}, device busy "
+          f"{_fmt(s['busy_ms'])}, peak {gib[0]}; masked wall {m['wall_ms']:.1f} ms, events {_fmt(m['event_ms'])}, "
+          f"device busy {_fmt(m['busy_ms'])}, peak {gib[1]}; last logits max |diff| {pre['err']:.6g} (max |logit| "
+          f"{pre['scale']:.6g}, tolerance {LM_SLICING_ATOL} x), argmax equal")
+    del pre, s, m
+    bound_ms = lm_step_bytes(cfg, params, sizes["decode_batch"], cache["k"].shape[2]) / PEAK_BYTES_PER_S * 1e3
+    ev_ok = [e for e in ev if e is not None]
+    step = f"{_fmt(statistics.median(ev_ok))} a step median by CUDA events (min {_fmt(min(ev_ok))})" if ev_ok \
+        else "not measured"
+    print(f"[chip_smoke] lm serve (b) decode batch {sizes['decode_batch']} against a full ring of "
+          f"{cache['k'].shape[2]:,} slots (len {sizes['decode_len']:,}), {len(wall)} steps, each sync-free under "
+          f"sync debug mode 'error': {step}, host {statistics.median(wall):.3f} ms; bound {bound_ms:.4f} ms (bytes: "
+          f"every weight and the whole cache read once at 3.35 TB/s)")
+    del cache
+    if device != "cpu":
+        release(torch)
+    err, scale = lm_consistency(torch, cfg, params, gen, device, sizes["consist_prompt"], sizes["consist_steps"])
+    print(f"[chip_smoke] lm serve (c) float32, capacity {LM_NO_DROP}: prefill {sizes['consist_prompt']:,} (the ring of "
+          f"{cfg.sliding_window} wraps {sizes['consist_prompt'] // cfg.sliding_window} times) + "
+          f"{sizes['consist_steps']} decode steps against one forward over {sizes['consist_prompt'] + sizes['consist_steps']:,} "
+          f"tokens: max |diff| {err:.6g} (max |logit| {scale:.6g}, tolerance {LM_CONSIST_ATOL} x), argmax equal")
+    del params
+    if device != "cpu":
+        release(torch)
+    sh = lm_sharded(torch, widths, device, sizes["shard_tokens"])
+    parts = "; ".join(
+        f"{n} max |diff| {sh[n]['err']:.6g} (max {sh[n]['scale']:.6g}), {sh[n]['n_allreduce']} all-reduces a rank, "
+        f"{sh[n]['allreduce_bytes'] / 2**20:.1f} MiB and {sh[n]['allreduce_ms']:.1f} ms a rank"
+        for n in ("ffn", "expert", "halo"))
+    print(f"[chip_smoke] lm serve (d) 4 gloo ranks on one card, mesh (2, 2), {sizes['shard_tokens'][0]} x "
+          f"{sizes['shard_tokens'][1]:,} tokens, one layer, MoE at capacity {LM_NO_DROP} (near-tied tokens excluded: "
+          f"{sh['near_ties']}; aux ffn {sh['ffn_aux'][0]:.6g}, expert {sh['expert_aux'][0]:.6g}, unsharded "
+          f"{sh['ffn_aux'][1]:.6g}): {parts}; tolerance {LM_SHARD_ATOL} x; ranks {sh['ranks_s']:.1f} s, single-rank "
+          f"forms {sh['single_s']:.1f} s, peak {sh['peak_gib']:.2f} GiB a rank")
+
+
 # Exponents of the cost pass on the card and on the CPU agree within this.
 EXPONENT_AGREEMENT = 0.05
 
@@ -4000,6 +4372,11 @@ def main() -> int:
 
     # The sketch-sampled GraphSAGE path: B1 under the degree sketch.
     phase_gnn(torch, rows)
+    release(torch)
+
+    # The LM serving path at Mixtral-8x22B's widths: prefill, decode on the
+    # ring cache, decode against forward, the sharded MoE and halo attention.
+    phase_lm_serve(torch, drive, counted)
     release(torch)
 
     # The analysis and cost planes on the kernels.

@@ -19,7 +19,7 @@ on the card (:func:`memory_dict`), and the collectives from the record each
 :func:`model_flops_for` keeps the sketch plane's formulas
 (``src/repro/launch/sketch_dryrun.py:68, :96``); the model bundles'
 (``src/repro/roofline/analysis.py:265-352``) wait for the architecture
-configs and step builders of ROADMAP A12.
+configs and step builders of ROADMAP A12c–A12d.
 """
 from __future__ import annotations
 
@@ -165,11 +165,11 @@ def model_flops_for(bundle=None, *, config=None, batch: Optional[int] = None,
     an ingest batch of B edges counts the one-hot formulation
     ``2·d·B·(w_r + w_c)``, Q edge queries ``2·d·Q``.  A model ``bundle``
     (the reference's 6·N·D and the GNN and recsys formulas) raises: its
-    configs and step builders are ROADMAP A12."""
+    configs and step builders are ROADMAP A12c, the bundle dry run A12d."""
     if bundle is not None:
         raise NotImplementedError(
             "model_flops_for(bundle) needs the architecture configs and step builders, "
-            "not ported yet (ROADMAP A12)"
+            "not ported yet (ROADMAP A12d)"
         )
     if config is None or (batch is None) == (queries is None):
         raise ValueError("give a sketch config and one of batch= or queries=")

@@ -1,7 +1,7 @@
 """Roofline report generator, the port of ``src/repro/roofline/report.py``:
 result JSONs -> the markdown tables of the reference (roofline, dry run,
 bottlenecks).  Model-cell records (``arch``/``shape``/``mesh``) come from
-the dry run of ROADMAP A12; the sketch plane's records
+the dry run of ROADMAP A12d; the sketch plane's records
 (``launch/sketch_dryrun.py``) have their own schema and are skipped here,
 as in the reference."""
 from __future__ import annotations

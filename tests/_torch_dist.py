@@ -554,6 +554,80 @@ def load_train_inputs(path, axis_name=None, mesh=None, device="cpu"):
     return state, step, batches
 
 
+# -- the LM's sharded forms ------------------------------------------------------------
+
+
+def local_block(a, mesh, seq_axis=1):
+    """This rank's block of a global (B, S, ...) array: the batch over the
+    data axis, the sequence over ``"model"``."""
+    b, s = a.shape[0] // mesh.shape["data"], a.shape[seq_axis] // mesh.shape["model"]
+    i, j = mesh.coords["data"], mesh.coords["model"]
+    return a[i * b:(i + 1) * b, j * s:(j + 1) * s]
+
+
+def lm_sharded(rank, world, out, meshes, moe_cases, halo_cases, forward_cases, device="cpu"):
+    """On each of ``meshes`` (("data", "model") shapes): ``moe_ffn_sharded`` for
+    each of ``moe_cases`` (name -> (inputs npz, MoEArgs without a mesh)),
+    ``swa_attention_halo`` for each of ``halo_cases`` (name -> (npz of global
+    q, k, v, window, q_chunk)), and the transformer's ``forward`` on this
+    rank's tokens with ``attn_halo_mesh`` for each of ``forward_cases``
+    (name -> (config without a mesh, npz of the parameter tree and tokens)).
+    Returns each output (this rank's block), the aux losses, the mesh's
+    collective records and the coordinates, under keys that start with the
+    mesh's ``"DxM"``."""
+    from repro_torch.distributed.mesh import Mesh
+
+    if device != "cpu":
+        torch.cuda.set_device(0)
+    else:
+        torch.set_num_threads(1)  # four ranks share the host's cores
+    res = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    for shape in meshes:
+        mesh = Mesh(shape, ("data", "model"))
+        res.update({f"{shape[0]}x{shape[1]}/{k}": v for k, v in _lm_cases(mesh, t, moe_cases, halo_cases,
+                                                                          forward_cases).items()})
+    return res
+
+
+def _lm_cases(mesh, t, moe_cases, halo_cases, forward_cases):
+    import dataclasses
+
+    from repro_torch.models import layers, transformer as tfm
+
+    res = {"coords": (mesh.coords["data"], mesh.coords["model"])}
+
+    for name, (path, args) in moe_cases.items():
+        data = dict(np.load(path))
+        args = dataclasses.replace(args, mesh=mesh)
+        shards = layers.moe_weight_shards(*(t(data[k]) for k in ("wg", "wu", "wd")), args)
+        y, aux = layers.moe_ffn_sharded(t(local_block(data["x"], mesh)), t(data["router"]), *shards, args)
+        res[f"moe/{name}"], res[f"aux/{name}"] = _np(y), float(aux)
+    for name, path in halo_cases.items():
+        data = dict(np.load(path))
+        q, k, v = (t(local_block(data[n], mesh)) for n in ("q", "k", "v"))
+        o = layers.swa_attention_halo(q, k, v, sliding_window=int(data["window"]), mesh=mesh,
+                                      q_chunk=int(data["q_chunk"]))
+        res[f"halo/{name}"] = _np(o)
+    for name, (cfg, path) in forward_cases.items():
+        data = dict(np.load(path))
+        cfg = dataclasses.replace(cfg, attn_halo_mesh=mesh)
+        tree = {"layers": {}}
+        for key, value in data.items():
+            if key.startswith("layers/"):
+                tree["layers"][key[7:]] = t(value)
+            elif key != "tokens":
+                tree[key] = t(value)
+        with torch.no_grad():
+            logits, aux = tfm.forward(cfg, tree, t(local_block(data["tokens"], mesh)))
+        res[f"forward/{name}"] = _np(logits)
+    res["collectives"] = list(mesh.collectives)
+    return res
+
+
 # -- on the card --------------------------------------------------------------------
 
 

@@ -223,18 +223,70 @@ def assert_same_value(got, want, exact=True):
 
 def ref_transformer_config(cfg):
     """The reference's TransformerConfig with the port config ``cfg``'s
-    fields (dtypes mapped to jnp)."""
+    fields (dtypes mapped to jnp; a port ``MoEArgs`` to the reference's,
+    without a mesh)."""
     import jax.numpy as jnp
+    from repro.models.layers import MoEArgs as RefMoEArgs
     from repro.models.transformer import TransformerConfig as RefConfig
 
     dtypes = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+    moe = None
+    if cfg.moe is not None:
+        m = cfg.moe
+        moe = RefMoEArgs(n_experts=m.n_experts, top_k=m.top_k, capacity_factor=m.capacity_factor,
+                         dense_residual=m.dense_residual, aux_loss_coef=m.aux_loss_coef, partition=m.partition)
     return RefConfig(
         name=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
         n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff, vocab=cfg.vocab, d_head=cfg.d_head,
         norm=cfg.norm, qk_norm=cfg.qk_norm, sliding_window=cfg.sliding_window,
-        rope_theta=cfg.rope_theta, tie_embeddings=cfg.tie_embeddings,
+        rope_theta=cfg.rope_theta, tie_embeddings=cfg.tie_embeddings, moe=moe,
         param_dtype=dtypes[cfg.param_dtype], compute_dtype=dtypes[cfg.compute_dtype],
+        attn_q_chunk=cfg.attn_q_chunk, remat=cfg.remat, attn_window_slicing=cfg.attn_window_slicing,
     )
+
+
+def port_transformer_config(ref_cfg, **changes):
+    """The port's TransformerConfig with the reference config ``ref_cfg``'s
+    fields (its SMOKE configs, say), then ``changes``."""
+    import dataclasses
+
+    import jax.numpy as jnp
+    from repro_torch.models.layers import MoEArgs
+    from repro_torch.models.transformer import TransformerConfig
+
+    dtypes = {jnp.dtype(jnp.float32): torch.float32, jnp.dtype(jnp.bfloat16): torch.bfloat16}
+    moe = None
+    if ref_cfg.moe is not None:
+        m = ref_cfg.moe
+        moe = MoEArgs(n_experts=m.n_experts, top_k=m.top_k, capacity_factor=m.capacity_factor,
+                      dense_residual=m.dense_residual, aux_loss_coef=m.aux_loss_coef, partition=m.partition)
+    cfg = TransformerConfig(
+        name=ref_cfg.name, n_layers=ref_cfg.n_layers, d_model=ref_cfg.d_model, n_heads=ref_cfg.n_heads,
+        n_kv_heads=ref_cfg.n_kv_heads, d_ff=ref_cfg.d_ff, vocab=ref_cfg.vocab, d_head=ref_cfg.d_head,
+        norm=ref_cfg.norm, qk_norm=ref_cfg.qk_norm, sliding_window=ref_cfg.sliding_window,
+        rope_theta=ref_cfg.rope_theta, tie_embeddings=ref_cfg.tie_embeddings, moe=moe,
+        param_dtype=dtypes[jnp.dtype(ref_cfg.param_dtype)], compute_dtype=dtypes[jnp.dtype(ref_cfg.compute_dtype)],
+        attn_q_chunk=ref_cfg.attn_q_chunk, remat=ref_cfg.remat, attn_window_slicing=ref_cfg.attn_window_slicing,
+    )
+    return dataclasses.replace(cfg, **changes)
+
+
+def transformer_numpy_params(cfg, seed):
+    """A parameter tree of the port config ``cfg``'s shapes drawn with
+    numpy (matrices ~ N(0, 1/fan_in), norm weights 1), for both packages:
+    faster than the reference's ``init_params`` run eagerly."""
+    from repro_torch.models.transformer import param_shapes
+
+    rng = np.random.default_rng(seed)
+
+    def leaf(name, shape):
+        if "norm" in name:
+            return np.ones(shape, np.float32)
+        fan_in = cfg.d_model if name == "embed" else shape[-2]
+        return (rng.normal(0, 1, shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    shapes = param_shapes(cfg)
+    return {k: ({n: leaf(n, s) for n, s in v.items()} if k == "layers" else leaf(k, v)) for k, v in shapes.items()}
 
 
 def numpy_tree(tree):

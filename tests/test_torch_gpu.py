@@ -1386,3 +1386,81 @@ def test_analysis_cli_on_the_card(cuda, tmp_path):
 
     report = json.loads(out.read_text())
     assert report["device"] == "cuda" and report["ok"]
+
+
+# -- the LM serving path (no kernel of the port: plain torch on the card) ------------
+
+# The reference's Mixtral SMOKE widths (src/repro/configs/mixtral_8x22b.py SMOKE).
+LM_SMOKE = dict(name="mixtral-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16, d_ff=128,
+                vocab=256, sliding_window=8, compute_dtype=torch.float32)
+
+
+def _lm_smoke(capacity_factor=1.25, **changes):
+    from repro_torch.models.layers import MoEArgs
+    from repro_torch.models.transformer import TransformerConfig
+
+    moe = MoEArgs(n_experts=4, top_k=2, capacity_factor=capacity_factor, partition="ffn")
+    return TransformerConfig(**{**LM_SMOKE, **changes}, moe=moe)
+
+
+def _to(tree, device):
+    return {k: (_to(v, device) if isinstance(v, dict) else v.to(device)) for k, v in tree.items()}
+
+
+def test_moe_block_on_card_with_dropped_tokens_matches_cpu(cuda):
+    from repro_torch.models import layers
+
+    g = torch.Generator().manual_seed(3)
+    t, d, f, e = 96, 64, 128, 4
+    x = torch.randn(t, d, generator=g) + torch.randn(d, generator=g)  # a shared direction: uneven loads
+    router, wg, wu = (torch.randn(s, generator=g) / d ** 0.5 for s in ((d, e), (e, d, f), (e, d, f)))
+    wd = torch.randn(e, f, d, generator=g) / f ** 0.5
+    args = layers.MoEArgs(n_experts=e, top_k=2, capacity_factor=1.25)
+    table, _, _ = layers.route(x, router, e, 2, layers.moe_capacity(t, args), 0.01)
+    assert int((table < t).sum()) < t * 2  # some (token, k) pairs drop
+    want, want_aux = layers.moe_block(x, router, wg, wu, wd, args)
+    got, aux = layers.moe_block(*(a.cuda() for a in (x, router, wg, wu, wd)), args)
+    torch.cuda.synchronize()  # a dropped pair's index must not trip a device assert
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("prompt,max_seq,changes", [(24, 32, dict(attn_q_chunk=8, attn_window_slicing=True)),
+                                                    (5, 24, {}), (10, 24, dict(sliding_window=None))],
+                         ids=["wrapped", "unwrapped", "padded"])
+def test_prefill_and_decode_on_card_match_cpu(cuda, prompt, max_seq, changes):
+    from repro_torch.models import transformer as tfm
+
+    cfg = _lm_smoke(**changes)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, prompt + 8), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want, want_cache = tfm.prefill(cfg, params, tokens[:, :prompt], max_seq=max_seq)
+        got, cache = tfm.prefill(cfg, _to(params, "cuda"), tokens[:, :prompt].cuda(), max_seq=max_seq)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=2e-5)
+        for j in range(prompt, prompt + 8):
+            want, want_cache = tfm.decode_step(cfg, params, tokens[:, j], want_cache)
+            got, cache = tfm.decode_step(cfg, _to(params, "cuda"), tokens[:, j].cuda(), cache)
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=2e-5)
+            for name in ("k", "v"):
+                torch.testing.assert_close(cache[name].cpu(), want_cache[name], rtol=1e-5, atol=1e-5)
+            assert cache["len"].is_cuda and int(cache["len"]) == int(want_cache["len"])
+
+
+def test_decode_step_is_sync_free_on_the_card(cuda):
+    from repro_torch.models import transformer as tfm
+
+    cfg = _lm_smoke()
+    params = _to(tfm.init_params(cfg, torch.Generator().manual_seed(0)), "cuda")
+    tokens = torch.randint(0, cfg.vocab, (2, 20), device="cuda", generator=cuda)
+    with torch.no_grad():
+        _, cache = tfm.prefill(cfg, params, tokens[:, :12], max_seq=20)
+        tfm.decode_step(cfg, params, tokens[:, 12], dict(cache, k=cache["k"].clone(), v=cache["v"].clone()))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for j in range(12, 20):
+                logits, cache = tfm.decode_step(cfg, params, tokens[:, j], cache)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(logits).all()) and int(cache["len"]) == 20
