@@ -157,8 +157,9 @@ before and read just after:
   minibatch_lg shape on a synthetic graph of 232,965 nodes and 114,615,892
   edges streamed through a BASE degree sketch, 8 steps: the median step ms
   and the peak GiB;
-- lm serve: the LM serving path at Mixtral-8x22B's widths (2 of its 56
-  layers, bf16, random weights from a seed; no kernel of the port on it, so
+- lm serve: the LM serving path at Mixtral-8x22B's widths (the registry's
+  ``get_arch("mixtral-8x22b").config`` at 2 of its 56 layers, bf16, random
+  weights from a seed; no kernel of the port on it, so
   every launch count stays 0): (a) ``prefill`` of 32,768 tokens in chunks of
   512 queries at the config's capacity 1.25, window slicing on and off, the
   last logits equal within 1e-2 x max|logit| with the same argmax, wall,
@@ -173,6 +174,31 @@ before and read just after:
   ``swa_attention_halo`` on 4 x 2,048 tokens against their single-rank
   forms within 2e-2 x max|output| (tokens within 1e-5 of a routing tie
   counted and left out), the all-reduce MiB and ms a rank;
+- models: the other models at the registry's FULL configs
+  (``repro_torch.configs.get_arch``), random weights from a seed: (a)
+  BERT4Rec's train_batch (1,000,000 items, embed 64, 2 blocks, 2 heads,
+  sequence 200, 2,048 negatives, bf16), its batch cut from 65,536 to the
+  largest power of two at most 16,384 whose forward and backward peak under
+  72 GiB; 6 steps, each streaming the batch's user-item interactions into
+  one ``InteractionPopularitySketch`` on the card (``ingest_scatter`` once a
+  batch, no other kernel), drawing the 2,048 negatives from it
+  (``sample_negatives``), then ``cloze_loss_sampled`` forward and backward
+  and AdamW: finite losses, every streamed item's popularity at least its
+  exact count, step ms, peak GiB, bounds, the last batch's ingest and step
+  profiled; one step at batch 64 against the CPU's (loss within 1e-2,
+  gradients within 5e-2 by norm); (b) ``score_all_items`` at serve_p99's
+  batch 512 and serve_bulk's 262,144 cut to 4,096, ``score_candidates``
+  against 1,000,000 candidates (equal to the full scores gathered within
+  1e-5 x max), timed with CUDA events beside their bounds; (c) GAT,
+  SchNet and DimeNet on full_graph_sm (GAT: 2,708 nodes and 10,556 edges
+  padded to 3,072 and 10,752), molecule (SchNet, DimeNet: 128 graphs of 30
+  nodes and 64 edges, DimeNet's 65,536-triplet budget) and one
+  minibatch_lg block (all three: 1,024 seeds, fanouts (15, 10), 169,984
+  nodes, 168,960 edges, from a synthetic 65,536-node citation graph),
+  forward, backward and AdamW for 5 steps (finite losses), the first step
+  against the CPU's from the same parameters (loss within 1e-4, gradients
+  within 1e-3 by norm; DimeNet's block against the CPU's forward only);
+  step ms and peak GiB; no kernel launched;
 - analysis (``repro_torch.analysis`` on the kernels): (a) every hot entry
   point of the registry at the fixture size and at BASE under
   ``torch.cuda.set_sync_debug_mode("error")``, those baselined for
@@ -3674,11 +3700,16 @@ def phase_gnn(torch, rows, device="cuda", lg=GNN_LG, lg_steps=GNN_LG_STEPS):
     return big
 
 
-# Mixtral-8x22B's widths (src/repro/configs/mixtral_8x22b.py:17-30) at 2 of
-# its 56 layers: depth is the cut, the widths are the config's.
-MIXTRAL = dict(n_layers=2, d_model=6144, n_heads=48, n_kv_heads=8, d_head=128, d_ff=16384, vocab=32768,
-               sliding_window=4096, rope_theta=1e6)
-MIXTRAL_MOE = dict(n_experts=8, top_k=2, capacity_factor=1.25, partition="ffn")
+# Mixtral-8x22B at 2 of its 56 layers: depth is the cut, the widths are the
+# registry's config (src/repro_torch/configs/mixtral_8x22b.py).
+MIXTRAL_LAYERS = 2
+
+
+def lm_no_drop(cfg) -> float:
+    """A capacity factor no token drops from: experts over top-k."""
+    return cfg.moe.n_experts / cfg.moe.top_k
+
+
 # (a) prefill_32k's length at batch 1 (the shape's batch of 32 cut to one
 # card), chunks of 512 queries; (b) decode_32k's batch against a full ring;
 # (c) a prompt that wraps the ring twice, then decode steps; (d) one layer's
@@ -3690,20 +3721,18 @@ LM_CONSIST_ATOL = 1e-3     # (c) x max|logit|: float32, decode against forward (
 LM_SHARD_ATOL = 2e-2       # (d) x max|output|: bf16, partial sums rounded and added in another order
 LM_NEAR_TIE = 1e-5         # (d) tokens whose top-2 router margin is under this are counted, not compared
 LM_SHARD_MESH = (2, 2)
-LM_NO_DROP = MIXTRAL_MOE["n_experts"] / MIXTRAL_MOE["top_k"]  # a capacity factor no token drops from
 
 
-def lm_config(torch, widths, **changes):
-    """The served model: ``widths`` (MIXTRAL) in bf16, MoE top-2 over 8
-    experts, chunked attention; then ``changes``."""
+def lm_config(torch):
+    """The served model: the registry's Mixtral-8x22B config at
+    MIXTRAL_LAYERS layers in bf16, attention in chunks of LM's q_chunk."""
     import dataclasses
 
-    from repro_torch.models.layers import MoEArgs
-    from repro_torch.models.transformer import TransformerConfig
+    from repro_torch.configs import get_arch
 
-    cfg = TransformerConfig(name="mixtral-8x22b-2l", moe=MoEArgs(**MIXTRAL_MOE), param_dtype=torch.bfloat16,
-                            compute_dtype=torch.bfloat16, attn_q_chunk=LM["q_chunk"], **widths)
-    return dataclasses.replace(cfg, **changes)
+    return dataclasses.replace(get_arch("mixtral-8x22b").config, name=f"mixtral-8x22b-{MIXTRAL_LAYERS}l",
+                               n_layers=MIXTRAL_LAYERS, param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                               attn_q_chunk=LM["q_chunk"])
 
 
 def lm_step_bytes(cfg, params, batch: int, cap: int) -> int:
@@ -3734,21 +3763,6 @@ def lm_timed(torch, fn, device):
     return out, 1e3 * (time.perf_counter() - t0), start.elapsed_time(end)
 
 
-def lm_device_busy_ms(torch, fn):
-    """Milliseconds of kernels and copies in one profiled call of ``fn``
-    (the sum over the trace's device events), or None when the trace shows
-    none."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        trace_preroll(torch)
-        fn()
-        torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages()
-                if getattr(e, "device_time_total", 0.0) and "spin_kernel" not in e.key)
-    return total / 1e3 if total else None
-
-
 def lm_prefill(torch, cfg, params, tokens, device):
     """(a) Prefill at both slicing modes: warm-up, a timed call, a profiled
     call; the last logits must agree within LM_SLICING_ATOL x max|logit|
@@ -3767,7 +3781,7 @@ def lm_prefill(torch, cfg, params, tokens, device):
                 torch.cuda.reset_peak_memory_stats()
             _, wall, ev = lm_timed(torch, run, device)
             peak = torch.cuda.max_memory_allocated() / 2**30 if device != "cpu" else None
-            busy = lm_device_busy_ms(torch, run) if device != "cpu" else None
+            busy = profile_breakdown(torch, run)[1] if device != "cpu" else None
         check(bool(torch.isfinite(logits).all()), f"lm serve (a): non-finite logits (slicing={slicing})")
         check(tuple(cache["k"].shape) == (cfg.n_layers, tokens.shape[0], min(cfg.sliding_window, tokens.shape[1]),
                                           cfg.n_kv_heads, cfg.head_dim) and int(cache["len"]) == tokens.shape[1],
@@ -3832,7 +3846,7 @@ def lm_consistency(torch, cfg, params, gen, device, prompt, steps):
     from repro_torch.models import transformer as tfm
 
     c = dataclasses.replace(cfg, compute_dtype=torch.float32, attn_window_slicing=True,
-                            moe=dataclasses.replace(cfg.moe, capacity_factor=LM_NO_DROP))
+                            moe=dataclasses.replace(cfg.moe, capacity_factor=lm_no_drop(cfg)))
     tokens = torch.randint(0, c.vocab, (1, prompt + steps), generator=gen, device=device)
     with torch.no_grad():
         logits, cache = tfm.prefill(c, params, tokens[:, :prompt], max_seq=prompt + steps)
@@ -3849,13 +3863,13 @@ def lm_consistency(torch, cfg, params, gen, device, prompt, steps):
     return err, scale
 
 
-def lm_shard_inputs(torch, widths, device, tokens=None):
+def lm_shard_inputs(torch, cfg, device, tokens=None):
     """(d)'s inputs, the same in every process from one seed: x (B, S, D),
     the router and one layer's experts (bf16), and q, k, v (B, S, H, Dh)."""
     b, s = tokens or LM["shard_tokens"]
     gen = torch.Generator(device=device).manual_seed(2604)
-    d, f, e = widths["d_model"], widths["d_ff"], MIXTRAL_MOE["n_experts"]
-    hq, hkv, dh = widths["n_heads"], widths["n_kv_heads"], widths["d_head"]
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
 
     def draw(shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=device, dtype=torch.bfloat16).mul_(scale)
@@ -3865,10 +3879,12 @@ def lm_shard_inputs(torch, widths, device, tokens=None):
                 q=draw((b, s, hq, dh)), k=draw((b, s, hkv, dh)), v=draw((b, s, hkv, dh)))
 
 
-def lm_shard_rank(rank, world, tmp, device, widths, tokens):
+def lm_shard_rank(rank, world, tmp, device, cfg, tokens):
     """(d) One rank of the (2, 2) mesh: ``moe_ffn_sharded`` at both
     partitions at full capacity and ``swa_attention_halo`` on its block of
     the inputs; its outputs (on the host), all-reduce times and bytes."""
+    import dataclasses
+
     import torch
 
     from repro_torch.distributed.mesh import Mesh
@@ -3876,7 +3892,7 @@ def lm_shard_rank(rank, world, tmp, device, widths, tokens):
 
     rank_device(torch, device)
     mesh = Mesh(LM_SHARD_MESH, ("data", "model"))
-    inp = lm_shard_inputs(torch, widths, device, tokens)
+    inp = lm_shard_inputs(torch, cfg, device, tokens)
     b, s = inp["x"].shape[0] // mesh.shape["data"], inp["x"].shape[1] // mesh.shape["model"]
     i, j = mesh.coords["data"], mesh.coords["model"]
 
@@ -3887,7 +3903,7 @@ def lm_shard_rank(rank, world, tmp, device, widths, tokens):
     clock = CollectiveClock(torch, mesh)
     with torch.no_grad():
         for partition in ("ffn", "expert"):
-            args = layers.MoEArgs(**dict(MIXTRAL_MOE, partition=partition, capacity_factor=LM_NO_DROP), mesh=mesh)
+            args = dataclasses.replace(cfg.moe, partition=partition, capacity_factor=lm_no_drop(cfg), mesh=mesh)
             shards = layers.moe_weight_shards(inp["wg"], inp["wu"], inp["wd"], args)
             first = len(clock.calls)
             y, aux = layers.moe_ffn_sharded(block(inp["x"]), inp["router"], *shards, args)
@@ -3896,38 +3912,40 @@ def lm_shard_rank(rank, world, tmp, device, widths, tokens):
         q, k, v = (block(inp[n]) for n in ("q", "k", "v"))
         del inp
         first = len(clock.calls)
-        o = layers.swa_attention_halo(q, k, v, sliding_window=widths["sliding_window"], mesh=mesh,
+        o = layers.swa_attention_halo(q, k, v, sliding_window=cfg.sliding_window, mesh=mesh,
                                       q_chunk=min(LM["q_chunk"], s))
         out["halo"] = (o.cpu(), None, [c[:4] for c in clock.calls[first:]])
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if device != "cpu" else 0.0
     return out
 
 
-def lm_sharded(torch, widths, device, tokens):
+def lm_sharded(torch, cfg, device, tokens):
     """(d) The sharded forms on four gloo ranks against their single-rank
     counterparts computed here first: ``moe_block`` on all the tokens at
     full capacity, dense masked ``gqa_attention``.  Returns a summary."""
+    import dataclasses
+
     from repro_torch.models import layers
 
-    inp = lm_shard_inputs(torch, widths, device, tokens)
+    inp = lm_shard_inputs(torch, cfg, device, tokens)
     t0 = time.perf_counter()
     with torch.no_grad():
         x = inp["x"]
         flat = x.reshape(-1, x.shape[-1])
-        args = layers.MoEArgs(**dict(MIXTRAL_MOE, capacity_factor=LM_NO_DROP))
+        args = dataclasses.replace(cfg.moe, capacity_factor=lm_no_drop(cfg))
         want_moe, want_aux = layers.moe_block(flat, inp["router"], inp["wg"], inp["wu"], inp["wd"], args)
         want_moe = want_moe.reshape(x.shape).cpu()
         probs = torch.softmax(flat.float() @ inp["router"].float(), -1)
         top = torch.topk(probs, 3, dim=-1).values
         near = (top[:, 1] - top[:, 2] <= LM_NEAR_TIE).reshape(x.shape[:2]).cpu()
         want_halo = layers.gqa_attention(inp["q"], inp["k"], inp["v"], causal=True,
-                                         sliding_window=widths["sliding_window"]).cpu()
+                                         sliding_window=cfg.sliding_window).cpu()
     single_s = time.perf_counter() - t0
     del inp, x, flat, probs
     if device != "cpu":
         release(torch)
     t0 = time.perf_counter()
-    ranks = spawn_ranks(lm_shard_rank, 4, device, args=(widths, tokens), timeout=600.0)
+    ranks = spawn_ranks(lm_shard_rank, 4, device, args=(cfg, tokens), timeout=600.0)
     ranks_s = time.perf_counter() - t0
     b, s = want_moe.shape[0] // LM_SHARD_MESH[0], want_moe.shape[1] // LM_SHARD_MESH[1]
     summary = {"near_ties": int(near.sum()), "single_s": single_s, "ranks_s": ranks_s,
@@ -3956,7 +3974,7 @@ def lm_sharded(torch, widths, device, tokens):
     return summary
 
 
-def phase_lm_serve(torch, drive, counted, device="cuda", widths=MIXTRAL, sizes=None):
+def phase_lm_serve(torch, drive, counted, device="cuda", cfg=None, sizes=None):
     """The LM serving path at Mixtral-8x22B's widths (2 of 56 layers, random
     bf16 weights from a seed): (a) prefill at prefill_32k's length, window
     slicing on and off; (b) decode at decode_32k's batch against a full
@@ -3964,15 +3982,15 @@ def phase_lm_serve(torch, drive, counted, device="cuda", widths=MIXTRAL, sizes=N
     float32; (d) the sharded MoE and halo attention on four gloo ranks.
     None of it launches a hand-written kernel (the reference computes the
     LM in plain jnp): the counts stay 0.  Prints a line each; a failure
-    raises."""
+    raises.  ``cfg``: the served model (``lm_config``'s by default)."""
+    import dataclasses
     import statistics
 
     from repro_torch.models import transformer as tfm
 
     sizes = sizes or LM
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip() if device != "cpu" else "cpu"
-    cfg = lm_config(torch, widths, attn_q_chunk=sizes["q_chunk"])
+    smi = nvidia_smi() if device != "cpu" else "cpu"
+    cfg = dataclasses.replace(cfg or lm_config(torch), attn_q_chunk=sizes["q_chunk"])
     gen = torch.Generator(device=device).manual_seed(26)
     t0 = time.perf_counter()
     params = tfm.init_params(cfg, gen, device)
@@ -3990,10 +4008,12 @@ def phase_lm_serve(torch, drive, counted, device="cuda", widths=MIXTRAL, sizes=N
     launched = {name: f.launches for name, f in counted.items() if f.launches}
     check(not launched, f"lm serve: the LM path launched the port's kernels {launched}")
     s, m = pre[True], pre[False]
-    print(f"[chip_smoke] lm serve ({smi}): mixtral-8x22b widths, 2 of 56 layers, {n_params:,} bf16 parameters "
+    print(f"[chip_smoke] lm serve ({smi}): mixtral-8x22b widths (the registry's config), {cfg.n_layers} of 56 "
+          f"layers, {n_params:,} bf16 parameters "
           f"(drawn in {init_s:.1f} s), no kernel of the port on the path (launch counts 0)")
     gib = {k: "not measured" if v["peak_gib"] is None else f"{v['peak_gib']:.4f} GiB" for k, v in ((0, s), (1, m))}
-    print(f"[chip_smoke] lm serve (a) prefill 1 x {sizes['prefill']:,}, q_chunk {cfg.attn_q_chunk}, capacity 1.25: "
+    print(f"[chip_smoke] lm serve (a) prefill 1 x {sizes['prefill']:,}, q_chunk {cfg.attn_q_chunk}, capacity "
+          f"{cfg.moe.capacity_factor}: "
           f"window-sliced wall {s['wall_ms']:.1f} ms, events {_fmt(s['event_ms'])}, device busy "
           f"{_fmt(s['busy_ms'])}, peak {gib[0]}; masked wall {m['wall_ms']:.1f} ms, events {_fmt(m['event_ms'])}, "
           f"device busy {_fmt(m['busy_ms'])}, peak {gib[1]}; last logits max |diff| {pre['err']:.6g} (max |logit| "
@@ -4011,23 +4031,632 @@ def phase_lm_serve(torch, drive, counted, device="cuda", widths=MIXTRAL, sizes=N
     if device != "cpu":
         release(torch)
     err, scale = lm_consistency(torch, cfg, params, gen, device, sizes["consist_prompt"], sizes["consist_steps"])
-    print(f"[chip_smoke] lm serve (c) float32, capacity {LM_NO_DROP}: prefill {sizes['consist_prompt']:,} (the ring of "
+    print(f"[chip_smoke] lm serve (c) float32, capacity {lm_no_drop(cfg)}: prefill {sizes['consist_prompt']:,} (the ring of "
           f"{cfg.sliding_window} wraps {sizes['consist_prompt'] // cfg.sliding_window} times) + "
           f"{sizes['consist_steps']} decode steps against one forward over {sizes['consist_prompt'] + sizes['consist_steps']:,} "
           f"tokens: max |diff| {err:.6g} (max |logit| {scale:.6g}, tolerance {LM_CONSIST_ATOL} x), argmax equal")
     del params
     if device != "cpu":
         release(torch)
-    sh = lm_sharded(torch, widths, device, sizes["shard_tokens"])
+    sh = lm_sharded(torch, cfg, device, sizes["shard_tokens"])
     parts = "; ".join(
         f"{n} max |diff| {sh[n]['err']:.6g} (max {sh[n]['scale']:.6g}), {sh[n]['n_allreduce']} all-reduces a rank, "
         f"{sh[n]['allreduce_bytes'] / 2**20:.1f} MiB and {sh[n]['allreduce_ms']:.1f} ms a rank"
         for n in ("ffn", "expert", "halo"))
     print(f"[chip_smoke] lm serve (d) 4 gloo ranks on one card, mesh (2, 2), {sizes['shard_tokens'][0]} x "
-          f"{sizes['shard_tokens'][1]:,} tokens, one layer, MoE at capacity {LM_NO_DROP} (near-tied tokens excluded: "
+          f"{sizes['shard_tokens'][1]:,} tokens, one layer, MoE at capacity {lm_no_drop(cfg)} (near-tied tokens excluded: "
           f"{sh['near_ties']}; aux ffn {sh['ffn_aux'][0]:.6g}, expert {sh['expert_aux'][0]:.6g}, unsharded "
           f"{sh['ffn_aux'][1]:.6g}): {parts}; tolerance {LM_SHARD_ATOL} x; ranks {sh['ranks_s']:.1f} s, single-rank "
           f"forms {sh['single_s']:.1f} s, peak {sh['peak_gib']:.2f} GiB a rank")
+
+
+# The other models (A12b) at their registry configs' full widths.  BERT4Rec's
+# train_batch cut from 65,536 to the largest power of two at most B4R_BATCH
+# whose forward and backward peak under B4R_PEAK_GIB; serve_bulk's 262,144
+# cut to one card's 4,096 (its (B, vocab) float32 logits are 1.05 TB at full
+# size).  The GNNs run at their shapes; minibatch_lg's block comes from a
+# synthetic citation graph smaller than reddit's (the block's shape is not).
+B4R = dict(batch=16_384, steps=6, check_batch=64, serve_bulk=4_096)
+B4R_PEAK_GIB = 72.0
+# One step at batch 64, card vs CPU: (|loss_card - loss_cpu| / |loss_cpu|,
+# ||grad_card - grad_cpu|| / ||grad_cpu|| over every leaf) by compute dtype.
+# bf16: GEMM outputs rounded to bf16 after float32 sums in other orders
+# (readings 5.98e-6 and 1.32e-3 on an H100, the same in every run); a
+# control (b4r_bf16_scores: the float32 attention logits and sampled scores
+# rounded to bf16) moves it less than that (1.15e-6, 1.92e-3), so only the
+# float32 step can catch it (readings 0 and 2.13e-7, the control's 4.6e-6
+# and 3.73e-4): the phase checks that the control fails the float32 limits.
+B4R_STEP_RTOL = {"bfloat16": (5e-5, 5e-3), "float32": (1e-6, 1e-5)}
+B4R_SCORE_ATOL = 1e-5  # x max|score|: score_candidates against score_all_items gathered (f32, other orders)
+GNN_STEPS = 5
+GNN_LOSS_RTOL = 1e-4   # card vs CPU, float32 (TF32 off): atomics and GEMMs in other orders
+GNN_GRAD_RTOL = 1e-3   # ||grad_card - grad_cpu|| / ||grad_cpu||
+GNN_LG_GRAPH = dict(n_nodes=65_536, n_edges=1 << 20)
+# DimeNet on the minibatch_lg block (1,351,680 triplets): the CPU's forward
+# only; its gradients are compared on the molecule shape.
+GNN_CPU_FORWARD_ONLY = {("dimenet", "gnn_minibatch")}
+GNN_CELLS = (("gat-cora", "full_graph_sm"), ("schnet", "molecule"), ("dimenet", "molecule"),
+             ("gat-cora", "minibatch_lg"), ("schnet", "minibatch_lg"), ("dimenet", "minibatch_lg"))
+MOL_ATOM_TYPES = 100  # launch/steps.py's molecule atom vocabulary
+# H100 SXM published dense peaks (NVIDIA data sheet): float32 outside the
+# tensor cores (TF32 is off) and bf16 on them, operations/s.
+PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+
+
+def train_step(torch, loss_fn, params, opt, ocfg):
+    """One step: ``loss_fn(params)`` forward and backward under autograd,
+    then ``apply_adamw``.  Returns (params, opt, loss, grads)."""
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    params = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss = loss_fn(params)
+    grads = tree_unflatten(params, torch.autograd.grad(loss, tree_leaves(params)))
+    params, opt, _ = opt_mod.apply_adamw(ocfg, opt, params, grads)
+    return params, opt, loss.detach(), grads
+
+
+def grads_of(torch, loss_fn, params):
+    """(loss, gradient leaves) of ``loss_fn`` at ``params``."""
+    from repro_torch.tree import tree_leaves, tree_map
+
+    params = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss = loss_fn(params)
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    return float(loss.detach()), [g.float().cpu() for g in grads]
+
+
+def rel_err(torch, got, want) -> float:
+    """||got - want|| / ||want|| over lists of tensors."""
+    num = sum(float(torch.sum((g - w) ** 2)) for g, w in zip(got, want, strict=True))
+    den = sum(float(torch.sum(w ** 2)) for w in want)
+    return (num / den) ** 0.5
+
+
+def to_device(torch, tree, device):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda x: x.to(device), tree)
+
+
+def profile_breakdown(torch, fn):
+    """(device busy ms, {kernel: ms}) of one profiled call of ``fn``: the
+    sum over the trace's device events, by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trace_preroll(torch)
+        out = fn()
+        torch.cuda.synchronize()
+    by = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+          if getattr(e, "device_time_total", 0.0) and "spin_kernel" not in e.key}
+    return out, (sum(by.values()) if by else None), by
+
+
+def _gib(x) -> str:
+    return "not measured" if x is None else f"{x:.2f} GiB"
+
+
+def top_kernels(by: dict, n: int = 5) -> str:
+    return ", ".join(f"{k[:48]} {v:.3f}" for k, v in sorted(by.items(), key=lambda kv: -kv[1])[:n]) or "none"
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
+def b4r_batch(cfg, batch: int, rng, p, first_user: int):
+    """A train_batch of ``batch`` users: (masked items, mask positions, mask
+    targets, the interaction stream)."""
+    import numpy as np
+
+    from repro_torch.data import recsys
+
+    items = recsys.interaction_sequences(cfg.n_items, batch, cfg.seq_len, rng, p)
+    masked, pos, tgt = recsys.cloze_mask_positions(items, cfg.mask_id, cfg.max_masked, rng)
+    users = np.arange(first_user, first_user + batch, dtype=np.uint32)
+    return masked, pos, tgt, recsys.interaction_stream(items, users)
+
+
+def b4r_loss(cfg, arrays, negatives, device):
+    """``cloze_loss_sampled`` on numpy ``arrays`` (masked, positions,
+    targets) and ``negatives``, as a function of the parameters."""
+    import torch
+
+    from repro_torch.models.recsys import bert4rec
+
+    masked, pos, tgt = (torch.from_numpy(a).to(device) for a in arrays)
+    neg = torch.from_numpy(negatives).to(device)
+    return lambda params: bert4rec.cloze_loss_sampled(cfg, params, masked, pos, tgt, neg)[0]
+
+
+def b4r_bf16_scores(torch):
+    """A control for the bf16 check: every float32 ``torch.einsum`` output
+    (BERT4Rec's attention logits and sampled-softmax scores) rounded to
+    bf16, as a port that computed them in bf16 would give.  A context
+    manager."""
+    import contextlib
+
+    einsum = torch.einsum
+
+    def rounded(eq, *ops):
+        y = einsum(eq, *ops)
+        return y.to(torch.bfloat16).to(torch.float32) if y.dtype == torch.float32 else y
+
+    @contextlib.contextmanager
+    def patched():
+        torch.einsum = rounded
+        try:
+            yield
+        finally:
+            torch.einsum = einsum
+
+    return patched()
+
+
+def b4r_step_bounds(cfg, batch: int):
+    """(operations bound ms, float32 attention-logit bytes bound ms) of one
+    train_batch step, by shapes.  Operations: the GEMMs of the forward pass
+    and twice them for the backward, the float32 ones (the attention logits
+    from q and k, the sampled-softmax scores) at the float32 peak, the bf16
+    ones at bf16's.  Bytes: the (B, h, S, S) float32 logits written and read
+    once each in the forward and the backward pass of every block."""
+    b, s, d, h, m, k = batch, cfg.seq_len, cfg.embed_dim, cfg.n_heads, cfg.max_masked, cfg.n_negatives
+    f = d * cfg.d_ff_mult
+    bf16 = cfg.n_blocks * (2 * b * s * d * d * 4 + 2 * 2 * b * s * d * f + 2 * b * s * s * d)  # proj, FFN, PV
+    f32 = cfg.n_blocks * 2 * b * s * s * d + 2 * b * m * (k + 1) * d  # QK^T, sampled scores
+    ops_ms = 3 * (bf16 / PEAK_BF16_FLOPS + f32 / PEAK_F32_FLOPS) * 1e3
+    logit_bytes = cfg.n_blocks * 4 * (b * h * s * s * 4)
+    return ops_ms, logit_bytes / PEAK_BYTES_PER_S * 1e3
+
+
+def b4r_fit_batch(torch, cfg, params, device, start: int):
+    """The largest power of two at most ``start`` whose forward and backward
+    of cloze_loss_sampled peak under B4R_PEAK_GIB (halving on a larger peak
+    or an out-of-memory error).  Returns (batch, peak GiB)."""
+    import numpy as np
+
+    from repro_torch.data import recsys
+
+    batch, rng, p = start, np.random.default_rng(270), recsys.item_popularity(cfg.n_items)
+    while batch >= 1:
+        masked, pos, tgt, _ = b4r_batch(cfg, batch, rng, p, 0)
+        negs = rng.integers(1, cfg.n_items + 1, cfg.n_negatives).astype(np.int32)
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            grads_of(torch, b4r_loss(cfg, (masked, pos, tgt), negs, device), params)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        except torch.cuda.OutOfMemoryError:
+            peak = None
+        if peak is not None and peak <= B4R_PEAK_GIB:
+            return batch, peak
+        print(f"[chip_smoke] models (a): batch {batch:,} peaks at "
+              f"{'out of memory' if peak is None else f'{peak:.2f} GiB'}, over {B4R_PEAK_GIB} GiB: halved")
+        batch //= 2
+    raise SmokeFailure("models (a): no batch fits")
+
+
+def phase_models_b4r(torch, counted, device="cuda", sizes=None):
+    """(a) BERT4Rec's train_batch at the registry's FULL config: each step streams the batch's interactions into one
+    InteractionPopularitySketch (B1 once a batch), draws its negatives from
+    it, then cloze_loss_sampled forward and backward and AdamW; a twin
+    sketch on the CPU (the plain path) takes the same streams and must hold
+    the same counters and draw the same negatives; one step at batch 64
+    against the CPU, in the config's compute dtype and in float32, and a
+    control that the float32 limits must catch.  Prints a line each; returns the config, the trained
+    parameters and the generator."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import recsys
+    from repro_torch.integration.popularity import InteractionPopularitySketch
+    from repro_torch.models.recsys import bert4rec
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.tree import tree_leaves
+
+    sizes = sizes or B4R
+    spec = get_arch("bert4rec")
+    cfg = spec.config
+    cuda = device != "cpu"
+    gen = torch.Generator(device=device).manual_seed(27)
+    params = bert4rec.init_params(cfg, gen, device)
+    ocfg = opt_mod.AdamWConfig()  # launch/steps.py::_opt_config below 100e9 parameters
+    opt = opt_mod.init_adamw(ocfg, params)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+
+    # One step at batch 64 on the card against the same step on the CPU.
+    rng = np.random.default_rng(2701)
+    p = recsys.item_popularity(cfg.n_items)
+    arrays = b4r_batch(cfg, sizes["check_batch"], rng, p, 0)[:3]
+    negs = rng.integers(1, cfg.n_items + 1, cfg.n_negatives).astype(np.int32)
+    cpu_params = to_device(torch, params, "cpu")
+    agree = []
+    for dt in dict.fromkeys((cfg.compute_dtype, torch.float32)):
+        c = dataclasses.replace(cfg, compute_dtype=dt)
+        name = str(dt)[6:]
+        loss_tol, grad_tol = B4R_STEP_RTOL[name]
+        card_loss, card_g = grads_of(torch, b4r_loss(c, arrays, negs, device), params)
+        cpu_fn = b4r_loss(c, arrays, negs, "cpu")
+        cpu_loss, cpu_g = grads_of(torch, cpu_fn, cpu_params)
+        err = (abs(card_loss - cpu_loss) / abs(cpu_loss), rel_err(torch, card_g, cpu_g))
+        check(np.isfinite(card_loss) and err[0] <= loss_tol and err[1] <= grad_tol,
+              f"models (a): {name}, batch {sizes['check_batch']}: loss {card_loss} on the card, {cpu_loss} on the "
+              f"CPU, gradients {err[1]:.3g} apart")
+        agree.append(f"{name}: loss {card_loss:.6f} vs {cpu_loss:.6f} (rel {err[0]:.3g}), gradients rel "
+                     f"{err[1]:.3g}; tolerances {loss_tol}, {grad_tol}")
+        if dt == torch.float32:
+            with b4r_bf16_scores(torch):
+                ctl_loss, ctl_g = grads_of(torch, cpu_fn, cpu_params)
+            ctl = (abs(ctl_loss - cpu_loss) / abs(cpu_loss), rel_err(torch, ctl_g, cpu_g))
+            check(ctl[0] > loss_tol or ctl[1] > grad_tol, f"models (a): the control (logits and scores rounded "
+                                                          f"to bf16) passes the float32 limits: {ctl}")
+            agree.append(f"the control on the CPU, float32: loss rel {ctl[0]:.3g}, gradients rel {ctl[1]:.3g} "
+                         f"(caught)")
+        del card_g, cpu_g, cpu_fn
+    del cpu_params
+
+    batch, fit_peak = (b4r_fit_batch(torch, cfg, params, device, sizes["batch"]) if cuda
+                       else (sizes["batch"], None))
+    pop = InteractionPopularitySketch(cfg.n_items, device=device)
+    host = InteractionPopularitySketch(cfg.n_items, device="cpu")  # the plain path, fed the same streams
+    exact = np.zeros(cfg.n_items + 1, np.int64)
+    fed = []  # each batch's stream, sample_negatives' generator before the draw, the card's negatives
+    b1 = counted["ingest_scatter"]
+    for f in counted.values():
+        f.launches = 0
+    if cuda:
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, host_ms = [], [], []
+    busy, by, feed_busy, feed_by = None, {}, None, {}
+    for step in range(sizes["steps"]):
+        profiled = cuda and step == sizes["steps"] - 1  # the last step under the profiler
+        t0 = time.perf_counter()
+        masked, pos, tgt, stream = b4r_batch(cfg, batch, rng, p, step * batch)
+        exact += np.bincount(stream["dst"], minlength=cfg.n_items + 1)
+        twin = copy.deepcopy(rng)
+
+        def feed():
+            pop.observe(stream["src"], stream["dst"])
+            return pop.sample_negatives(cfg.n_negatives, rng)
+
+        negs, feed_busy, feed_by = profile_breakdown(torch, feed) if profiled else (feed(), None, {})
+        loss_fn = b4r_loss(cfg, (masked, pos, tgt), negs, device)
+        t1 = time.perf_counter()
+        if profiled:
+            (params, opt, loss, _), busy, by = profile_breakdown(
+                torch, lambda: train_step(torch, loss_fn, params, opt, ocfg))
+        else:
+            params, opt, loss, _ = train_step(torch, loss_fn, params, opt, ocfg)
+        losses.append(loss.item())
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+        host_ms.append(1e3 * (t1 - t0))
+        fed.append((stream, twin, negs))
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    reserved = torch.cuda.max_memory_reserved() / 2**30 if cuda else None
+    launches = {name: f.launches for name, f in counted.items() if f.launches}
+    check(not cuda or launches == {"ingest_scatter": sizes["steps"]},
+          f"models (a): launches {launches} for {sizes['steps']} observed batches (want ingest_scatter once each)")
+    check(all(np.isfinite(losses)), f"models (a): non-finite losses {losses}")
+    seen = np.nonzero(exact)[0]
+    est = pop.item_popularity(seen.astype(np.uint32))
+    under = int(np.sum(est < exact[seen]))
+    check(under == 0, f"models (a): {under} of {len(seen)} streamed items' popularity under their exact count")
+    # The plain path replays the streams after the timed steps.  Integer
+    # weights: every register is an exact float32 sum below 2^24, in any
+    # order, so B1's counters equal the plain path's bit for bit.
+    other_negs = 0
+    for stream, twin, negs in fed:
+        host.observe(stream["src"], stream["dst"])
+        other_negs += not np.array_equal(host.sample_negatives(cfg.n_negatives, twin), negs)
+    del fed
+    regs = ("counters", "row_flows", "col_flows")
+    top = max(float(getattr(host.sketch, r).max()) for r in regs)
+    differ = [r for r in regs if not torch.equal(getattr(pop.sketch, r).cpu(), getattr(host.sketch, r))]
+    check(top < 2**24 and not differ and other_negs == 0,
+          f"models (a): the card's sketch against the plain path's: registers {differ} differ (largest {top:,.0f}), "
+          f"{other_negs} of {sizes['steps']} batches drew other negatives")
+    ops_ms, logit_ms = b4r_step_bounds(cfg, batch)
+    timed = step_ms[1:-1] if len(step_ms) > 2 else step_ms
+    smi = nvidia_smi() if cuda else "cpu"
+    traced = [v for k, v in feed_by.items() if "ingest_kernel" in k]
+    ingest_ms = sum(traced) if traced else None  # None: the trace lost the launch
+    print(f"[chip_smoke] models (a) bert4rec train_batch ({smi}): the registry's FULL config ({cfg.n_items:,} "
+          f"items, vocab {cfg.vocab:,}, embed {cfg.embed_dim}, {cfg.n_blocks} blocks, {cfg.n_heads} heads, sequence "
+          f"{cfg.seq_len}, {cfg.n_negatives:,} negatives, {str(cfg.compute_dtype)[6:]} compute; {n_params:,} "
+          f"parameters); batch cut from {spec.shapes['train_batch'].params['batch']:,} to {batch:,} (forward and "
+          f"backward peak {_gib(fit_peak)}, limit {B4R_PEAK_GIB} GiB); {sizes['steps']} steps: losses "
+          f"{[round(x, 4) for x in losses]}, step {median(timed):.1f} ms median (forward, backward, AdamW; host "
+          f"clock ending in a read of the loss), data and sketch {median(host_ms):.1f} ms a batch on the host; "
+          f"peak {_gib(peak)} ({_gib(reserved)} reserved); bounds {ops_ms:.3f} ms (operations: f32 GEMMs at 67 TFLOP/s, bf16 at 989) and "
+          f"{logit_ms:.3f} ms (bytes: the f32 attention logits, 4 passes a block)")
+    print(f"[chip_smoke] models (a) popularity sketch {pop.sketch.config.depth} x {pop.sketch.config.width_rows:,} "
+          f"users x {pop.sketch.config.width_cols:,} items: ingest_scatter {b1.launches} launches for "
+          f"{sizes['steps']} observed batches ({int(exact.sum()):,} interactions); counters and both flow registers "
+          f"equal to a CPU sketch's (the plain path) fed the same streams (largest register {top:,.0f}), the same "
+          f"{cfg.n_negatives:,} negatives drawn in every batch; item popularity >= the exact "
+          f"count for all {len(seen):,} streamed items; the last batch's observe and sample_negatives profiled: device "
+          f"busy {_fmt(feed_busy)}, ingest_kernel {_fmt(ingest_ms)}; its training step: device busy {_fmt(busy)}, "
+          f"top kernels (ms) {top_kernels(by)}")
+    print(f"[chip_smoke] models (a) batch {sizes['check_batch']} on the card against the CPU, same parameters and "
+          f"inputs (the control: the float32 attention logits and sampled scores rounded to bf16): "
+          f"{'; '.join(agree)}")
+    del opt, pop, host
+    return cfg, params, rng
+
+
+def phase_models_serve(torch, cfg, params, rng, device="cuda", sizes=None):
+    """(b) BERT4Rec serving at the registry's recsys shapes: serve_p99 and
+    serve_bulk (cut) through score_all_items, retrieval_cand through
+    score_candidates, each timed with CUDA events; the candidate scores
+    equal the full scores gathered at the candidates."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import recsys
+    from repro_torch.models.recsys import bert4rec
+
+    sizes = sizes or B4R
+    cuda = device != "cpu"
+    shapes = get_arch("bert4rec").shapes
+    p = recsys.item_popularity(cfg.n_items)
+    parts = []
+    with torch.no_grad():
+        for name in ("serve_p99", "serve_bulk"):
+            full = shapes[name].params["batch"]
+            batch = min(full, sizes["serve_bulk"])
+            items = torch.from_numpy(recsys.interaction_sequences(cfg.n_items, batch, cfg.seq_len, rng, p)).to(device)
+            if cuda:
+                release(torch)
+            fn = lambda: bert4rec.score_all_items(cfg, params, items)  # noqa: E731
+            out = fn()
+            check(tuple(out.shape) == (batch, cfg.vocab) and bool(torch.isfinite(out).all()),
+                  f"models (b): {name} scores")
+            del out
+            if cuda:  # the peak of the serving calls alone, not of the check's temporaries
+                torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(fn, 3) if cuda else None
+            peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+            bound = max(2 * batch * cfg.embed_dim * cfg.vocab / PEAK_F32_FLOPS,
+                        (4 * batch * cfg.vocab + 4 * cfg.vocab * (cfg.embed_dim + 1)) / PEAK_BYTES_PER_S) * 1e3
+            cut = "full" if batch == full else f"cut from {full:,}"
+            parts.append(f"{name} batch {batch:,} ({cut}) {_fmt(ms)}, bound {bound:.3f} ms (the last position's "
+                         f"GEMM against the table at the f32 peak, or its logits written), peak {_gib(peak)}")
+            del items
+        n_cand = shapes["retrieval_cand"].params["n_candidates"]
+        items = torch.from_numpy(recsys.interaction_sequences(cfg.n_items, 1, cfg.seq_len, rng, p)).to(device)
+        cands = torch.from_numpy(rng.integers(1, cfg.n_items + 1, (1, n_cand)).astype(np.int32)).to(device)
+        fn = lambda: bert4rec.score_candidates(cfg, params, items, cands)  # noqa: E731
+        got = fn()
+        full = bert4rec.score_all_items(cfg, params, items)
+        want = torch.gather(full, 1, cands.long())
+        err, scale = float((got - want).abs().max()), float(full.abs().max())
+        check(err <= B4R_SCORE_ATOL * scale, f"models (b): score_candidates differs from score_all_items by {err} "
+                                             f"(max |score| {scale})")
+        ms = time_ms(fn, 5) if cuda else None
+        bound = (n_cand * (cfg.embed_dim + 2) * 4 + n_cand * 4) / PEAK_BYTES_PER_S * 1e3
+    parts.append(f"retrieval_cand 1 x {n_cand:,} candidates (full) {_fmt(ms)}, bound {bound:.4f} ms (bytes: the "
+                 f"candidates' rows, ids and biases read, the scores written); equal to score_all_items gathered "
+                 f"within {err:.3g} (max |score| {scale:.4g}, tolerance {B4R_SCORE_ATOL} x)")
+    print(f"[chip_smoke] models (b) bert4rec serving (CUDA events, mean of 3-5 calls after one): {'; '.join(parts)}")
+
+
+def pad512(x: int) -> int:
+    """``launch/steps.py::_pad512``: graph dims padded to a 512 multiple."""
+    return ((x + 511) // 512) * 512
+
+
+def gnn_data(shape, rng, lg_graph):
+    """The numpy batch of one GNN shape as ``launch/steps.py`` builds it
+    (the GraphBatch fields, ``labels``, ``loss_mask``, ``n_graphs``) with
+    triplets, and a description of its sizes."""
+    import numpy as np
+
+    from repro_torch.data import graphs
+    from repro_torch.models.gnn import sampler
+
+    p = shape.params
+    if shape.kind == "gnn_full":
+        n, e = p["n_nodes"], p["n_edges"]
+        n_pad, e_pad = pad512(n), pad512(e)
+        g = graphs.citation_graph(n, e, p["d_feat"], p["n_classes"], rng)
+        d = {"node_feat": np.pad(g["node_feat"], ((0, n_pad - n), (0, 0))),
+             "positions": np.pad(g["positions"], ((0, n_pad - n), (0, 0))),
+             "edge_src": np.pad(g["edge_src"], (0, e_pad - e)), "edge_dst": np.pad(g["edge_dst"], (0, e_pad - e)),
+             "node_mask": np.arange(n_pad) < n, "edge_mask": np.arange(e_pad) < e,
+             "labels": np.pad(g["labels"], (0, n_pad - n)), "n_graphs": 1}
+        d["loss_mask"] = ((rng.random(n_pad) < 0.5) & d["node_mask"]).astype(np.float32)
+        what = f"citation_graph {n:,} nodes, {e:,} edges padded to {n_pad:,} and {e_pad:,}, d_feat {p['d_feat']}"
+    elif shape.kind == "gnn_molecule":
+        d = graphs.molecule_batch(p["batch"], p["n_nodes"], p["n_edges"], MOL_ATOM_TYPES, rng)
+        n, e = p["batch"] * p["n_nodes"], p["batch"] * p["n_edges"]
+        d.update(node_mask=np.ones(n, bool), edge_mask=np.ones(e, bool), n_graphs=p["batch"],
+                 loss_mask=np.ones(p["batch"], np.float32))
+        loops = int(np.sum(d["edge_src"] == d["edge_dst"]))
+        what = f"molecule_batch {p['batch']} x {p['n_nodes']} nodes x {p['n_edges']} edges ({loops} self-loops)"
+    else:  # gnn_minibatch: one sampled block of a synthetic graph
+        g = graphs.citation_graph(lg_graph["n_nodes"], lg_graph["n_edges"], p["d_feat"], p["n_classes"], rng)
+        csr = sampler.CSRGraph.from_edges(g["edge_src"], g["edge_dst"], lg_graph["n_nodes"])
+        seeds = rng.choice(lg_graph["n_nodes"], p["batch_nodes"], replace=False).astype(np.int32)
+        d = sampler.sample_subgraph(csr, seeds, p["fanouts"], rng, features=g["node_feat"])
+        nodes = d.pop("nodes")
+        d.pop("seed_slots")
+        n = len(nodes)
+        check((n, len(d["edge_src"])) == sampler.sampled_block_sizes(p["batch_nodes"], p["fanouts"]),
+              "models (c): the sampled block's shape")
+        d.update(positions=g["positions"][nodes], labels=g["labels"][nodes], n_graphs=1,
+                 loss_mask=(np.arange(n) < p["batch_nodes"]).astype(np.float32))
+        what = (f"one block of {p['batch_nodes']:,} seeds, fanouts {p['fanouts']}: {n:,} nodes, "
+                f"{len(d['edge_src']):,} edges, d_feat {p['d_feat']} (from a synthetic citation_graph of "
+                f"{lg_graph['n_nodes']:,} nodes and {lg_graph['n_edges']:,} edges)")
+    return d, what
+
+
+def gnn_config(spec, shape):
+    """``launch/steps.py::_gnn_config`` at the FULL config."""
+    import dataclasses
+
+    cfg = spec.config
+    if shape.kind == "gnn_molecule":
+        return dataclasses.replace(cfg, feature_mode="embed_types", task="graph_reg", out_dim=1)
+    p = shape.params
+    if spec.arch_id in ("schnet", "dimenet"):
+        return dataclasses.replace(cfg, feature_mode="project", d_in=p["d_feat"], task="node_class",
+                                   out_dim=p["n_classes"])
+    return dataclasses.replace(cfg, d_in=p["d_feat"], out_dim=p["n_classes"])
+
+
+def gnn_loss(arch_id, cfg, d, device):
+    """``launch/steps.py``'s GNN loss on the numpy batch ``d``, as a
+    function of the parameters: MSE per graph, or masked cross-entropy."""
+    import torch
+
+    from repro_torch.models.gnn import dimenet, gat, schnet
+    from repro_torch.models.gnn.common import GraphBatch
+
+    t = {k: torch.from_numpy(d[k]).to(device) for k in ("node_feat", "edge_src", "edge_dst", "node_mask", "edge_mask",
+                                                         "labels", "loss_mask")}
+    g = GraphBatch(t["node_feat"], t["edge_src"], t["edge_dst"], t["node_mask"], t["edge_mask"],
+                   positions=torch.from_numpy(d["positions"]).to(device),
+                   graph_ids=torch.from_numpy(d["graph_ids"]).to(device) if "graph_ids" in d else None,
+                   triplets={k: torch.from_numpy(d["triplets"][k]).to(device) for k in ("in", "out", "mask")}
+                   if "triplets" in d else None)
+    n_graphs, labels, mask = d["n_graphs"], t["labels"], t["loss_mask"]
+    graph_reg = getattr(cfg, "task", "node_class") == "graph_reg"
+
+    def loss(params):
+        if arch_id == "gat-cora":
+            out = gat.forward(cfg, params, g)
+        elif arch_id == "schnet":
+            out = schnet.forward_ngraphs(cfg, params, g, n_graphs) if graph_reg else schnet.forward(cfg, params, g)
+        else:
+            out = dimenet.forward(cfg, params, g, n_graphs=n_graphs)
+        if graph_reg:
+            return torch.sum((out - labels)[:, 0] ** 2 * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        logz = torch.logsumexp(out, -1)
+        gold = torch.gather(out, 1, labels.long()[:, None])[:, 0]
+        return torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+    return loss
+
+
+def dimenet_bilinear_bound_ms(cfg, n_triplets: int) -> float:
+    """The bilinear mix's float32 GEMM (T, s·b) x (s·b, f), forward and
+    twice for the backward, over every block, at the float32 peak."""
+    s = cfg.n_spherical * cfg.n_radial
+    return 3 * cfg.n_blocks * 2 * n_triplets * s * cfg.n_bilinear * cfg.d_hidden / PEAK_F32_FLOPS * 1e3
+
+
+def phase_models_gnn(torch, counted, device="cuda", steps=GNN_STEPS, lg_graph=GNN_LG_GRAPH, cells=GNN_CELLS):
+    """(c) GAT, SchNet and DimeNet at their FULL configs on full_graph_sm,
+    molecule and one minibatch_lg block: forward, backward and AdamW for
+    ``steps`` steps (finite losses), the first step's loss and gradients on
+    the card against the CPU's from the same parameters.  No kernel of the
+    port is on these paths: every launch count stays 0."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch, triplet_budget
+    from repro_torch.data import graphs
+    from repro_torch.models.gnn import dimenet, gat, schnet
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.tree import tree_leaves
+
+    cuda = device != "cpu"
+    modules = {"gat-cora": gat, "schnet": schnet, "dimenet": dimenet}
+    rng = np.random.default_rng(2703)
+    data = {}
+    for f in counted.values():
+        f.launches = 0
+    for arch_id, shape_name in cells:
+        spec = get_arch(arch_id)
+        shape = spec.shapes[shape_name]
+        t0 = time.perf_counter()
+        if shape_name not in data:
+            data[shape_name] = gnn_data(shape, rng, lg_graph)
+        d, what = data[shape_name]
+        trip = ""
+        if arch_id == "dimenet":
+            budget = triplet_budget(len(d["edge_src"]))
+            d = dict(d, triplets=graphs.build_triplets(d["edge_src"], d["edge_dst"], budget, d["edge_mask"]))
+            check(not d["triplets"]["truncated"], f"models (c): {shape_name}'s triplets truncated at {budget}")
+            trip = f", {int(d['triplets']['mask'].sum()):,} triplets in a budget of {budget:,}"
+        data_s = time.perf_counter() - t0
+        cfg = gnn_config(spec, shape)
+        params = modules[arch_id].init_params(cfg, torch.Generator().manual_seed(27))
+        ocfg = opt_mod.AdamWConfig()
+        card_fn, cpu_fn = gnn_loss(arch_id, cfg, d, device), gnn_loss(arch_id, cfg, d, "cpu")
+        card_loss, card_g = grads_of(torch, card_fn, to_device(torch, params, device))
+        if (arch_id, shape.kind) in GNN_CPU_FORWARD_ONLY:
+            with torch.no_grad():
+                cpu_loss, grad_err = float(cpu_fn(params)), None
+            against = "the CPU's forward (its backward takes tens of seconds there)"
+        else:
+            cpu_loss, cpu_g = grads_of(torch, cpu_fn, params)
+            grad_err = rel_err(torch, card_g, cpu_g)
+            against = "the CPU"
+            del cpu_g
+        loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+        check(loss_err <= GNN_LOSS_RTOL and (grad_err is None or grad_err <= GNN_GRAD_RTOL),
+              f"models (c): {arch_id} {shape_name}: loss {card_loss} on the card, {cpu_loss} on the CPU, "
+              f"gradients {grad_err} apart")
+        del card_g
+        params = to_device(torch, params, device)
+        opt = opt_mod.init_adamw(ocfg, params)
+        if cuda:
+            release(torch)
+            torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            params, opt, loss, _ = train_step(torch, card_fn, params, opt, ocfg)
+            losses.append(loss.item())
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+        check(all(np.isfinite(losses)), f"models (c): {arch_id} {shape_name}: non-finite losses {losses}")
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        bound = ""
+        if arch_id == "dimenet":
+            bound = (f"; bound of the bilinear GEMMs alone {dimenet_bilinear_bound_ms(cfg, len(d['triplets']['in'])):.3f}"
+                     f" ms (f32 at 67 TFLOP/s, padded triplets included)")
+        print(f"[chip_smoke] models (c) {arch_id} {shape_name} ({what}{trip}; data {data_s:.1f} s on the host): "
+              f"{n_params:,} parameters; {steps} steps, losses {[round(x, 4) for x in losses]}, step "
+              f"{median(step_ms[1:]):.1f} ms median after the first ({step_ms[0]:.1f} ms; forward, backward, AdamW, "
+              f"host clock ending in a read of the loss), peak {_gib(peak)}{bound}; first step against {against}: "
+              f"loss rel {loss_err:.3g} (tolerance {GNN_LOSS_RTOL}), gradients rel "
+              f"{'not compared' if grad_err is None else f'{grad_err:.3g}'} (tolerance {GNN_GRAD_RTOL})")
+        del params, opt, card_fn, cpu_fn
+        if cuda:
+            release(torch)
+    launched = {name: f.launches for name, f in counted.items() if f.launches}
+    check(not launched, f"models (c): the GNN paths launched the port's kernels {launched}")
+
+
+def phase_models(torch, counted, device="cuda"):
+    """The other models (A12b) at the registry's FULL configs: (a) BERT4Rec's
+    train_batch fed by the gLava popularity sketch (B1 once a batch), (b)
+    its serving shapes, (c) GAT, SchNet and DimeNet at their shapes."""
+    t0 = time.time()
+    cuda = device != "cpu"
+    if cuda:  # BERT4Rec's steps free and allocate 5-6 GiB tensors in turn: let segments grow instead
+        release(torch)
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        cfg, params, rng = phase_models_b4r(torch, counted, device)
+        phase_models_serve(torch, cfg, params, rng, device)
+        del params
+    finally:
+        if cuda:
+            release(torch)
+            torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    phase_models_gnn(torch, counted, device)
+    print(f"[chip_smoke] models: {time.time() - t0:.1f} s in all")
 
 
 # Exponents of the cost pass on the card and on the CPU agree within this.
@@ -4178,11 +4807,7 @@ def main() -> int:
     from repro_torch.kernels.sequential import ops as seq_ops
     from repro_torch.launch import serve
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    print(f"[chip_smoke] nvidia-smi: {smi}")
+    print(f"[chip_smoke] nvidia-smi: {nvidia_smi()}")
     print(f"[chip_smoke] torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
 
     t0 = time.time()
@@ -4377,6 +5002,12 @@ def main() -> int:
     # The LM serving path at Mixtral-8x22B's widths: prefill, decode on the
     # ring cache, decode against forward, the sharded MoE and halo attention.
     phase_lm_serve(torch, drive, counted)
+    release(torch)
+
+    # The other models at the registry's full widths: BERT4Rec trained on
+    # negatives from the gLava popularity sketch (B1 once a batch) and
+    # served, then GAT, SchNet and DimeNet.
+    phase_models(torch, counted)
     release(torch)
 
     # The analysis and cost planes on the kernels.

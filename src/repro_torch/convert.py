@@ -22,8 +22,11 @@ The four baselines convert from their leaves too
 hash coefficients, and gSketch's widths and partition hash.
 
 The training side converts the same way: a transformer's parameter tree
-(:func:`transformer_params_from_arrays`), a GraphSAGE parameter tree
-(:func:`graphsage_params_from_arrays`), an AdamW state
+(:func:`transformer_params_from_arrays`), a GraphSAGE, GAT, SchNet,
+DimeNet or BERT4Rec parameter tree (:func:`graphsage_params_from_arrays`,
+:func:`gat_params_from_arrays`, :func:`schnet_params_from_arrays`,
+:func:`dimenet_params_from_arrays`, :func:`bert4rec_params_from_arrays`:
+the reference's names and layouts, checked leaf by leaf), an AdamW state
 (:func:`adamw_state_from_arrays`) and a gradient compressor's state
 (:func:`compressor_state_from_arrays`), each from the reference's leaves
 read out as numpy arrays (bfloat16 leaves as float32: the widening is
@@ -39,7 +42,9 @@ import torch
 from repro_torch.core.hashing import HashFamily
 from repro_torch.core.sketch import CountMin, CountSketch, GLavaSketch, GSketch, NodeCountMin, SketchConfig
 from repro_torch.core.window import SlidingWindowSketch
-from repro_torch.models.gnn import graphsage
+from repro_torch.models.gnn import dimenet, gat, graphsage, schnet
+from repro_torch.models.recsys import bert4rec
+from repro_torch.models.recsys.bert4rec import Bert4RecConfig
 from repro_torch.models.transformer import TransformerConfig, param_shapes
 from repro_torch.train.compression import CompressorConfig, CompressorState
 from repro_torch.train.optimizer import AdamWConfig, AdamWState
@@ -262,23 +267,60 @@ def transformer_params_from_arrays(
     return tree_map(lambda x: _tensor(x, cfg.param_dtype, device), tree)
 
 
+def _check_tree(tree: Any, shapes: Any, name: str, path: str = "") -> None:
+    """Raise unless ``tree`` has the structure of ``shapes`` (nested dicts
+    and lists of shape tuples) and every leaf its shape."""
+    where = path or "the tree"
+    if isinstance(shapes, dict):
+        if not isinstance(tree, dict) or tree.keys() != shapes.keys():
+            got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+            raise ValueError(f"{where} has {got}, {name} needs {sorted(shapes)}")
+        for k, shape in shapes.items():
+            _check_tree(tree[k], shape, name, f"{path}.{k}" if path else k)
+    elif isinstance(shapes, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(shapes):
+            raise ValueError(f"{where} is not a list of {len(shapes)}, as {name} needs")
+        for i, (t, shape) in enumerate(zip(tree, shapes)):
+            _check_tree(t, shape, name, f"{path}[{i}]")
+    elif tuple(np.shape(tree)) != tuple(shapes):
+        raise ValueError(f"{where} has shape {np.shape(tree)}, {name} needs {tuple(shapes)}")
+
+
+def _float32_tree(shapes: Any, name: str, tree: Any, device) -> dict:
+    _check_tree(tree, shapes, name)
+    return tree_map(lambda x: _tensor(x, torch.float32, device), tree)
+
+
 def graphsage_params_from_arrays(
     cfg: graphsage.SAGEConfig, tree: Any, device: Optional[torch.device] = None
 ) -> dict:
     """The port's GraphSAGE parameter tree from the reference's (the same
     names, one dict a layer, ``(in, out)`` matrices), in float32."""
-    shapes = graphsage.param_shapes(cfg)
-    if tree.keys() != shapes.keys() or len(tree["layers"]) != len(shapes["layers"]):
-        raise ValueError(f"parameter tree differs from {cfg.name}'s")
-    for i, (layer, want) in enumerate(zip(tree["layers"], shapes["layers"])):
-        if layer.keys() != want.keys():
-            raise ValueError(f"layers[{i}] has {sorted(layer)}, {cfg.name} needs {sorted(want)}")
-        for name, shape in want.items():
-            if tuple(np.shape(layer[name])) != shape:
-                raise ValueError(f"layers[{i}].{name} has shape {np.shape(layer[name])}, {cfg.name} needs {shape}")
-    if tuple(np.shape(tree["head"])) != shapes["head"]:
-        raise ValueError(f"head has shape {np.shape(tree['head'])}, {cfg.name} needs {shapes['head']}")
-    return tree_map(lambda x: _tensor(x, torch.float32, device), tree)
+    return _float32_tree(graphsage.param_shapes(cfg), cfg.name, tree, device)
+
+
+def gat_params_from_arrays(cfg: gat.GATConfig, tree: Any, device: Optional[torch.device] = None) -> dict:
+    """The port's GAT parameter tree from the reference's (``{"layers":
+    [{"w", "a_src", "a_dst"}, ...]}``), in float32."""
+    return _float32_tree(gat.param_shapes(cfg), cfg.name, tree, device)
+
+
+def schnet_params_from_arrays(cfg: schnet.SchNetConfig, tree: Any, device: Optional[torch.device] = None) -> dict:
+    """The port's SchNet parameter tree from the reference's (``embed`` or
+    ``proj``, the ``blocks`` list, the head's MLP), in float32."""
+    return _float32_tree(schnet.param_shapes(cfg), cfg.name, tree, device)
+
+
+def dimenet_params_from_arrays(cfg: dimenet.DimeNetConfig, tree: Any, device: Optional[torch.device] = None) -> dict:
+    """The port's DimeNet parameter tree from the reference's (``w_bil``
+    as (s, n_bilinear, f)), in float32."""
+    return _float32_tree(dimenet.param_shapes(cfg), cfg.name, tree, device)
+
+
+def bert4rec_params_from_arrays(cfg: Bert4RecConfig, tree: Any, device: Optional[torch.device] = None) -> dict:
+    """The port's BERT4Rec parameter tree from the reference's (the blocks
+    stacked on a leading axis), in float32, as the reference stores it."""
+    return _float32_tree(bert4rec.param_shapes(cfg), cfg.name, tree, device)
 
 
 def adamw_state_from_arrays(

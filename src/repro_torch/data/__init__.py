@@ -1,2 +1,3 @@
-"""Host-side data generators (port of ``src/repro/data``; so far the edge
-stream and the LM token pipeline)."""
+"""Host-side data generators (port of ``src/repro/data``: the edge stream,
+the citation and molecule graphs with their triplets, the LM token pipeline
+and the recsys interaction sequences)."""

@@ -3,9 +3,10 @@ citation-style node-classification graphs, and the triplet lists for
 directional message passing.
 
 Port of ``src/repro/data/graphs.py`` (``random_edges``, ``edge_stream``,
-``citation_graph``, ``build_triplets``; host-side numpy, so the same ``rng``
-gives the same arrays on both sides).  ``triplet_budget`` and its two
-constants are copied from ``src/repro/configs/base.py:87-112``."""
+``citation_graph``, ``molecule_batch``, ``build_triplets``; host-side numpy,
+so the same ``rng`` gives the same arrays on both sides).  ``triplet_budget``
+and its two constants are copied from ``src/repro/configs/base.py:87-112``;
+``repro_torch.configs.base`` imports them from here."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -123,4 +124,35 @@ def citation_graph(
         "edge_dst": dst,
         "labels": labels,
         "positions": positions,
+    }
+
+
+def molecule_batch(
+    n_graphs: int, nodes_per: int, edges_per: int, n_atom_types: int, rng
+) -> Dict[str, np.ndarray]:
+    """Batch of small molecules: atom types + 3-D positions + edges within a
+    cutoff-ish radius; regression target = synthetic 'energy'."""
+    n = n_graphs * nodes_per
+    types = rng.integers(1, n_atom_types, n).astype(np.int32)
+    positions = rng.normal(0, 1.5, (n, 3)).astype(np.float32)
+    src_l, dst_l = [], []
+    for g in range(n_graphs):
+        base = g * nodes_per
+        s = rng.integers(0, nodes_per, edges_per) + base
+        d = rng.integers(0, nodes_per, edges_per) + base
+        src_l.append(s)
+        dst_l.append(d)
+    src = np.concatenate(src_l).astype(np.int32)
+    dst = np.concatenate(dst_l).astype(np.int32)
+    graph_ids = np.repeat(np.arange(n_graphs, dtype=np.int32), nodes_per)
+    dists = np.linalg.norm(positions[dst] - positions[src], axis=1)
+    energy = np.zeros(n_graphs, np.float32)
+    np.add.at(energy, graph_ids[src], np.exp(-dists).astype(np.float32))
+    return {
+        "node_feat": types,
+        "positions": positions,
+        "edge_src": src,
+        "edge_dst": dst,
+        "graph_ids": graph_ids,
+        "labels": energy[:, None],
     }

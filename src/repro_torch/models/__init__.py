@@ -1,5 +1,7 @@
 """Models (port of ``src/repro/models``): the transformer LM with its
-building blocks and serving entry points, and the GNNs (``models.gnn``)."""
+building blocks and serving entry points, the GNNs (``models.gnn``) and
+BERT4Rec (``models.recsys``)."""
+from repro_torch.models import gnn, recsys  # noqa: F401
 from repro_torch.models.layers import (  # noqa: F401
     MoEArgs,
     chunked_attention,

@@ -115,13 +115,36 @@ def dense_init(generator: torch.Generator, shape: Sequence[int], fan_in: int, dt
     return (x / math.sqrt(fan_in)).to(device)
 
 
+def init_tree(generator: torch.Generator, shapes, fan_in: Callable[[str, tuple], int],
+              device: Optional[torch.device] = None):
+    """A parameter tree of ``shapes`` (nested dicts and lists of shape
+    tuples): each 1-D leaf zeros (the biases), every other leaf
+    ``dense_init`` with ``fan_in(name, shape)``, drawn in the tree's order."""
+    if isinstance(shapes, list):
+        return [init_tree(generator, s, fan_in, device) for s in shapes]
+    out = {}
+    for name, shape in shapes.items():
+        if isinstance(shape, (dict, list)):
+            out[name] = init_tree(generator, shape, fan_in, device)
+        elif len(shape) == 1:
+            out[name] = torch.zeros(shape, dtype=torch.float32, device=device)
+        else:
+            out[name] = dense_init(generator, shape, fan_in(name, shape), device=device)
+    return out
+
+
+def mlp_shapes(dims: Sequence[int], prefix: str = "") -> Dict[str, tuple]:
+    """The shapes of an MLP's leaves: ``w{i}`` (in, out) and ``b{i}``."""
+    shapes = {}
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        shapes[f"{prefix}w{i}"] = (a, b)
+        shapes[f"{prefix}b{i}"] = (b,)
+    return shapes
+
+
 def mlp_params(generator: torch.Generator, dims: Sequence[int], prefix: str = "",
                device: Optional[torch.device] = None) -> Dict[str, torch.Tensor]:
-    ps = {}
-    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
-        ps[f"{prefix}w{i}"] = dense_init(generator, (a, b), a, device=device)
-        ps[f"{prefix}b{i}"] = torch.zeros((b,), dtype=torch.float32, device=device)
-    return ps
+    return init_tree(generator, mlp_shapes(dims, prefix), lambda name, shape: shape[0], device)
 
 
 def mlp_apply(ps: Dict[str, torch.Tensor], x: torch.Tensor, n_layers: int, prefix: str = "",

@@ -290,9 +290,12 @@ def transformer_numpy_params(cfg, seed):
 
 
 def numpy_tree(tree):
-    """A reference pytree of arrays as nested dicts of float32 numpy arrays."""
+    """A reference pytree of arrays (dicts and lists) as the same nesting of
+    float32 numpy arrays, for the port's ``convert.*_from_arrays``."""
     if isinstance(tree, dict):
         return {k: numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [numpy_tree(v) for v in tree]
     return np.asarray(tree, np.float32)
 
 
@@ -307,3 +310,41 @@ def compressor_to_port(state, device="cpu"):
         np.asarray(state.error), np.asarray(state.momentum),
         np.asarray(state.hash.a), np.asarray(state.hash.b), device=device,
     )
+
+
+# -- the other models (GAT, SchNet, DimeNet, BERT4Rec) -------------------------
+
+
+def assert_tree_close(port, ref, **tol):
+    """Every leaf of the port's tree (dicts and lists of tensors) against
+    the reference pytree's, leaf for leaf in ``jax.tree`` order."""
+    import jax
+
+    from repro_torch.tree import tree_leaves
+
+    ref_leaves = jax.tree_util.tree_leaves(ref)
+    port_leaves = tree_leaves(port)
+    assert len(port_leaves) == len(ref_leaves)
+    for p, r in zip(port_leaves, ref_leaves):
+        assert tuple(p.shape) == np.shape(r)
+        np.testing.assert_allclose(p.detach().cpu().numpy(), np.asarray(r), **tol)
+
+
+GRAPH_KEYS = ("node_feat", "edge_src", "edge_dst", "node_mask", "edge_mask", "positions", "graph_ids")
+
+
+def graph_pair(data):
+    """The port's and the reference's GraphBatch on the same numpy arrays
+    (``data`` holds the GraphBatch fields, ``triplets`` a dict of three)."""
+    import jax.numpy as jnp
+    from repro.models.gnn.common import GraphBatch as RefBatch
+    from repro_torch.models.gnn.common import GraphBatch
+
+    fields = {k: data[k] for k in GRAPH_KEYS if data.get(k) is not None}
+    trip = data.get("triplets")
+    port = GraphBatch(**{k: torch.from_numpy(np.array(v)) for k, v in fields.items()},
+                      triplets=None if trip is None else {k: torch.from_numpy(np.array(trip[k]))
+                                                          for k in ("in", "out", "mask")})
+    ref = RefBatch(**{k: jnp.asarray(v) for k, v in fields.items()},
+                   triplets=None if trip is None else {k: jnp.asarray(trip[k]) for k in ("in", "out", "mask")})
+    return port, ref

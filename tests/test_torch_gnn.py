@@ -36,25 +36,13 @@ from repro_torch.models.gnn.common import GraphBatch
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.tree import tree_leaves
 
-from _torch_parity import to_port
+from _torch_parity import assert_tree_close, numpy_tree, to_port
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 
 def _t(x):
     return torch.from_numpy(np.asarray(x).copy())
-
-
-def _np_tree(tree):
-    return jax.tree_util.tree_map(lambda x: np.asarray(x), tree)
-
-
-def _assert_tree_close(port, ref, **tol):
-    ref_leaves = jax.tree_util.tree_leaves(ref)
-    port_leaves = tree_leaves(port)
-    assert len(port_leaves) == len(ref_leaves)
-    for p, r in zip(port_leaves, ref_leaves):
-        np.testing.assert_allclose(p.detach().numpy(), np.asarray(r), **tol)
 
 
 # -- data ----------------------------------------------------------------------------
@@ -194,7 +182,7 @@ def _params():
     ref_cfg = ref_sage.SAGEConfig(**CFG_KW)
     ref_params = ref_sage.init_params(ref_cfg, jax.random.key(1))
     cfg = graphsage.SAGEConfig(**CFG_KW)
-    return cfg, graphsage_params_from_arrays(cfg, _np_tree(ref_params)), ref_cfg, ref_params
+    return cfg, graphsage_params_from_arrays(cfg, numpy_tree(ref_params)), ref_cfg, ref_params
 
 
 def test_graphsage_forward_matches_reference():
@@ -207,7 +195,7 @@ def test_graphsage_forward_matches_reference():
     fresh = graphsage.init_params(cfg, torch.Generator().manual_seed(0))
     assert [tuple(x.shape) for x in tree_leaves(fresh)] == [x.shape for x in jax.tree_util.tree_leaves(ref_params)]
     with pytest.raises(ValueError, match="head"):
-        graphsage_params_from_arrays(cfg, {**_np_tree(ref_params), "head": np.zeros((3, 3), np.float32)})
+        graphsage_params_from_arrays(cfg, {**numpy_tree(ref_params), "head": np.zeros((3, 3), np.float32)})
 
 
 def test_one_training_step_matches_reference():
@@ -232,10 +220,10 @@ def test_one_training_step_matches_reference():
 
     (loss, _), grads = script.value_and_grad(script.loss_fn(cfg, n), params, {"graph": port_b, "labels": _t(labels)})
     np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-5)
-    _assert_tree_close(grads, ref_grads, rtol=1e-5, atol=1e-6)
+    assert_tree_close(grads, ref_grads, rtol=1e-5, atol=1e-6)
     new, _, loss2, acc = script.train_step(cfg, ocfg, params, opt_mod.init_adamw(ocfg, params), port_b, _t(labels))
     assert float(loss2) == float(loss) and 0.0 <= float(acc) <= 1.0
-    _assert_tree_close(new, ref_new, rtol=1e-5, atol=1e-6)
+    assert_tree_close(new, ref_new, rtol=1e-5, atol=1e-6)
 
 
 # -- the script against the example ------------------------------------------------------
@@ -256,7 +244,7 @@ def _example_losses(steps):
     est = deg.degree_estimates(np.arange(N, dtype=np.uint32), direction="in")
     cfg = ref_sage.SAGEConfig(name="sage-stream", n_layers=2, d_in=F, d_hidden=32, out_dim=C)
     params = ref_sage.init_params(cfg, jax.random.key(0))
-    init = _np_tree(params)
+    init = numpy_tree(params)
     opt_cfg = ref_opt.AdamWConfig(lr=5e-3, warmup_steps=10, total_steps=120, weight_decay=0.0)
     opt = ref_opt.init_adamw(opt_cfg, params)
 

@@ -1404,7 +1404,10 @@ def _lm_smoke(capacity_factor=1.25, **changes):
 
 
 def _to(tree, device):
-    return {k: (_to(v, device) if isinstance(v, dict) else v.to(device)) for k, v in tree.items()}
+    """A tree of tensors (dicts and lists) moved to ``device``."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda x: x.to(device), tree)
 
 
 def test_moe_block_on_card_with_dropped_tokens_matches_cpu(cuda):
@@ -1464,3 +1467,161 @@ def test_decode_step_is_sync_free_on_the_card(cuda):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(logits).all()) and int(cache["len"]) == 20
+
+
+# -- the other models (GAT, SchNet, DimeNet, BERT4Rec) and the popularity sketch --
+
+
+def _gnn_smoke_batch(arch_id):
+    """A SMOKE config (molecule shape for the molecular nets, a citation
+    graph for GAT) and its numpy batch, as ``launch/steps.py`` builds them."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import graphs
+
+    rng = np.random.default_rng(5)
+    cfg = get_arch(arch_id).smoke_config
+    if arch_id == "gat-cora":
+        d = graphs.citation_graph(64, 256, cfg.d_in, cfg.out_dim, rng)
+        d.update(node_mask=np.ones(64, bool), edge_mask=np.arange(256) < 240, n_graphs=1,
+                 loss_mask=(rng.random(64) < 0.5).astype(np.float32))
+        return cfg, d
+    cfg = dataclasses.replace(cfg, feature_mode="embed_types", task="graph_reg", out_dim=1)
+    d = graphs.molecule_batch(4, 10, 16, cfg.n_atom_types, rng)
+    d.update(node_mask=np.ones(40, bool), edge_mask=np.ones(64, bool), n_graphs=4, loss_mask=np.ones(4, np.float32))
+    if arch_id == "dimenet":
+        d["triplets"] = graphs.build_triplets(d["edge_src"], d["edge_dst"], graphs.triplet_budget(64))
+    return cfg, d
+
+
+def _gnn_smoke_loss(arch_id, cfg, d, device):
+    """``chip_smoke.py``'s GNN loss (``gnn_loss``: ``launch/steps.py``'s,
+    until A12c ports that module) on the numpy batch ``d``."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke.gnn_loss(arch_id, cfg, d, device)
+
+
+def _step(loss_fn, params):
+    """(loss, gradients, parameters after one AdamW step) on the host."""
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    params = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss = loss_fn(params)
+    grads = tree_unflatten(params, torch.autograd.grad(loss, tree_leaves(params)))
+    ocfg = opt_mod.AdamWConfig(lr=1e-3, warmup_steps=1)
+    new, _, _ = opt_mod.apply_adamw(ocfg, opt_mod.init_adamw(ocfg, params), params, grads)
+    return float(loss.detach()), [g.cpu() for g in tree_leaves(grads)], [p.cpu() for p in tree_leaves(new)]
+
+
+@pytest.mark.parametrize("arch_id", ["gat-cora", "schnet", "dimenet"])
+def test_gnn_model_step_on_card_matches_cpu(cuda, arch_id):
+    """One training step of each GNN at its SMOKE config: loss, gradients and
+    the parameters after AdamW on the card against the CPU (float32, TF32
+    off; atomics and GEMMs in another order)."""
+    from repro_torch.models.gnn import dimenet, gat, schnet
+
+    mod = {"gat-cora": gat, "schnet": schnet, "dimenet": dimenet}[arch_id]
+    cfg, d = _gnn_smoke_batch(arch_id)
+    params = mod.init_params(cfg, torch.Generator().manual_seed(0))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = _step(_gnn_smoke_loss(arch_id, cfg, d, "cuda"), _to(params, "cuda"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    want = _step(_gnn_smoke_loss(arch_id, cfg, d, "cpu"), params)
+    assert got[0] == pytest.approx(want[0], rel=1e-5)
+    for g, w in zip(got[1], want[1], strict=True):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+    for g, w in zip(got[2], want[2], strict=True):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+
+
+# (loss, gradients by norm) limits, card against CPU.  In bf16 compute each
+# lies between the card's reading (1.04e-7, 5.24e-5 on an H100) and the
+# control's below (1.46e-4, 9.63e-3), which the test checks it catches.
+B4R_STEP_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (1e-5, 1e-3)}
+
+
+def _rel(got, want):
+    num = sum(float(((g - w) ** 2).sum()) for g, w in zip(got, want, strict=True))
+    return (num / sum(float((w ** 2).sum()) for w in want)) ** 0.5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bert4rec_step_on_card_matches_cpu(cuda, dtype, monkeypatch):
+    """cloze_loss_sampled's loss and gradients at the SMOKE widths on the
+    card against the CPU, within ``B4R_STEP_TOL``.  In bf16 a control, the
+    float32 attention logits and sampled scores rounded to bf16 (every
+    float32 ``torch.einsum`` output), run on the CPU, must fail them."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import recsys
+    from repro_torch.models.recsys import bert4rec
+
+    cfg = dataclasses.replace(get_arch("bert4rec").smoke_config, compute_dtype=getattr(torch, dtype))
+    params = bert4rec.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    items = recsys.interaction_sequences(cfg.n_items, 16, cfg.seq_len, rng)
+    masked, pos, tgt = recsys.cloze_mask_positions(items, cfg.mask_id, cfg.max_masked, rng)
+    negs = rng.integers(1, cfg.n_items + 1, 64).astype(np.int32)
+
+    def loss_on(device):
+        args = [torch.from_numpy(a).to(device) for a in (masked, pos, tgt, negs)]
+        return lambda p: bert4rec.cloze_loss_sampled(cfg, p, *args)[0]
+
+    got = _step(loss_on("cuda"), _to(params, "cuda"))
+    want = _step(loss_on("cpu"), params)
+    loss_tol, grad_tol = B4R_STEP_TOL[dtype]
+    readings = (abs(got[0] - want[0]) / abs(want[0]), _rel(got[1], want[1]))
+    print(f"bert4rec {dtype} card vs CPU: loss rel {readings[0]:.3g}, gradients rel {readings[1]:.3g}")
+    assert readings[0] <= loss_tol and readings[1] <= grad_tol, readings
+    if dtype == "bfloat16":
+        einsum = torch.einsum
+
+        def rounded(eq, *ops):
+            y = einsum(eq, *ops)
+            return y.to(torch.bfloat16).to(torch.float32) if y.dtype == torch.float32 else y
+
+        monkeypatch.setattr(torch, "einsum", rounded)
+        ctl = _step(loss_on("cpu"), params)
+        control = (abs(ctl[0] - want[0]) / abs(want[0]), _rel(ctl[1], want[1]))
+        print(f"bert4rec control (logits and scores in bf16) vs CPU: loss rel {control[0]:.3g}, "
+              f"gradients rel {control[1]:.3g}")
+        assert control[0] > loss_tol or control[1] > grad_tol, control
+
+
+def test_popularity_sketch_negatives_on_card(cuda):
+    """The user x item popularity sketch on the card: one ingest_scatter
+    launch a batch, estimates equal to the CPU sketch's (integer counts) and
+    never under the exact counts, and the same negatives from the same
+    generator."""
+    from repro_torch.data import recsys
+    from repro_torch.integration.popularity import InteractionPopularitySketch
+
+    rng = np.random.default_rng(2)
+    card = InteractionPopularitySketch(5_000, depth=4, width_users=256, width_items=512, device="cuda")
+    host = InteractionPopularitySketch(5_000, depth=4, width_users=256, width_items=512, device="cpu")
+    exact = np.zeros(5_001, np.int64)
+    before = ingest_ops.ingest_scatter.launches
+    for step in range(3):
+        items = recsys.interaction_sequences(5_000, 64, 50, rng)
+        stream = recsys.interaction_stream(items, np.arange(step * 64, (step + 1) * 64))
+        card.observe(stream["src"], stream["dst"])
+        host.observe(stream["src"], stream["dst"])
+        exact += np.bincount(stream["dst"], minlength=5_001)
+    assert ingest_ops.ingest_scatter.launches == before + 3
+    seen = np.nonzero(exact)[0].astype(np.uint32)
+    est = card.item_popularity(seen)
+    np.testing.assert_array_equal(est, host.item_popularity(seen))
+    assert np.all(est >= exact[seen])
+    np.testing.assert_array_equal(card.sample_negatives(256, np.random.default_rng(3)),
+                                  host.sample_negatives(256, np.random.default_rng(3)))
