@@ -175,30 +175,43 @@ before and read just after:
   forms within 2e-2 x max|output| (tokens within 1e-5 of a routing tie
   counted and left out), the all-reduce MiB and ms a rank;
 - models: the other models at the registry's FULL configs
-  (``repro_torch.configs.get_arch``), random weights from a seed: (a)
-  BERT4Rec's train_batch (1,000,000 items, embed 64, 2 blocks, 2 heads,
-  sequence 200, 2,048 negatives, bf16), its batch cut from 65,536 to the
-  largest power of two at most 16,384 whose forward and backward peak under
-  72 GiB; 6 steps, each streaming the batch's user-item interactions into
-  one ``InteractionPopularitySketch`` on the card (``ingest_scatter`` once a
+  (``repro_torch.configs.get_arch``), random weights from a seed, each
+  through its ``launch/steps.py::build_step`` bundle (its ``make_batch``,
+  ``loss_fn`` and ``step``): (a) BERT4Rec's train_batch (1,000,000 items,
+  embed 64, 2 blocks, 2 heads, sequence 200, 2,048 negatives, bf16), its
+  batches cut from the bundle's 65,536 users to the largest power of two
+  at most 16,384 whose forward and backward peak under 72 GiB; 6 steps,
+  each streaming the batch's user-item interactions into one
+  ``InteractionPopularitySketch`` on the card (``ingest_scatter`` once a
   batch, no other kernel), drawing the 2,048 negatives from it
-  (``sample_negatives``), then ``cloze_loss_sampled`` forward and backward
-  and AdamW: finite losses, every streamed item's popularity at least its
-  exact count, step ms, peak GiB, bounds, the last batch's ingest and step
-  profiled; one step at batch 64 against the CPU's (loss within 1e-2,
-  gradients within 5e-2 by norm); (b) ``score_all_items`` at serve_p99's
-  batch 512 and serve_bulk's 262,144 cut to 4,096, ``score_candidates``
-  against 1,000,000 candidates (equal to the full scores gathered within
-  1e-5 x max), timed with CUDA events beside their bounds; (c) GAT,
-  SchNet and DimeNet on full_graph_sm (GAT: 2,708 nodes and 10,556 edges
-  padded to 3,072 and 10,752), molecule (SchNet, DimeNet: 128 graphs of 30
-  nodes and 64 edges, DimeNet's 65,536-triplet budget) and one
-  minibatch_lg block (all three: 1,024 seeds, fanouts (15, 10), 169,984
-  nodes, 168,960 edges, from a synthetic 65,536-node citation graph),
-  forward, backward and AdamW for 5 steps (finite losses), the first step
-  against the CPU's from the same parameters (loss within 1e-4, gradients
-  within 1e-3 by norm; DimeNet's block against the CPU's forward only);
-  step ms and peak GiB; no kernel launched;
+  (``sample_negatives``) and handing them to the bundle's step as the
+  batch's ``negatives``: finite losses, every streamed item's popularity
+  at least its exact count, step ms, peak GiB, bounds, the last batch's
+  ingest and step profiled; one step at batch 64 against the CPU's, in
+  bf16 and in float32, with a control the float32 limits must catch; (b)
+  ``score_all_items`` at serve_p99's batch 512 and serve_bulk's 262,144
+  cut to 4,096, ``score_candidates`` against 1,000,000 candidates (equal
+  to the full scores gathered within 1e-5 x max), timed with CUDA events
+  beside their bounds; (c) GAT, SchNet and DimeNet on full_graph_sm (GAT:
+  2,708 nodes and 10,556 edges padded to 3,072 and 10,752), molecule
+  (SchNet, DimeNet: 128 graphs of 30 nodes and 64 edges, DimeNet's
+  65,536-triplet budget) and minibatch_lg (all three: the block of 1,024
+  seeds and fanouts (15, 10), 169,984 nodes and 168,960 edges), the
+  bundles' batches, 5 steps (finite losses), the first step against the
+  CPU's from the same parameters (loss within 1e-4, gradients within 1e-3
+  by norm; DimeNet's block against the CPU's forward only); step ms and
+  peak GiB; no kernel launched;
+- steps: (a) ``build_step("olmo-1b", "train_4k")`` at the FULL config (16
+  layers, d 2,048, vocab 50,304, bf16 parameters, fp32 AdamW moments,
+  remat, chunked attention), the batch cut from 256 sequences to the
+  largest power of two whose step peaks under 72 GiB (tried from the
+  largest that a lower bound by shapes allows), 3 steps: finite losses,
+  step ms, the last step's device busy and top kernels, the peak, the
+  6·N·D bound from ``model_flops_for``; the SMOKE bundle's step on the
+  card against the CPU's; (c) ``pipeline_apply`` on four gloo ranks
+  sharing the card against the sequential composition; (d) the bundle dry
+  run of every cell on both production meshes (``meta`` tensors): every
+  live cell ``ok``; no kernel launched;
 - analysis (``repro_torch.analysis`` on the kernels): (a) every hot entry
   point of the registry at the fixture size and at BASE under
   ``torch.cuda.set_sync_debug_mode("error")``, those baselined for
@@ -4071,30 +4084,15 @@ B4R_SCORE_ATOL = 1e-5  # x max|score|: score_candidates against score_all_items 
 GNN_STEPS = 5
 GNN_LOSS_RTOL = 1e-4   # card vs CPU, float32 (TF32 off): atomics and GEMMs in other orders
 GNN_GRAD_RTOL = 1e-3   # ||grad_card - grad_cpu|| / ||grad_cpu||
-GNN_LG_GRAPH = dict(n_nodes=65_536, n_edges=1 << 20)
 # DimeNet on the minibatch_lg block (1,351,680 triplets): the CPU's forward
 # only; its gradients are compared on the molecule shape.
 GNN_CPU_FORWARD_ONLY = {("dimenet", "gnn_minibatch")}
 GNN_CELLS = (("gat-cora", "full_graph_sm"), ("schnet", "molecule"), ("dimenet", "molecule"),
              ("gat-cora", "minibatch_lg"), ("schnet", "minibatch_lg"), ("dimenet", "minibatch_lg"))
-MOL_ATOM_TYPES = 100  # launch/steps.py's molecule atom vocabulary
 # H100 SXM published dense peaks (NVIDIA data sheet): float32 outside the
 # tensor cores (TF32 is off) and bf16 on them, operations/s.
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
-
-
-def train_step(torch, loss_fn, params, opt, ocfg):
-    """One step: ``loss_fn(params)`` forward and backward under autograd,
-    then ``apply_adamw``.  Returns (params, opt, loss, grads)."""
-    from repro_torch.train import optimizer as opt_mod
-    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
-
-    params = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    loss = loss_fn(params)
-    grads = tree_unflatten(params, torch.autograd.grad(loss, tree_leaves(params)))
-    params, opt, _ = opt_mod.apply_adamw(ocfg, opt, params, grads)
-    return params, opt, loss.detach(), grads
 
 
 def grads_of(torch, loss_fn, params):
@@ -4148,29 +4146,41 @@ def nvidia_smi() -> str:
                           capture_output=True, text=True, check=True).stdout.strip()
 
 
-def b4r_batch(cfg, batch: int, rng, p, first_user: int):
-    """A train_batch of ``batch`` users: (masked items, mask positions, mask
-    targets, the interaction stream)."""
+def b4r_batches(bundle, rng):
+    """Train batches cut from the BERT4Rec bundle's ``make_batch`` (the
+    reference's train_batch: 65,536 users a call): ``take(batch)`` returns
+    the next ``batch`` users' numpy batch (no negatives) and their user-item
+    interaction stream (the Cloze targets put back into the masked items;
+    consecutive user ids)."""
     import numpy as np
 
     from repro_torch.data import recsys
 
-    items = recsys.interaction_sequences(cfg.n_items, batch, cfg.seq_len, rng, p)
-    masked, pos, tgt = recsys.cloze_mask_positions(items, cfg.mask_id, cfg.max_masked, rng)
-    users = np.arange(first_user, first_user + batch, dtype=np.uint32)
-    return masked, pos, tgt, recsys.interaction_stream(items, users)
+    pool = {"left": 0, "users": 0}
+
+    def take(batch: int):
+        if pool["left"] < batch:
+            full = bundle.make_batch(rng)
+            full.pop("negatives")
+            pool.update(full=full, at=0, left=len(full["items"]))
+        at = pool["at"]
+        pool["at"], pool["left"] = at + batch, pool["left"] - batch
+        part = {k: v[at:at + batch] for k, v in pool["full"].items()}
+        items = part["items"].copy()
+        r, c = np.nonzero(part["mask_targets"])
+        items[r, part["mask_positions"][r, c]] = part["mask_targets"][r, c]
+        users = np.arange(pool["users"], pool["users"] + batch, dtype=np.uint32)
+        pool["users"] += batch
+        return part, recsys.interaction_stream(items, users)
+
+    return take
 
 
-def b4r_loss(cfg, arrays, negatives, device):
-    """``cloze_loss_sampled`` on numpy ``arrays`` (masked, positions,
-    targets) and ``negatives``, as a function of the parameters."""
-    import torch
-
-    from repro_torch.models.recsys import bert4rec
-
-    masked, pos, tgt = (torch.from_numpy(a).to(device) for a in arrays)
-    neg = torch.from_numpy(negatives).to(device)
-    return lambda params: bert4rec.cloze_loss_sampled(cfg, params, masked, pos, tgt, neg)[0]
+def b4r_loss(bundle, part, negatives, device):
+    """The bundle's ``cloze_loss_sampled`` on the numpy batch ``part`` and
+    ``negatives``, on ``device``, as a function of the parameters."""
+    batch = bundle.to_tensors(dict(part, negatives=negatives), device)
+    return lambda params: bundle.loss_fn(params, batch)[0]
 
 
 def b4r_bf16_scores(torch):
@@ -4213,22 +4223,16 @@ def b4r_step_bounds(cfg, batch: int):
     return ops_ms, logit_bytes / PEAK_BYTES_PER_S * 1e3
 
 
-def b4r_fit_batch(torch, cfg, params, device, start: int):
-    """The largest power of two at most ``start`` whose forward and backward
-    of cloze_loss_sampled peak under B4R_PEAK_GIB (halving on a larger peak
-    or an out-of-memory error).  Returns (batch, peak GiB)."""
-    import numpy as np
-
-    from repro_torch.data import recsys
-
-    batch, rng, p = start, np.random.default_rng(270), recsys.item_popularity(cfg.n_items)
+def b4r_fit_batch(torch, bundle, params, device, part, negs):
+    """The largest power of two at most ``part``'s users whose forward and
+    backward of cloze_loss_sampled peak under B4R_PEAK_GIB (halving on a
+    larger peak or an out-of-memory error).  Returns (batch, peak GiB)."""
+    batch = len(part["items"])
     while batch >= 1:
-        masked, pos, tgt, _ = b4r_batch(cfg, batch, rng, p, 0)
-        negs = rng.integers(1, cfg.n_items + 1, cfg.n_negatives).astype(np.int32)
         release(torch)
         torch.cuda.reset_peak_memory_stats()
         try:
-            grads_of(torch, b4r_loss(cfg, (masked, pos, tgt), negs, device), params)
+            grads_of(torch, b4r_loss(bundle, {k: v[:batch] for k, v in part.items()}, negs, device), params)
             peak = torch.cuda.max_memory_allocated() / 2**30
         except torch.cuda.OutOfMemoryError:
             peak = None
@@ -4255,35 +4259,33 @@ def phase_models_b4r(torch, counted, device="cuda", sizes=None):
     import numpy as np
 
     from repro_torch.configs import get_arch
-    from repro_torch.data import recsys
     from repro_torch.integration.popularity import InteractionPopularitySketch
-    from repro_torch.models.recsys import bert4rec
-    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.launch.steps import build_step
     from repro_torch.tree import tree_leaves
 
     sizes = sizes or B4R
     spec = get_arch("bert4rec")
     cfg = spec.config
     cuda = device != "cpu"
-    gen = torch.Generator(device=device).manual_seed(27)
-    params = bert4rec.init_params(cfg, gen, device)
-    ocfg = opt_mod.AdamWConfig()  # launch/steps.py::_opt_config below 100e9 parameters
-    opt = opt_mod.init_adamw(ocfg, params)
+    bundle = build_step("bert4rec", "train_batch", device=device)
+    state = bundle.init_state(torch.Generator(device=device).manual_seed(27))
+    params = state["params"]
     n_params = sum(x.numel() for x in tree_leaves(params))
+    take = b4r_batches(bundle, np.random.default_rng(2702))
 
     # One step at batch 64 on the card against the same step on the CPU.
     rng = np.random.default_rng(2701)
-    p = recsys.item_popularity(cfg.n_items)
-    arrays = b4r_batch(cfg, sizes["check_batch"], rng, p, 0)[:3]
+    part, _ = take(sizes["check_batch"])
     negs = rng.integers(1, cfg.n_items + 1, cfg.n_negatives).astype(np.int32)
     cpu_params = to_device(torch, params, "cpu")
     agree = []
     for dt in dict.fromkeys((cfg.compute_dtype, torch.float32)):
-        c = dataclasses.replace(cfg, compute_dtype=dt)
+        c = build_step("bert4rec", "train_batch", config_override=dataclasses.replace(cfg, compute_dtype=dt),
+                       device=device)
         name = str(dt)[6:]
         loss_tol, grad_tol = B4R_STEP_RTOL[name]
-        card_loss, card_g = grads_of(torch, b4r_loss(c, arrays, negs, device), params)
-        cpu_fn = b4r_loss(c, arrays, negs, "cpu")
+        card_loss, card_g = grads_of(torch, b4r_loss(c, part, negs, device), params)
+        cpu_fn = b4r_loss(c, part, negs, "cpu")
         cpu_loss, cpu_g = grads_of(torch, cpu_fn, cpu_params)
         err = (abs(card_loss - cpu_loss) / abs(cpu_loss), rel_err(torch, card_g, cpu_g))
         check(np.isfinite(card_loss) and err[0] <= loss_tol and err[1] <= grad_tol,
@@ -4302,8 +4304,12 @@ def phase_models_b4r(torch, counted, device="cuda", sizes=None):
         del card_g, cpu_g, cpu_fn
     del cpu_params
 
-    batch, fit_peak = (b4r_fit_batch(torch, cfg, params, device, sizes["batch"]) if cuda
-                       else (sizes["batch"], None))
+    if cuda:
+        fit_part, _ = take(sizes["batch"])
+        batch, fit_peak = b4r_fit_batch(torch, bundle, params, device, fit_part, negs)
+        del fit_part
+    else:
+        batch, fit_peak = sizes["batch"], None
     pop = InteractionPopularitySketch(cfg.n_items, device=device)
     host = InteractionPopularitySketch(cfg.n_items, device="cpu")  # the plain path, fed the same streams
     exact = np.zeros(cfg.n_items + 1, np.int64)
@@ -4319,7 +4325,7 @@ def phase_models_b4r(torch, counted, device="cuda", sizes=None):
     for step in range(sizes["steps"]):
         profiled = cuda and step == sizes["steps"] - 1  # the last step under the profiler
         t0 = time.perf_counter()
-        masked, pos, tgt, stream = b4r_batch(cfg, batch, rng, p, step * batch)
+        part, stream = take(batch)
         exact += np.bincount(stream["dst"], minlength=cfg.n_items + 1)
         twin = copy.deepcopy(rng)
 
@@ -4328,13 +4334,13 @@ def phase_models_b4r(torch, counted, device="cuda", sizes=None):
             return pop.sample_negatives(cfg.n_negatives, rng)
 
         negs, feed_busy, feed_by = profile_breakdown(torch, feed) if profiled else (feed(), None, {})
-        loss_fn = b4r_loss(cfg, (masked, pos, tgt), negs, device)
+        batch_in = bundle.to_tensors(dict(part, negatives=negs))
         t1 = time.perf_counter()
         if profiled:
-            (params, opt, loss, _), busy, by = profile_breakdown(
-                torch, lambda: train_step(torch, loss_fn, params, opt, ocfg))
+            (state, metrics), busy, by = profile_breakdown(torch, lambda: bundle.step(state, batch_in))
         else:
-            params, opt, loss, _ = train_step(torch, loss_fn, params, opt, ocfg)
+            state, metrics = bundle.step(state, batch_in)
+        loss = metrics["loss"]
         losses.append(loss.item())
         step_ms.append(1e3 * (time.perf_counter() - t1))
         host_ms.append(1e3 * (t1 - t0))
@@ -4368,8 +4374,8 @@ def phase_models_b4r(torch, counted, device="cuda", sizes=None):
     smi = nvidia_smi() if cuda else "cpu"
     traced = [v for k, v in feed_by.items() if "ingest_kernel" in k]
     ingest_ms = sum(traced) if traced else None  # None: the trace lost the launch
-    print(f"[chip_smoke] models (a) bert4rec train_batch ({smi}): the registry's FULL config ({cfg.n_items:,} "
-          f"items, vocab {cfg.vocab:,}, embed {cfg.embed_dim}, {cfg.n_blocks} blocks, {cfg.n_heads} heads, sequence "
+    print(f"[chip_smoke] models (a) bert4rec train_batch through build_step ({smi}): the registry's FULL config "
+          f"({cfg.n_items:,} items, vocab {cfg.vocab:,}, embed {cfg.embed_dim}, {cfg.n_blocks} blocks, {cfg.n_heads} heads, sequence "
           f"{cfg.seq_len}, {cfg.n_negatives:,} negatives, {str(cfg.compute_dtype)[6:]} compute; {n_params:,} "
           f"parameters); batch cut from {spec.shapes['train_batch'].params['batch']:,} to {batch:,} (forward and "
           f"backward peak {_gib(fit_peak)}, limit {B4R_PEAK_GIB} GiB); {sizes['steps']} steps: losses "
@@ -4388,7 +4394,8 @@ def phase_models_b4r(torch, counted, device="cuda", sizes=None):
     print(f"[chip_smoke] models (a) batch {sizes['check_batch']} on the card against the CPU, same parameters and "
           f"inputs (the control: the float32 attention logits and sampled scores rounded to bf16): "
           f"{'; '.join(agree)}")
-    del opt, pop, host
+    params = state["params"]
+    del state, pop, host
     return cfg, params, rng
 
 
@@ -4448,105 +4455,6 @@ def phase_models_serve(torch, cfg, params, rng, device="cuda", sizes=None):
     print(f"[chip_smoke] models (b) bert4rec serving (CUDA events, mean of 3-5 calls after one): {'; '.join(parts)}")
 
 
-def pad512(x: int) -> int:
-    """``launch/steps.py::_pad512``: graph dims padded to a 512 multiple."""
-    return ((x + 511) // 512) * 512
-
-
-def gnn_data(shape, rng, lg_graph):
-    """The numpy batch of one GNN shape as ``launch/steps.py`` builds it
-    (the GraphBatch fields, ``labels``, ``loss_mask``, ``n_graphs``) with
-    triplets, and a description of its sizes."""
-    import numpy as np
-
-    from repro_torch.data import graphs
-    from repro_torch.models.gnn import sampler
-
-    p = shape.params
-    if shape.kind == "gnn_full":
-        n, e = p["n_nodes"], p["n_edges"]
-        n_pad, e_pad = pad512(n), pad512(e)
-        g = graphs.citation_graph(n, e, p["d_feat"], p["n_classes"], rng)
-        d = {"node_feat": np.pad(g["node_feat"], ((0, n_pad - n), (0, 0))),
-             "positions": np.pad(g["positions"], ((0, n_pad - n), (0, 0))),
-             "edge_src": np.pad(g["edge_src"], (0, e_pad - e)), "edge_dst": np.pad(g["edge_dst"], (0, e_pad - e)),
-             "node_mask": np.arange(n_pad) < n, "edge_mask": np.arange(e_pad) < e,
-             "labels": np.pad(g["labels"], (0, n_pad - n)), "n_graphs": 1}
-        d["loss_mask"] = ((rng.random(n_pad) < 0.5) & d["node_mask"]).astype(np.float32)
-        what = f"citation_graph {n:,} nodes, {e:,} edges padded to {n_pad:,} and {e_pad:,}, d_feat {p['d_feat']}"
-    elif shape.kind == "gnn_molecule":
-        d = graphs.molecule_batch(p["batch"], p["n_nodes"], p["n_edges"], MOL_ATOM_TYPES, rng)
-        n, e = p["batch"] * p["n_nodes"], p["batch"] * p["n_edges"]
-        d.update(node_mask=np.ones(n, bool), edge_mask=np.ones(e, bool), n_graphs=p["batch"],
-                 loss_mask=np.ones(p["batch"], np.float32))
-        loops = int(np.sum(d["edge_src"] == d["edge_dst"]))
-        what = f"molecule_batch {p['batch']} x {p['n_nodes']} nodes x {p['n_edges']} edges ({loops} self-loops)"
-    else:  # gnn_minibatch: one sampled block of a synthetic graph
-        g = graphs.citation_graph(lg_graph["n_nodes"], lg_graph["n_edges"], p["d_feat"], p["n_classes"], rng)
-        csr = sampler.CSRGraph.from_edges(g["edge_src"], g["edge_dst"], lg_graph["n_nodes"])
-        seeds = rng.choice(lg_graph["n_nodes"], p["batch_nodes"], replace=False).astype(np.int32)
-        d = sampler.sample_subgraph(csr, seeds, p["fanouts"], rng, features=g["node_feat"])
-        nodes = d.pop("nodes")
-        d.pop("seed_slots")
-        n = len(nodes)
-        check((n, len(d["edge_src"])) == sampler.sampled_block_sizes(p["batch_nodes"], p["fanouts"]),
-              "models (c): the sampled block's shape")
-        d.update(positions=g["positions"][nodes], labels=g["labels"][nodes], n_graphs=1,
-                 loss_mask=(np.arange(n) < p["batch_nodes"]).astype(np.float32))
-        what = (f"one block of {p['batch_nodes']:,} seeds, fanouts {p['fanouts']}: {n:,} nodes, "
-                f"{len(d['edge_src']):,} edges, d_feat {p['d_feat']} (from a synthetic citation_graph of "
-                f"{lg_graph['n_nodes']:,} nodes and {lg_graph['n_edges']:,} edges)")
-    return d, what
-
-
-def gnn_config(spec, shape):
-    """``launch/steps.py::_gnn_config`` at the FULL config."""
-    import dataclasses
-
-    cfg = spec.config
-    if shape.kind == "gnn_molecule":
-        return dataclasses.replace(cfg, feature_mode="embed_types", task="graph_reg", out_dim=1)
-    p = shape.params
-    if spec.arch_id in ("schnet", "dimenet"):
-        return dataclasses.replace(cfg, feature_mode="project", d_in=p["d_feat"], task="node_class",
-                                   out_dim=p["n_classes"])
-    return dataclasses.replace(cfg, d_in=p["d_feat"], out_dim=p["n_classes"])
-
-
-def gnn_loss(arch_id, cfg, d, device):
-    """``launch/steps.py``'s GNN loss on the numpy batch ``d``, as a
-    function of the parameters: MSE per graph, or masked cross-entropy."""
-    import torch
-
-    from repro_torch.models.gnn import dimenet, gat, schnet
-    from repro_torch.models.gnn.common import GraphBatch
-
-    t = {k: torch.from_numpy(d[k]).to(device) for k in ("node_feat", "edge_src", "edge_dst", "node_mask", "edge_mask",
-                                                         "labels", "loss_mask")}
-    g = GraphBatch(t["node_feat"], t["edge_src"], t["edge_dst"], t["node_mask"], t["edge_mask"],
-                   positions=torch.from_numpy(d["positions"]).to(device),
-                   graph_ids=torch.from_numpy(d["graph_ids"]).to(device) if "graph_ids" in d else None,
-                   triplets={k: torch.from_numpy(d["triplets"][k]).to(device) for k in ("in", "out", "mask")}
-                   if "triplets" in d else None)
-    n_graphs, labels, mask = d["n_graphs"], t["labels"], t["loss_mask"]
-    graph_reg = getattr(cfg, "task", "node_class") == "graph_reg"
-
-    def loss(params):
-        if arch_id == "gat-cora":
-            out = gat.forward(cfg, params, g)
-        elif arch_id == "schnet":
-            out = schnet.forward_ngraphs(cfg, params, g, n_graphs) if graph_reg else schnet.forward(cfg, params, g)
-        else:
-            out = dimenet.forward(cfg, params, g, n_graphs=n_graphs)
-        if graph_reg:
-            return torch.sum((out - labels)[:, 0] ** 2 * mask) / torch.clamp(torch.sum(mask), min=1.0)
-        logz = torch.logsumexp(out, -1)
-        gold = torch.gather(out, 1, labels.long()[:, None])[:, 0]
-        return torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask), min=1.0)
-
-    return loss
-
-
 def dimenet_bilinear_bound_ms(cfg, n_triplets: int) -> float:
     """The bilinear mix's float32 GEMM (T, s·b) x (s·b, f), forward and
     twice for the backward, over every block, at the float32 peak."""
@@ -4554,51 +4462,43 @@ def dimenet_bilinear_bound_ms(cfg, n_triplets: int) -> float:
     return 3 * cfg.n_blocks * 2 * n_triplets * s * cfg.n_bilinear * cfg.d_hidden / PEAK_F32_FLOPS * 1e3
 
 
-def phase_models_gnn(torch, counted, device="cuda", steps=GNN_STEPS, lg_graph=GNN_LG_GRAPH, cells=GNN_CELLS):
+def phase_models_gnn(torch, counted, device="cuda", steps=GNN_STEPS, cells=GNN_CELLS):
     """(c) GAT, SchNet and DimeNet at their FULL configs on full_graph_sm,
-    molecule and one minibatch_lg block: forward, backward and AdamW for
-    ``steps`` steps (finite losses), the first step's loss and gradients on
-    the card against the CPU's from the same parameters.  No kernel of the
-    port is on these paths: every launch count stays 0."""
+    molecule and minibatch_lg, each through its ``build_step`` bundle (the
+    reference's batch from ``make_batch``): the bundle's step (forward,
+    backward, AdamW) for ``steps`` steps (finite losses), the first step's
+    loss and gradients on the card against the CPU's from the same
+    parameters.  No kernel of the port is on these paths: every launch count
+    stays 0."""
     import numpy as np
 
-    from repro_torch.configs import get_arch, triplet_budget
-    from repro_torch.data import graphs
-    from repro_torch.models.gnn import dimenet, gat, schnet
-    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.launch.steps import build_step
     from repro_torch.tree import tree_leaves
 
     cuda = device != "cpu"
-    modules = {"gat-cora": gat, "schnet": schnet, "dimenet": dimenet}
-    rng = np.random.default_rng(2703)
-    data = {}
     for f in counted.values():
         f.launches = 0
     for arch_id, shape_name in cells:
-        spec = get_arch(arch_id)
-        shape = spec.shapes[shape_name]
+        bundle = build_step(arch_id, shape_name, device=device)
         t0 = time.perf_counter()
-        if shape_name not in data:
-            data[shape_name] = gnn_data(shape, rng, lg_graph)
-        d, what = data[shape_name]
-        trip = ""
-        if arch_id == "dimenet":
-            budget = triplet_budget(len(d["edge_src"]))
-            d = dict(d, triplets=graphs.build_triplets(d["edge_src"], d["edge_dst"], budget, d["edge_mask"]))
-            check(not d["triplets"]["truncated"], f"models (c): {shape_name}'s triplets truncated at {budget}")
-            trip = f", {int(d['triplets']['mask'].sum()):,} triplets in a budget of {budget:,}"
+        d = bundle.make_batch(np.random.default_rng(2703))
         data_s = time.perf_counter() - t0
-        cfg = gnn_config(spec, shape)
-        params = modules[arch_id].init_params(cfg, torch.Generator().manual_seed(27))
-        ocfg = opt_mod.AdamWConfig()
-        card_fn, cpu_fn = gnn_loss(arch_id, cfg, d, device), gnn_loss(arch_id, cfg, d, "cpu")
-        card_loss, card_g = grads_of(torch, card_fn, to_device(torch, params, device))
-        if (arch_id, shape.kind) in GNN_CPU_FORWARD_ONLY:
+        card_batch, cpu_batch = bundle.to_tensors(d), bundle.to_tensors(d, "cpu")
+        trip = ""
+        if "triplets" in d["graph"]:
+            n_trip = len(d["graph"]["triplets"]["in"])
+            trip = f", {int(d['graph']['triplets']['mask'].sum()):,} triplets in a budget of {n_trip:,}"
+        state = bundle.init_state(torch.Generator().manual_seed(27))
+        card_fn = lambda p: bundle.loss_fn(p, card_batch)[0]  # noqa: E731
+        cpu_fn = lambda p: bundle.loss_fn(p, cpu_batch)[0]  # noqa: E731
+        card_loss, card_g = grads_of(torch, card_fn, state["params"])
+        cpu_params = to_device(torch, state["params"], "cpu")
+        if (arch_id, bundle.kind) in GNN_CPU_FORWARD_ONLY:
             with torch.no_grad():
-                cpu_loss, grad_err = float(cpu_fn(params)), None
+                cpu_loss, grad_err = float(cpu_fn(cpu_params)), None
             against = "the CPU's forward (its backward takes tens of seconds there)"
         else:
-            cpu_loss, cpu_g = grads_of(torch, cpu_fn, params)
+            cpu_loss, cpu_g = grads_of(torch, cpu_fn, cpu_params)
             grad_err = rel_err(torch, card_g, cpu_g)
             against = "the CPU"
             del cpu_g
@@ -4606,32 +4506,32 @@ def phase_models_gnn(torch, counted, device="cuda", steps=GNN_STEPS, lg_graph=GN
         check(loss_err <= GNN_LOSS_RTOL and (grad_err is None or grad_err <= GNN_GRAD_RTOL),
               f"models (c): {arch_id} {shape_name}: loss {card_loss} on the card, {cpu_loss} on the CPU, "
               f"gradients {grad_err} apart")
-        del card_g
-        params = to_device(torch, params, device)
-        opt = opt_mod.init_adamw(ocfg, params)
+        del card_g, cpu_params, cpu_batch
         if cuda:
             release(torch)
             torch.cuda.reset_peak_memory_stats()
         losses, step_ms = [], []
         for _ in range(steps):
             t1 = time.perf_counter()
-            params, opt, loss, _ = train_step(torch, card_fn, params, opt, ocfg)
-            losses.append(loss.item())
+            state, metrics = bundle.step(state, card_batch)
+            losses.append(metrics["loss"].item())
             step_ms.append(1e3 * (time.perf_counter() - t1))
         peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
         check(all(np.isfinite(losses)), f"models (c): {arch_id} {shape_name}: non-finite losses {losses}")
-        n_params = sum(x.numel() for x in tree_leaves(params))
+        n_params = sum(x.numel() for x in tree_leaves(state["params"]))
         bound = ""
         if arch_id == "dimenet":
-            bound = (f"; bound of the bilinear GEMMs alone {dimenet_bilinear_bound_ms(cfg, len(d['triplets']['in'])):.3f}"
-                     f" ms (f32 at 67 TFLOP/s, padded triplets included)")
-        print(f"[chip_smoke] models (c) {arch_id} {shape_name} ({what}{trip}; data {data_s:.1f} s on the host): "
-              f"{n_params:,} parameters; {steps} steps, losses {[round(x, 4) for x in losses]}, step "
-              f"{median(step_ms[1:]):.1f} ms median after the first ({step_ms[0]:.1f} ms; forward, backward, AdamW, "
-              f"host clock ending in a read of the loss), peak {_gib(peak)}{bound}; first step against {against}: "
-              f"loss rel {loss_err:.3g} (tolerance {GNN_LOSS_RTOL}), gradients rel "
-              f"{'not compared' if grad_err is None else f'{grad_err:.3g}'} (tolerance {GNN_GRAD_RTOL})")
-        del params, opt, card_fn, cpu_fn
+            bound = (f"; bound of the bilinear GEMMs alone "
+                     f"{dimenet_bilinear_bound_ms(bundle.config, len(d['graph']['triplets']['in'])):.3f} ms (f32 at "
+                     f"67 TFLOP/s, padded triplets included)")
+        print(f"[chip_smoke] models (c) {arch_id} {shape_name} through build_step ({bundle.notes}{trip}; make_batch "
+              f"{data_s:.1f} s on the host): {n_params:,} parameters; {steps} steps, losses "
+              f"{[round(x, 4) for x in losses]}, step {median(step_ms[1:]):.1f} ms median after the first "
+              f"({step_ms[0]:.1f} ms; forward, backward, AdamW, host clock ending in a read of the loss), peak "
+              f"{_gib(peak)}{bound}; first step against {against}: loss rel {loss_err:.3g} (tolerance "
+              f"{GNN_LOSS_RTOL}), gradients rel {'not compared' if grad_err is None else f'{grad_err:.3g}'} "
+              f"(tolerance {GNN_GRAD_RTOL})")
+        del state, card_batch, d
         if cuda:
             release(torch)
     launched = {name: f.launches for name, f in counted.items() if f.launches}
@@ -4657,6 +4557,274 @@ def phase_models(torch, counted, device="cuda"):
             torch.cuda.memory._set_allocator_settings("expandable_segments:False")
     phase_models_gnn(torch, counted, device)
     print(f"[chip_smoke] models: {time.time() - t0:.1f} s in all")
+
+
+# The step builder's phase.  (a) olmo-1b's train_4k at its FULL config: the
+# batch cut to the largest power of two whose step peaks under this.
+STEPS_PEAK_GIB = 72.0
+STEPS_TRAIN_STEPS = 3
+# (a) The same bundle at SMOKE size, one step on the card against the CPU
+# (float32 compute, TF32 off; GEMMs and reductions in other orders): limits
+# on |loss_card - loss_cpu| / |loss_cpu|, and on ||x_card - x_cpu|| / ||x_cpu||
+# of the gradients and of the parameters after AdamW.
+# Readings on an H100: 0, 8.27e-7 and 1.07e-9.
+STEPS_SMOKE_RTOL = {"loss": 1e-6, "grads": 1e-5, "params": 1e-8}
+# (c) The pipeline on four gloo ranks sharing the card: stages tanh(x @ W +
+# b) of width PIPE["d"] (the reference's test stage, wider), float32 with
+# TF32 off; each stage's GEMM on 64 rows against the composition's on all
+# 512 may take another kernel (sums in another order), so the outputs (in
+# [-1, 1]) agree within PIPE_ATOL, not bit for bit.
+PIPE = dict(stages=4, micro=8, mb=64, d=1024)
+PIPE_ATOL = 1e-4
+
+
+def steps_fit_batch(torch, bundle, state, full, batch):
+    """The largest power of two at most ``batch`` whose train step on the
+    first sequences of ``full`` peaks under STEPS_PEAK_GIB (halving on a
+    larger peak or an out-of-memory error).  Returns (batch, peak GiB)."""
+    while batch >= 1:
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            out = bundle.step(state, bundle.to_tensors({"tokens": full["tokens"][:batch]}))
+            out[1]["loss"].item()
+            del out
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        except torch.cuda.OutOfMemoryError:
+            peak = None
+        if peak is not None and peak <= STEPS_PEAK_GIB:
+            return batch, peak
+        print(f"[chip_smoke] steps (a): batch {batch} peaks at "
+              f"{'out of memory' if peak is None else f'{peak:.2f} GiB'}, over {STEPS_PEAK_GIB} GiB: halved")
+        batch //= 2
+    raise SmokeFailure("steps (a): no batch fits")
+
+
+def steps_train_full(torch, device="cuda", arch="olmo-1b", start=None):
+    """(a) ``build_step(arch, "train_4k")`` at the FULL config on the card:
+    the batch cut from the shape's 256 sequences (or ``start``) by slicing
+    what ``make_batch`` returns, STEPS_TRAIN_STEPS steps (host clock ending
+    in a read of the loss; the last under the profiler), the peak, the
+    6·N·D bound from ``model_flops_for``."""
+    import numpy as np
+
+    from repro_torch.launch.steps import build_step
+    from repro_torch.roofline.analysis import HW, model_flops_for
+    from repro_torch.tree import tree_leaves
+
+    cuda = device != "cpu"
+    bundle = build_step(arch, "train_4k", device=device)
+    cfg = bundle.config
+    t0 = time.perf_counter()
+    state = bundle.init_state(torch.Generator(device=device).manual_seed(28))
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(state["params"]))
+    t0 = time.perf_counter()
+    full = bundle.make_batch(np.random.default_rng(28))
+    data_s = time.perf_counter() - t0
+    full_batch, seq1 = full["tokens"].shape
+    if start is None:
+        # A lower bound by shapes rules out the batches that cannot fit: each
+        # sequence's float32 logits, their softmax and their gradient (3 x S x
+        # V x 4 bytes) live at once in the loss's backward.
+        per_seq = 3 * (seq1 - 1) * cfg.vocab * 4
+        start = full_batch
+        while start > 1 and start * per_seq > STEPS_PEAK_GIB * 2**30:
+            start //= 2
+    batch, fit_peak = steps_fit_batch(torch, bundle, state, full, start) if cuda else (start, None)
+    batch_in = bundle.to_tensors({"tokens": full["tokens"][:batch]})
+    if cuda:
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, busy, by = [], [], None, {}
+    for i in range(STEPS_TRAIN_STEPS):
+        t1 = time.perf_counter()
+        if cuda and i == STEPS_TRAIN_STEPS - 1:
+            (state, metrics), busy, by = profile_breakdown(torch, lambda: bundle.step(state, batch_in))
+        else:
+            state, metrics = bundle.step(state, batch_in)
+        losses.append(metrics["loss"].item())
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    check(all(np.isfinite(losses)), f"steps (a): non-finite losses {losses}")
+    flops = model_flops_for(bundle) * batch / full_batch  # 6·N·D of the cut batch
+    bound_ms = flops / HW["peak_flops_bf16"] * 1e3
+    timed = step_ms[1:-1] or step_ms[-1:]
+    smi = nvidia_smi() if cuda else "cpu"
+    print(f"[chip_smoke] steps (a) {arch} train_4k through build_step ({smi}): the registry's FULL config "
+          f"({cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab:,}, {n_params:,} parameters in "
+          f"{str(cfg.param_dtype)[6:]}, {str(cfg.compute_dtype)[6:]} compute, remat {cfg.remat}, attention chunks of "
+          f"{cfg.attn_q_chunk} queries, AdamW moments in {str(bundle.state_specs()['opt'].m['embed'].dtype)[6:]}); "
+          f"init {init_s:.1f} s on the card, make_batch {data_s:.1f} s on the host; batch cut from {full_batch} "
+          f"sequences of {seq1 - 1} tokens to {batch} (tried from {start}, the largest power of two whose float32 "
+          f"logits, softmax and gradient alone stay under the limit; step peak {_gib(fit_peak)}, limit "
+          f"{STEPS_PEAK_GIB} GiB); "
+          f"{STEPS_TRAIN_STEPS} steps: losses {[round(x, 4) for x in losses]}, step {median(timed):.1f} ms "
+          f"(steps {', '.join(f'{x:.1f}' for x in step_ms)} ms; forward, backward, AdamW; host clock ending in a read "
+          f"of the loss), peak {_gib(peak)}; the last step profiled: device busy {_fmt(busy)}, top kernels (ms) "
+          f"{top_kernels(by)}; 6·N·D bound {bound_ms:.1f} ms ({flops:.4g} model FLOPs at the bf16 peak of "
+          f"{HW['peak_flops_bf16'] / 1e12:.0f} TFLOP/s)")
+    del state, batch_in, full
+    return {"batch": batch, "step_ms": median(timed), "busy_ms": busy, "peak_gib": peak, "bound_ms": bound_ms}
+
+
+def steps_smoke_check(torch, device="cuda", arch="olmo-1b"):
+    """(a) The same bundle at SMOKE size: one step on ``device`` and on the
+    CPU from the same parameters and batch, within STEPS_SMOKE_RTOL."""
+    import numpy as np
+
+    from repro_torch.launch.steps import build_step
+    from repro_torch.tree import tree_leaves
+
+    card, cpu = (build_step(arch, "train_4k", smoke=True, device=d) for d in (device, "cpu"))
+    state = cpu.init_state(torch.Generator().manual_seed(5))
+    batch = cpu.make_batch(np.random.default_rng(5))
+    card_state = to_device(torch, state, device)
+    got = grads_of(torch, lambda p: card.loss_fn(p, card.to_tensors(batch))[0], card_state["params"])
+    want = grads_of(torch, lambda p: cpu.loss_fn(p, cpu.to_tensors(batch))[0], state["params"])
+    new_card, _ = card.step(card_state, card.to_tensors(batch))
+    new_cpu, _ = cpu.step(state, cpu.to_tensors(batch))
+    errs = {"loss": abs(got[0] - want[0]) / abs(want[0]), "grads": rel_err(torch, got[1], want[1]),
+            "params": rel_err(torch, [p.float().cpu() for p in tree_leaves(new_card["params"])],
+                              [p.float() for p in tree_leaves(new_cpu["params"])])}
+    check(np.isfinite(got[0]) and all(errs[k] <= STEPS_SMOKE_RTOL[k] for k in errs),
+          f"steps (a) SMOKE {arch}: card against CPU {errs}, limits {STEPS_SMOKE_RTOL}")
+    print(f"[chip_smoke] steps (a) {arch} train_4k SMOKE bundle, one step on the card against the CPU (float32, "
+          f"TF32 off): loss {got[0]:.6f} vs {want[0]:.6f} (rel {errs['loss']:.3g}), gradients rel {errs['grads']:.3g}, "
+          f"parameters after AdamW rel {errs['params']:.3g}; limits {STEPS_SMOKE_RTOL}")
+    return errs
+
+
+def pipeline_rank(rank, world, tmp, device, sizes):
+    """(c) One rank of the pipeline on a (world,) ``pipe`` mesh: the stages
+    and the input from one numpy seed on every rank; returns the largest
+    error against the sequential composition on this rank, the pipeline's
+    wall ms (after one warm-up run) and its all-reduces."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.distributed.pipeline import microbatch, pipeline_apply
+
+    rank_device(torch, device)
+    mesh = Mesh((world,), ("pipe",))
+    s, m, mb, d = sizes["stages"], sizes["micro"], sizes["mb"], sizes["d"]
+    rng = np.random.default_rng(28)
+    ws = torch.from_numpy((rng.normal(size=(s, d, d)) / np.sqrt(d)).astype(np.float32)).to(device)
+    bs = torch.from_numpy((rng.normal(size=(s, d)) * 0.1).astype(np.float32)).to(device)
+    x = torch.from_numpy(rng.normal(size=(m * mb, d)).astype(np.float32)).to(device)
+
+    def stage(p, h):
+        return torch.tanh(h @ p[0] + p[1])
+
+    want = x
+    for i in range(s):
+        want = stage((ws[i], bs[i]), want)
+    pipeline_apply(stage, (ws, bs), microbatch(x, m), mesh)  # warm-up
+    mesh.collectives.clear()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pipeline_apply(stage, (ws, bs), microbatch(x, m), mesh)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    err = float((got.reshape(m * mb, d) - want).abs().max())
+    return {"err": err, "ms": ms, "reduces": len(mesh.collectives),
+            "reduce_bytes": sum(r["bytes"] for r in mesh.collectives)}
+
+
+def steps_pipeline(torch, device="cuda", sizes=PIPE):
+    """(c) ``pipeline_apply`` on four gloo ranks sharing the card against the
+    sequential composition."""
+    from repro_torch.distributed.pipeline import pipeline_bubble_fraction
+
+    t0 = time.time()
+    res = spawn_ranks(pipeline_rank, sizes["stages"], device, args=(sizes,))
+    err = max(r["err"] for r in res)
+    ticks = sizes["micro"] + sizes["stages"] - 1
+    check(err <= PIPE_ATOL and all(r["reduces"] == ticks + 1 for r in res),
+          f"steps (c): pipeline error {err} (limit {PIPE_ATOL}), all-reduces {[r['reduces'] for r in res]}")
+    print(f"[chip_smoke] steps (c) pipeline_apply, {sizes['stages']} gloo ranks on the card, a (4,) pipe mesh, "
+          f"{sizes['micro']} microbatches of {sizes['mb']} x {sizes['d']}, stages tanh(x @ W + b): largest error "
+          f"against the sequential composition {err:.3g} (limit {PIPE_ATOL}); {ticks} ticks, "
+          f"{res[0]['reduces']} all-reduces a rank ({res[0]['reduce_bytes'] / 2**20:.1f} MiB); wall "
+          f"{max(r['ms'] for r in res):.1f} ms (slowest rank, after a warm-up run); bubble "
+          f"{pipeline_bubble_fraction(sizes['stages'], sizes['micro']):.3f}; {time.time() - t0:.1f} s with the spawn")
+    return err
+
+
+def steps_dryrun_start(out: Path):
+    """(d) ``python -m repro_torch.launch.dryrun --all --both-meshes`` into
+    ``out``, started in a process of its own: it counts on ``meta`` tensors
+    on the host (no card), beside the card's work of (a) and (c)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--both-meshes", "--out",
+                             str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def steps_dryrun_finish(proc, out: Path, t0: float):
+    """(d) Wait for the dry run; every live cell ``ok``, no record with a
+    collective term."""
+    from repro_torch.configs import all_cells
+
+    log, _ = proc.communicate(timeout=600)
+    records = [json.loads(p.read_text()) for p in sorted(out.glob("*.json"))]
+    ok = [r for r in records if r["status"] == "ok"]
+    skipped = [r for r in records if r["status"] == "skipped"]
+    check(proc.returncode == 0 and len(ok) == 2 * len(all_cells()),
+          f"steps (d): the dry run exited {proc.returncode} with {len(ok)} cells ok: {log[-2000:]}")
+    check(all(r["collectives"] is None and r["roofline"]["collective_s"] is None for r in ok),
+          "steps (d): a record reads a collective term")
+    big = max(ok, key=lambda r: r["modeled_memory"]["modeled_total_per_device"])
+    over = [f"{r['arch']}/{r['shape']}/{r['mesh']}" for r in ok if not r["modeled_memory"]["fits_hbm"]]
+    print(f"[chip_smoke] steps (d) python -m repro_torch.launch.dryrun --all --both-meshes (meta tensors, in a "
+          f"process of its own beside (a) and (c)): {len(ok)} cells ok, {len(skipped)} skipped, 0 failed, done "
+          f"{time.time() - t0:.1f} s after its start; largest modeled per-device memory {big['arch']}/{big['shape']}/"
+          f"{big['mesh']} {big['modeled_memory']['modeled_total_per_device'] / 1e9:.2f} GB; over one H100's 80 GB: "
+          f"{', '.join(over) or 'none'}")
+    return len(ok)
+
+
+def phase_steps(torch, counted, device="cuda"):
+    """The step builder, the pipeline and the bundle dry run (A12c, A12d):
+    (a) a full-width training step through ``build_step`` and its SMOKE
+    check against the CPU, (c) the pipeline on four gloo ranks, (d) the dry
+    run, in a process of its own from the start.  (b), the models phase on
+    bundles, runs before.  No kernel of the port is on these paths: every
+    launch count stays 0."""
+    import shutil
+    import tempfile
+
+    t0 = time.time()
+    cuda = device != "cpu"
+    out = Path(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"))
+    dry = steps_dryrun_start(out)
+    try:
+        for f in counted.values():
+            f.launches = 0
+        if cuda:  # the fit frees and allocates multi-GiB tensors in turn: let segments grow instead
+            release(torch)
+            torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+        try:
+            steps_train_full(torch, device)
+        finally:
+            if cuda:
+                release(torch)
+                torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+        steps_smoke_check(torch, device)
+        launched = {name: f.launches for name, f in counted.items() if f.launches}
+        check(not launched, f"steps (a): the step builder's path launched the port's kernels {launched}")
+        steps_pipeline(torch, device)
+        steps_dryrun_finish(dry, out, t0)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        shutil.rmtree(out, ignore_errors=True)
+    print(f"[chip_smoke] steps: {time.time() - t0:.1f} s in all")
 
 
 # Exponents of the cost pass on the card and on the CPU agree within this.
@@ -4690,6 +4858,8 @@ def phase_analysis(torch, device="cuda", base=None, config=None, dryrun=None):
     fixtures = (dataclasses.replace(contracts.FIXTURE, device=device), base)
     for fx in fixtures:
         for ep in hot:
+            if fx is base and ep.name.startswith("steps."):
+                continue  # the step builder's entries build at their SMOKE size whatever the fixture
             group = contracts.one_rank_group(device) if ep.name.startswith("distributed.") else contextlib.nullcontext()
             with group:
                 entry = ep.build(fx)
@@ -4705,7 +4875,9 @@ def phase_analysis(torch, device="cuda", base=None, config=None, dryrun=None):
                 del entry
             if fx is base:
                 release(torch)
-    print(f"[chip_smoke] analysis (a): {len(hot)} hot entry points at d=2 w=64 and at d={base.depth} w={base.width} under "
+    n_steps = sum(ep.name.startswith("steps.") for ep in hot)
+    print(f"[chip_smoke] analysis (a): {len(hot)} hot entry points at d=2 w=64 and at d={base.depth} w={base.width} (the "
+          f"{n_steps} step-builder entries once, at their SMOKE size) under "
           f"sync debug mode 'error': no synchronizing operation; exempt (baselined no-host-sync): "
           f"{', '.join(exempt) or 'none'} ({time.time() - t0:.1f} s)")
 
@@ -5008,6 +5180,11 @@ def main() -> int:
     # negatives from the gLava popularity sketch (B1 once a batch) and
     # served, then GAT, SchNet and DimeNet.
     phase_models(torch, counted)
+    release(torch)
+
+    # The step builder at olmo-1b's full widths, the pipeline on four gloo
+    # ranks and the bundle dry run.
+    phase_steps(torch, counted)
     release(torch)
 
     # The analysis and cost planes on the kernels.

@@ -492,6 +492,39 @@ def _fleet_query_entry(family: str) -> Callable[[Fixture], TracedEntry]:
     return build
 
 
+# The step builder's cells, at SMOKE size (launch/steps.py): a serving
+# step answers one request; a train step is the body of launch/train.py's
+# loop.  (family entry name, arch, shape)
+STEP_CELLS = (
+    ("lm.train", "olmo-1b", "train_4k"),
+    ("lm.train_moe", "mixtral-8x22b", "train_4k"),
+    ("lm.prefill", "qwen3-4b", "prefill_32k"),
+    ("lm.decode", "qwen3-4b", "decode_32k"),
+    ("gnn.train", "gat-cora", "full_graph_sm"),
+    ("gnn.train_molecule", "dimenet", "molecule"),
+    ("recsys.train", "bert4rec", "train_batch"),
+    ("recsys.serve", "bert4rec", "serve_p99"),
+    ("recsys.retrieval", "bert4rec", "retrieval_cand"),
+)
+
+
+def _step_entry(arch: str, shape: str) -> Callable[[Fixture], TracedEntry]:
+    """One ``build_step`` bundle's step at its SMOKE size on the fixture's
+    device (the sketch fixture's sizes do not apply)."""
+
+    def build(fx: Fixture) -> TracedEntry:
+        import torch
+
+        from repro_torch.launch.steps import build_step
+
+        bundle = build_step(arch, shape, smoke=True, device=fx.device)
+        state = bundle.init_state(torch.Generator().manual_seed(0))
+        batch = bundle.to_tensors(bundle.make_batch(np.random.default_rng(0)))
+        return TracedEntry(bundle.step, (state, batch))
+
+    return build
+
+
 ENTRY_POINTS: Tuple[EntryPoint, ...] = (
     # -- every IngestEngine backend dispatch (the reference's onehot is not ported)
     EntryPoint("ingest.scatter", HOT, _ingest_entry("scatter")),
@@ -550,6 +583,8 @@ ENTRY_POINTS: Tuple[EntryPoint, ...] = (
     EntryPoint("fleet.query.reach_pre", REGISTER_SERVED, _fleet_query_entry("reach_pre")),
     EntryPoint("fleet.query.closure", HOT, _fleet_query_entry("closure")),
     EntryPoint("fleet.query.closure_refresh", HOT, _fleet_query_entry("closure_refresh")),
+    # -- the step builder (launch/steps.py) --------------------------------
+    *(EntryPoint(f"steps.{name}", HOT, _step_entry(arch, shape)) for name, arch, shape in STEP_CELLS),
 )
 
 

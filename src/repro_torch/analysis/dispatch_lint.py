@@ -76,7 +76,7 @@ INDEXING_OPS = frozenset({
     "index", "_unsafe_index", "index_put", "index_put_", "_index_put_impl_", "index_add", "index_add_",
     "index_select", "gather", "scatter", "scatter_", "scatter_add", "scatter_add_", "scatter_reduce",
     "scatter_reduce_", "take", "embedding", "index_fill", "index_fill_", "index_copy", "index_copy_",
-    "take_along_dim", "searchsorted",
+    "take_along_dim", "searchsorted", "embedding_dense_backward",
 })
 INDEX_PRODUCING_OPS = frozenset({
     "sort", "argsort", "topk", "argmax", "argmin", "max", "min", "kthvalue", "median", "mode", "searchsorted",
@@ -119,6 +119,13 @@ def _tensors(tree) -> List[torch.Tensor]:
         elif isinstance(x, dict):
             stack.extend(reversed(list(x.values())))
     return out
+
+
+def _storage_key(t: torch.Tensor):
+    """What tells one tensor's storage from another's: its address, or on
+    the ``meta`` device (every address 0) the storage object itself."""
+    storage = t.untyped_storage()
+    return storage._cdata if t.device.type == "meta" else storage.data_ptr()
 
 
 class _OpMode(TorchDispatchMode):
@@ -174,14 +181,14 @@ class OpSink:
     def on_op(self, func, args, kwargs, out) -> None:
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
-        in_keys = {t.untyped_storage().data_ptr() for t in ins}
+        in_keys = {_storage_key(t) for t in ins}
         fresh = []
         for t in outs:
             storage = t.untyped_storage()
-            if storage.data_ptr() not in in_keys and storage.nbytes():
+            if _storage_key(t) not in in_keys and storage.nbytes():
                 fresh.append(storage.nbytes())
                 self.on_alloc(t, storage.nbytes())
-        aliased = bool(outs) and all(t.untyped_storage().data_ptr() in in_keys for t in outs)
+        aliased = bool(outs) and all(_storage_key(t) in in_keys for t in outs)
         packet = func.overloadpacket
         name = getattr(packet, "__name__", str(packet))
         namespace = func.namespace

@@ -1,5 +1,6 @@
 """Meshes of ``torch.distributed`` ranks: the counterpart of
-``jax.make_mesh`` and of ``src/repro/launch/mesh.py:31`` ``make_host_mesh``.
+``jax.make_mesh`` and of ``src/repro/launch/mesh.py:31`` ``make_host_mesh``;
+and :class:`AbstractMesh`, axis names and sizes with no ranks behind them.
 
 A :class:`Mesh` lays the ``world_size`` ranks of the default process group
 out over named axes, row-major, as ``jax.make_mesh`` lays out devices: rank
@@ -173,6 +174,32 @@ class Mesh:
         values = list(values)
         both = self._to_host(values + [-v for v in values], dist.ReduceOp.MAX)
         return both[: len(values)] == [-v for v in both[len(values):]]
+
+
+class AbstractMesh:
+    """Named axes and their sizes, with no process group: the counterpart of
+    ``jax.sharding.AbstractMesh``.  It places nothing and runs no
+    collective; the sharding rules resolve onto it and a
+    :class:`~repro_torch.distributed.sharding.Placement` on it gives each
+    device's block shape, for meshes larger than the host (the production
+    layouts of ``launch/mesh.py``)."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        shape = tuple(int(s) for s in shape)
+        axis_names = tuple(axis_names)
+        if len(shape) != len(axis_names) or len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"mesh shape {shape} and axis names {axis_names} do not match")
+        self.shape: Dict[str, int] = dict(zip(axis_names, shape))
+        self.axis_names = axis_names
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+
+def n_devices(mesh) -> int:
+    """The devices of any mesh (a :class:`Mesh`, an :class:`AbstractMesh` or
+    anything with a ``.shape`` dict of axis sizes)."""
+    return math.prod(mesh.shape.values())
 
 
 def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:

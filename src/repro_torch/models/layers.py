@@ -34,6 +34,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import Placement, check_placement
+
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -344,9 +346,12 @@ class MoEArgs:
     ``mesh`` (a port :class:`~repro_torch.distributed.mesh.Mesh`) makes the
     transformer call :func:`moe_ffn_sharded` on each rank's shards.
 
-    The reference's ``dispatch_pspec`` (a GSPMD sharding constraint on the
-    (E, C, D) buffers) has no meaning in an eager program and is left out;
-    the sharding rules that set it are ROADMAP A12c."""
+    ``dispatch_pspec`` is the reference's GSPMD constraint on the (E, C, D)
+    dispatch and combine buffers, a
+    :class:`~repro_torch.distributed.sharding.Placement` or ``None``: their
+    layout on the mesh (``launch/steps.py`` sets it).  A sharding
+    constraint changes no value, so the eager program reads it nowhere; any
+    other value raises ``TypeError``."""
 
     n_experts: int
     top_k: int
@@ -354,8 +359,12 @@ class MoEArgs:
     dense_residual: bool = False  # Arctic: a dense FFN beside the experts
     aux_loss_coef: float = 0.01
     partition: str = "expert"
+    dispatch_pspec: Optional[Placement] = None
     shard_dispatch: bool = False
     mesh: Optional[Any] = None
+
+    def __post_init__(self):
+        check_placement(self.dispatch_pspec, "MoEArgs.dispatch_pspec")
 
 
 def moe_capacity(n_tokens: int, args: MoEArgs) -> int:

@@ -104,8 +104,8 @@ def init_params(cfg: Bert4RecConfig, generator: torch.Generator, device: Optiona
 
 def param_specs(cfg: Bert4RecConfig) -> Dict:
     """Logical-axis names of each parameter's dimensions, on the parameter
-    tree (the reference's tuples; the rules that resolve them onto a mesh
-    are ROADMAP A12c)."""
+    tree (the reference's tuples; ``distributed/sharding.py::resolve_tree``
+    resolves them onto a mesh)."""
     return {
         "item_embed": ("vocab", None),
         "pos_embed": (None, None),

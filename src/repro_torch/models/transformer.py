@@ -34,9 +34,13 @@ logits; with ``shard_dispatch`` the ``moe_gate``/``moe_up``/``moe_down``
 leaves hold this rank's shards (``layers.moe_weight_shards``).  The serving
 entry points take a whole sequence on one rank.
 
-Not ported: ``act_pspec`` (a GSPMD sharding constraint on the layer carry;
-ROADMAP A12c) raises ``NotImplementedError``.  The reference's
-``scan_layers`` has no counterpart: an eager loop has no scan.
+``act_pspec`` is the reference's GSPMD constraint on the layer carry, a
+:class:`~repro_torch.distributed.sharding.Placement` or ``None``: the
+carry's layout on the mesh, which the dry run reads for the per-device
+remat carry (``launch/dryrun.py``).  A sharding constraint changes no
+value, so the forward reads it nowhere; any other value raises
+``TypeError``.  The reference's ``scan_layers`` has no counterpart: an
+eager loop has no scan.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import Placement, check_placement
 from repro_torch.models.layers import (
     MoEArgs,
     _all_gather,
@@ -85,16 +90,12 @@ class TransformerConfig:
     compute_dtype: torch.dtype = torch.bfloat16
     attn_q_chunk: Optional[int] = None   # query-chunked attention block size
     remat: bool = False                  # rematerialize each layer body
-    act_pspec: Optional[Any] = None      # not ported (ROADMAP A12c)
+    act_pspec: Optional[Placement] = None  # the layer carry's layout on the mesh
     attn_window_slicing: bool = False    # SWA chunks slice their K/V window
     attn_halo_mesh: Optional[Any] = None  # a port Mesh: halo-exchange SWA
 
     def __post_init__(self):
-        if self.act_pspec is not None:
-            raise NotImplementedError(
-                "TransformerConfig.act_pspec (a sharding constraint on the layer carry) is not ported yet "
-                "(ROADMAP A12c)"
-            )
+        check_placement(self.act_pspec, "TransformerConfig.act_pspec")
 
     @property
     def head_dim(self) -> int:
@@ -192,8 +193,8 @@ def init_params(
 
 def param_specs(cfg: TransformerConfig) -> Dict:
     """Logical-axis names of each parameter's dimensions, on the parameter
-    tree (the reference's tuples; the rules that resolve them onto a mesh
-    are ROADMAP A12c)."""
+    tree (the reference's tuples; ``distributed/sharding.py::resolve_tree``
+    resolves them onto a mesh)."""
     layers: Dict[str, tuple] = {
         "wq": (None, "embed", "heads"),
         "wk": (None, "embed", "kv_heads"),
@@ -313,18 +314,19 @@ def _block(cfg: TransformerConfig, x, lp, positions):
     return x + y, k, v, aux
 
 
-def _layer(cfg: TransformerConfig, x, layers, i, positions):
-    """Layer ``i`` of the stacked ``layers``, its parameters cast to the
-    compute dtype: returns (x, aux)."""
-    x, _, _, aux = _block(cfg, x, _layer_params(cfg, layers, i), positions)
+def _layer(cfg: TransformerConfig, x, lp, positions):
+    """One layer on its parameters ``lp``, cast to the compute dtype:
+    returns (x, aux)."""
+    x, _, _, aux = _block(cfg, x, {name: w.to(cfg.compute_dtype) for name, w in lp.items()}, positions)
     return x, aux
 
 
 def _positions(cfg: TransformerConfig, b: int, s: int, device) -> torch.Tensor:
-    """Absolute positions of a (B, S) block: this rank's shard of the
-    sequence on ``attn_halo_mesh``."""
+    """Absolute int32 positions of a (B, S) block (the reference's
+    ``jnp.arange``): this rank's shard of the sequence on
+    ``attn_halo_mesh``."""
     rank, _ = _model_shard(cfg)
-    return (rank * s + torch.arange(s, device=device))[None, :].expand(b, s)
+    return (rank * s + torch.arange(s, dtype=torch.int32, device=device))[None, :].expand(b, s)
 
 
 def _logits(cfg: TransformerConfig, params: Dict, x):
@@ -346,11 +348,15 @@ def forward(cfg: TransformerConfig, params: Dict, tokens: torch.Tensor) -> Tuple
     positions = _positions(cfg, b, s, tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    # One unbind a stacked leaf: its backward stacks the L layer gradients
+    # once, where L indexings would each add a zero-filled (L, ...) gradient.
+    layers = {name: torch.unbind(w) for name, w in params["layers"].items()}
     for i in range(cfg.n_layers):
+        lp = {name: ws[i] for name, ws in layers.items()}
         if remat:
-            x, a = checkpoint(_layer, cfg, x, params["layers"], i, positions, use_reentrant=False)
+            x, a = checkpoint(_layer, cfg, x, lp, positions, use_reentrant=False)
         else:
-            x, a = _layer(cfg, x, params["layers"], i, positions)
+            x, a = _layer(cfg, x, lp, positions)
         aux = aux + a
     return _logits(cfg, params, x), aux
 

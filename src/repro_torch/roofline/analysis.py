@@ -16,10 +16,11 @@ on the card (:func:`memory_dict`), and the collectives from the record each
 ``distributed/mesh.py::Mesh`` keeps of its all-reduces
 (:func:`parse_collectives`).
 
-:func:`model_flops_for` keeps the sketch plane's formulas
-(``src/repro/launch/sketch_dryrun.py:68, :96``); the model bundles'
-(``src/repro/roofline/analysis.py:265-352``) wait for the architecture
-configs and step builders of ROADMAP A12c–A12d.
+:func:`model_flops_for` holds the model bundles' formulas
+(``src/repro/roofline/analysis.py:265-352``: 6·N·D and 2·N·D for the LMs,
+BERT4Rec's encoder and head, the GNNs' dense contractions), arithmetic on a
+``launch/steps.py`` bundle's batch shapes, and the sketch plane's
+(``src/repro/launch/sketch_dryrun.py:68, :96``).
 """
 from __future__ import annotations
 
@@ -97,27 +98,27 @@ def parse_collectives(records: Iterable[Dict]) -> Dict[str, Dict[str, float]]:
 class Roofline:
     compute_s: float
     memory_s: float
-    collective_s: float
+    collective_s: Optional[float]  # None: the collectives are not modelled
     flops_per_chip: float
     bytes_per_chip: float
-    collective_bytes_per_chip: float
+    collective_bytes_per_chip: Optional[float]
     model_flops: float
     n_chips: int
     useful_ratio: Optional[float]  # MODEL_FLOPS / (counted work × ranks)
 
+    def _terms(self) -> Dict[str, float]:
+        terms = {"compute": self.compute_s, "memory": self.memory_s, "collective": self.collective_s}
+        return {k: v for k, v in terms.items() if v is not None}
+
     @property
     def dominant(self) -> str:
-        terms = {
-            "compute": self.compute_s,
-            "memory": self.memory_s,
-            "collective": self.collective_s,
-        }
+        terms = self._terms()
         return max(terms, key=terms.get)
 
     @property
     def step_time_lb(self) -> float:
         """Roofline lower bound on the call's time (no overlap assumption: max)."""
-        return max(self.compute_s, self.memory_s, self.collective_s)
+        return max(self._terms().values())
 
     @property
     def roofline_fraction(self) -> float:
@@ -138,18 +139,21 @@ class Roofline:
 
 def roofline_from_cost(
     cost: Dict[str, float],
-    collectives: Dict[str, Dict[str, float]],
+    collectives: Optional[Dict[str, Dict[str, float]]],
     n_chips: int,
     model_flops: float,
 ) -> Roofline:
+    """The three terms of one call; ``collectives=None`` (not modelled, as
+    in the model dry run) leaves the collective term out, where an empty
+    dict reads as 0 s."""
     flops = float(cost.get("flops", 0.0))
     nbytes = float(cost.get("bytes accessed", 0.0))
-    coll_bytes = sum(v["bytes"] for v in collectives.values())
+    coll_bytes = None if collectives is None else sum(v["bytes"] for v in collectives.values())
     total_flops = flops * n_chips
     return Roofline(
         compute_s=flops / HW["peak_flops_bf16"],
         memory_s=nbytes / HW["hbm_bw"],
-        collective_s=coll_bytes / HW["nvlink_bw"],
+        collective_s=None if coll_bytes is None else coll_bytes / HW["nvlink_bw"],
         flops_per_chip=flops,
         bytes_per_chip=nbytes,
         collective_bytes_per_chip=coll_bytes,
@@ -161,18 +165,104 @@ def roofline_from_cost(
 
 def model_flops_for(bundle=None, *, config=None, batch: Optional[int] = None,
                     queries: Optional[int] = None) -> float:
-    """MODEL_FLOPS of the sketch plane (``src/repro/launch/sketch_dryrun.py``):
-    an ingest batch of B edges counts the one-hot formulation
-    ``2·d·B·(w_r + w_c)``, Q edge queries ``2·d·Q``.  A model ``bundle``
-    (the reference's 6·N·D and the GNN and recsys formulas) raises: its
-    configs and step builders are ROADMAP A12c, the bundle dry run A12d."""
+    """MODEL_FLOPS of a model ``bundle`` (``launch/steps.py``): 6·N·D for
+    training (N = active parameters, D = tokens), 2·N·D for forward-only
+    serving; BERT4Rec's encoder and head; the GNNs' dense contractions.  Of
+    the sketch plane (``src/repro/launch/sketch_dryrun.py``), given its
+    ``config``: an ingest batch of B edges counts the one-hot formulation
+    ``2·d·B·(w_r + w_c)``, Q edge queries ``2·d·Q``."""
     if bundle is not None:
-        raise NotImplementedError(
-            "model_flops_for(bundle) needs the architecture configs and step builders, "
-            "not ported yet (ROADMAP A12d)"
-        )
+        return _bundle_model_flops(bundle)
     if config is None or (batch is None) == (queries is None):
-        raise ValueError("give a sketch config and one of batch= or queries=")
+        raise ValueError("give a bundle, or a sketch config and one of batch= or queries=")
     if batch is not None:
         return 2.0 * config.depth * batch * (config.width_rows + config.width_cols)
     return 2.0 * config.depth * queries
+
+
+def _bundle_model_flops(bundle) -> float:
+    cfg = bundle.config
+    kind = bundle.kind
+    specs = bundle.batch_specs
+
+    def n_tokens_lm():
+        if kind == "train":
+            b, s1 = specs["tokens"].shape
+            return b * (s1 - 1)
+        if kind == "prefill":
+            b, s = specs["tokens"].shape
+            return b * s
+        return specs["token"].shape[0]  # decode: 1 token per sequence
+
+    if hasattr(cfg, "active_param_count"):
+        n = cfg.active_param_count()
+        d = n_tokens_lm()
+        return (6.0 if kind == "train" else 2.0) * n * d
+    if hasattr(cfg, "param_count"):  # bert4rec
+        # embedding rows are GATHERED, not multiplied: count the transformer
+        # math and the scoring matmul explicitly.
+        b, s = specs["items"].shape
+        d_model = cfg.embed_dim
+        per_tok = cfg.n_blocks * (8 * d_model**2 + 16 * d_model**2 + 4 * s * d_model)
+        enc = b * s * per_tok
+        if kind == "recsys_train":
+            m = specs["mask_positions"].shape[1]
+            k = specs["negatives"].shape[0]
+            head = 2.0 * b * m * (k + 1) * d_model
+            return 3.0 * (enc + head)
+        if kind == "recsys_retrieval":
+            c = specs["candidates"].shape[1]
+            return enc + 2.0 * b * c * d_model
+        return enc + 2.0 * b * cfg.vocab * d_model  # score all items
+    return _gnn_model_flops(bundle)
+
+
+def _gnn_model_flops(bundle) -> float:
+    """Analytic matmul FLOPs of the GNN forward (×3 for train: bwd ≈ 2×fwd).
+    Counts dense contractions only (gather/scatter are bytes, not FLOPs)."""
+    cfg = bundle.config
+    g = bundle.batch_specs["graph"]
+    n = g["node_feat"].shape[0]
+    e = g["edge_src"].shape[0]
+    name = type(cfg).__name__
+    if name == "SAGEConfig":
+        f = 0.0
+        d_prev = cfg.d_in
+        for _ in range(cfg.n_layers):
+            f += 2.0 * n * d_prev * cfg.d_hidden * 2  # self + neigh
+            f += e * d_prev                            # mean aggregation adds
+            d_prev = cfg.d_hidden
+        f += 2.0 * n * cfg.d_hidden * cfg.out_dim
+    elif name == "GATConfig":
+        f = 0.0
+        d_prev = cfg.d_in
+        for i in range(cfg.n_layers):
+            d_out = cfg.out_dim if i == cfg.n_layers - 1 else cfg.d_hidden
+            f += 2.0 * n * d_prev * cfg.n_heads * d_out
+            f += 6.0 * e * cfg.n_heads * d_out  # scores + weighted messages
+            d_prev = cfg.n_heads * d_out
+    elif name == "SchNetConfig":
+        d = cfg.d_hidden
+        f = 0.0
+        for _ in range(cfg.n_interactions):
+            f += 2.0 * e * (cfg.n_rbf * d + d * d)  # filter MLP
+            f += 2.0 * n * d * d                     # w_in
+            f += 2.0 * e * d                         # message mult + scatter
+            f += 2.0 * n * (d * d + d * d)           # out MLP
+        f += 2.0 * n * (d * d // 2 + (d // 2) * cfg.out_dim)
+    elif name == "DimeNetConfig":
+        fdim = cfg.d_hidden
+        s = cfg.n_spherical * cfg.n_radial
+        t = g["triplets"]["in"].shape[0] if "triplets" in g else 0
+        f = 2.0 * e * (3 * fdim * fdim + fdim * fdim + cfg.n_radial * fdim)
+        for _ in range(cfg.n_blocks):
+            f += 2.0 * e * fdim * fdim                     # w_msg
+            f += 2.0 * e * fdim * cfg.n_bilinear           # w_down (gathered)
+            f += 2.0 * t * s * cfg.n_bilinear              # bilinear (sbf)
+            f += 2.0 * t * cfg.n_bilinear * fdim           # bilinear (out)
+            f += 2.0 * e * 2 * fdim * fdim                 # update MLP
+            f += 2.0 * e * cfg.n_radial * fdim             # rbf gates
+            f += 2.0 * n * (fdim * fdim + fdim * cfg.out_dim)
+    else:
+        raise ValueError(name)
+    return (3.0 if bundle.is_train else 1.0) * f

@@ -44,7 +44,9 @@ class AdamWState(NamedTuple):
 
 
 def _f32(x, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    """A float32 scalar on ``device``, written by a fill (a ``torch.tensor``
+    of a host float would copy it from pageable memory and wait)."""
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

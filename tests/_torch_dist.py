@@ -702,3 +702,26 @@ def card_durable(rank, world, out, mesh_shape, crash_at):
     same["state"] = all(np.array_equal(a, b) for a, b in zip(card["state"], host["state"]))
     same["log"] = card_log == host_log and bool(card_log)
     return {"same": same, "launches": launches, "replayed": card["report"][1]}
+
+
+# -- the pipeline (distributed/pipeline.py) ---------------------------------------
+
+
+def pipeline(rank, world, out, inputs, cases):
+    """For each (mesh shape, axis names, microbatches) of ``cases``: the
+    pipeline over the ``"pipe"`` axis of ``inputs``' stage-major weights on
+    its microbatched input (the same on every rank).  Returns each case's
+    output and the all-reduces its mesh recorded."""
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.distributed.pipeline import microbatch, pipeline_apply
+
+    data = dict(np.load(inputs))
+    res = {}
+    for shape, names, n_micro in cases:
+        mesh = Mesh(shape, names)
+        s = mesh.size("pipe")
+        ws, bs = torch.from_numpy(data[f"w{s}"]), torch.from_numpy(data[f"b{s}"])
+        xm = microbatch(torch.from_numpy(data["x"]), n_micro)
+        y = pipeline_apply(lambda p, h: torch.tanh(h @ p[0] + p[1]), (ws, bs), xm, mesh)
+        res[f"{shape}/{n_micro}"] = (_np(y), len(mesh.collectives))
+    return res

@@ -23,6 +23,7 @@ from repro_torch.analysis import (
     run_dispatch_pass,
 )
 from repro_torch.analysis.contracts import (
+    STEP_CELLS,
     Violation,
     apply_baseline,
     check_closure_cache_value_keyed,
@@ -487,7 +488,9 @@ def test_port_tree_passes_with_committed_baseline_and_budgets(tmp_path):
 # backends are the CUDA ones, and four kernel entries are the port's own.
 REMOVED = {"ingest.onehot", "ingest.pallas", "query.edge.pallas"}
 ADDED = {"ingest.cuda", "query.edge.cuda", "kernels.ingest.keys", "kernels.ingest_stacked.ops",
-         "kernels.sequential.ops", "kernels.countsketch.median"}
+         "kernels.sequential.ops", "kernels.countsketch.median",
+         # the step builder's steps (launch/steps.py), which the reference does not register
+         *(f"steps.{name}" for name, _, _ in STEP_CELLS)}
 RENAMED = {"ingest.pallas": "ingest.cuda", "query.edge.pallas": "query.edge.cuda"}
 CONTRACT_MAP = {
     "no-host-callback": "no-host-sync",

@@ -3,10 +3,10 @@ with the reference's (``src/repro/configs``): the same ids, the same
 (arch, shape) cells with their parameters and skip reasons, and every FULL
 and SMOKE config's fields equal, dtypes mapped (``jnp`` to ``torch``).
 
-The reference's ``TransformerConfig.scan_layers`` and
-``MoEArgs.dispatch_pspec`` have no counterpart in the port (an eager loop
-has no scan; the sharding constraint is ROADMAP A12c): every config leaves
-them at their defaults, which is checked too."""
+The reference's ``TransformerConfig.scan_layers`` has no counterpart in
+the port (an eager loop has no scan): every config leaves it at its
+default, which is checked too, as are the sharding knobs (``act_pspec``,
+``dispatch_pspec``, the meshes), which only ``launch/steps.py`` sets."""
 import dataclasses
 import os
 import subprocess
@@ -31,11 +31,11 @@ def _same_value(port, ref, where):
         ref_fields = {f.name for f in dataclasses.fields(ref)}
         port_fields = {f.name for f in dataclasses.fields(port)}
         for name in sorted(ref_fields - port_fields):  # the reference's sharding knobs
-            assert name in ("scan_layers", "dispatch_pspec"), f"{where}.{name} is not ported"
-            default = {"scan_layers": True, "dispatch_pspec": None}[name]
+            assert name == "scan_layers", f"{where}.{name} is not ported"
+            default = True
             assert getattr(ref, name) == default, f"{where}.{name} is set in the reference"
         for name in sorted(port_fields):
-            if name in ("mesh", "attn_halo_mesh", "act_pspec", "shard_dispatch"):
+            if name in ("mesh", "attn_halo_mesh", "act_pspec", "dispatch_pspec", "shard_dispatch"):
                 assert getattr(port, name) == getattr(ref, name) in (None, False), f"{where}.{name}"
                 continue
             assert name in ref_fields, f"{where}.{name} is not the reference's"

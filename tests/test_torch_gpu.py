@@ -1472,39 +1472,14 @@ def test_decode_step_is_sync_free_on_the_card(cuda):
 # -- the other models (GAT, SchNet, DimeNet, BERT4Rec) and the popularity sketch --
 
 
-def _gnn_smoke_batch(arch_id):
-    """A SMOKE config (molecule shape for the molecular nets, a citation
-    graph for GAT) and its numpy batch, as ``launch/steps.py`` builds them."""
-    import dataclasses
+def _smoke_bundles(arch_id, shape):
+    """The SMOKE ``build_step`` bundle of a cell on the card and on the CPU,
+    one parameter state (drawn on the CPU) and one numpy batch."""
+    from repro_torch.launch.steps import build_step
 
-    from repro_torch.configs import get_arch
-    from repro_torch.data import graphs
-
-    rng = np.random.default_rng(5)
-    cfg = get_arch(arch_id).smoke_config
-    if arch_id == "gat-cora":
-        d = graphs.citation_graph(64, 256, cfg.d_in, cfg.out_dim, rng)
-        d.update(node_mask=np.ones(64, bool), edge_mask=np.arange(256) < 240, n_graphs=1,
-                 loss_mask=(rng.random(64) < 0.5).astype(np.float32))
-        return cfg, d
-    cfg = dataclasses.replace(cfg, feature_mode="embed_types", task="graph_reg", out_dim=1)
-    d = graphs.molecule_batch(4, 10, 16, cfg.n_atom_types, rng)
-    d.update(node_mask=np.ones(40, bool), edge_mask=np.ones(64, bool), n_graphs=4, loss_mask=np.ones(4, np.float32))
-    if arch_id == "dimenet":
-        d["triplets"] = graphs.build_triplets(d["edge_src"], d["edge_dst"], graphs.triplet_budget(64))
-    return cfg, d
-
-
-def _gnn_smoke_loss(arch_id, cfg, d, device):
-    """``chip_smoke.py``'s GNN loss (``gnn_loss``: ``launch/steps.py``'s,
-    until A12c ports that module) on the numpy batch ``d``."""
-    import sys
-    from pathlib import Path
-
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    import chip_smoke
-
-    return chip_smoke.gnn_loss(arch_id, cfg, d, device)
+    card, cpu = (build_step(arch_id, shape, smoke=True, device=d) for d in ("cuda", "cpu"))
+    state = cpu.init_state(torch.Generator().manual_seed(0))
+    return card, cpu, state, cpu.make_batch(np.random.default_rng(5))
 
 
 def _step(loss_fn, params):
@@ -1522,26 +1497,58 @@ def _step(loss_fn, params):
 
 @pytest.mark.parametrize("arch_id", ["gat-cora", "schnet", "dimenet"])
 def test_gnn_model_step_on_card_matches_cpu(cuda, arch_id):
-    """One training step of each GNN at its SMOKE config: loss, gradients and
-    the parameters after AdamW on the card against the CPU (float32, TF32
-    off; atomics and GEMMs in another order)."""
-    from repro_torch.models.gnn import dimenet, gat, schnet
-
-    mod = {"gat-cora": gat, "schnet": schnet, "dimenet": dimenet}[arch_id]
-    cfg, d = _gnn_smoke_batch(arch_id)
-    params = mod.init_params(cfg, torch.Generator().manual_seed(0))
+    """One training step of each GNN at its SMOKE config through its
+    ``build_step`` bundle (GAT on full_graph_sm, the molecular nets on
+    molecule): loss, gradients and the parameters after AdamW on the card
+    against the CPU (float32, TF32 off; atomics and GEMMs in another
+    order)."""
+    shape = "full_graph_sm" if arch_id == "gat-cora" else "molecule"
+    card, cpu, state, batch = _smoke_bundles(arch_id, shape)
+    params = state["params"]
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        got = _step(_gnn_smoke_loss(arch_id, cfg, d, "cuda"), _to(params, "cuda"))
+        got = _step(lambda p: card.loss_fn(p, card.to_tensors(batch))[0], _to(params, "cuda"))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    want = _step(_gnn_smoke_loss(arch_id, cfg, d, "cpu"), params)
+    want = _step(lambda p: cpu.loss_fn(p, cpu.to_tensors(batch))[0], params)
     assert got[0] == pytest.approx(want[0], rel=1e-5)
     for g, w in zip(got[1], want[1], strict=True):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
     for g, w in zip(got[2], want[2], strict=True):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+
+
+# One SMOKE bundle step of each kind, card against CPU: every SMOKE config
+# computes in float32 (TF32 off), so the limits are float32 round-off of
+# GEMMs and reductions taken in other orders.
+BUNDLE_CELLS = [("olmo-1b", "train_4k"), ("qwen3-4b", "prefill_32k"),
+                ("qwen3-4b", "decode_32k"), ("gat-cora", "full_graph_sm"), ("dimenet", "molecule"),
+                ("bert4rec", "train_batch"), ("bert4rec", "serve_p99"), ("bert4rec", "retrieval_cand")]
+
+
+@pytest.mark.parametrize("arch_id,shape", BUNDLE_CELLS)
+def test_bundle_step_on_card_matches_cpu(cuda, arch_id, shape):
+    from repro_torch.tree import tree_leaves
+
+    card, cpu, state, batch = _smoke_bundles(arch_id, shape)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = card.step(_to(state, "cuda"), card.to_tensors(batch))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    want = cpu.step(state, cpu.to_tensors(batch))
+    if card.is_train:
+        (got_state, got_m), (want_state, want_m) = got, want
+        assert set(got_m) == set(want_m)
+        for k in want_m:
+            torch.testing.assert_close(got_m[k].cpu().float(), want_m[k].float(), rtol=1e-5, atol=1e-6)
+        got, want = got_state["params"], want_state["params"]
+    for g, w in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        assert g.is_cuda and g.dtype == w.dtype
+        torch.testing.assert_close(g.cpu().float(), w.float(), rtol=1e-4, atol=1e-5)
 
 
 # (loss, gradients by norm) limits, card against CPU.  In bf16 compute each

@@ -46,6 +46,10 @@ def test_port_files_exist():
             "src/repro_torch/analysis/source_lint.py", "src/repro_torch/analysis/costlint.py",
             "src/repro_torch/analysis/runner.py", "src/repro_torch/roofline/analysis.py",
             "src/repro_torch/roofline/report.py", "src/repro_torch/launch/sketch_dryrun.py"} <= names
+    # So are the step builder, the pipeline and the bundle dry run.
+    assert {"src/repro_torch/launch/steps.py", "src/repro_torch/launch/mesh.py", "src/repro_torch/launch/train.py",
+            "src/repro_torch/launch/dryrun.py", "src/repro_torch/launch/perf.py",
+            "src/repro_torch/distributed/pipeline.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

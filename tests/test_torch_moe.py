@@ -264,5 +264,8 @@ def test_converter_takes_moe_trees_and_refuses_wrong_ones():
 
 
 def test_act_pspec_still_raises():
-    with pytest.raises(NotImplementedError, match="A12c"):
-        port_transformer_config(SMOKES["mixtral"], act_pspec=object())
+    """The layer carry's constraint is a Placement or None; anything else
+    (a bare spec tuple, a foreign object) raises."""
+    for bad in (object(), ("data", "model", None)):
+        with pytest.raises(TypeError, match="Placement"):
+            port_transformer_config(SMOKES["mixtral"], act_pspec=bad)

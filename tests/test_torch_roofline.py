@@ -87,8 +87,14 @@ def test_model_flops_keep_the_sketch_planes_formulas():
 
     assert port_rf.model_flops_for(config=BASE, batch=1 << 20) == 2.0 * 5 * (1 << 20) * (8192 + 8192)
     assert port_rf.model_flops_for(config=BASE, queries=65_536) == 2.0 * 5 * 65_536
-    with pytest.raises(NotImplementedError, match="A12"):
-        port_rf.model_flops_for(object())
+    with pytest.raises(ValueError):
+        port_rf.model_flops_for()
+    # a model bundle takes the reference's formulas (tests/test_torch_dryrun.py
+    # holds every cell to the reference's): 6·N·D for a train step
+    from repro_torch.launch.steps import build_step
+
+    olmo = build_step("olmo-1b", "train_4k", device="meta")
+    assert port_rf.model_flops_for(olmo) == 6.0 * olmo.config.active_param_count() * 256 * 4096
 
 
 def test_traced_cost_and_memory_dicts():
@@ -102,31 +108,34 @@ def test_traced_cost_and_memory_dicts():
     assert port_rf.memory_dict(state_bytes=100, cuda_peak_bytes=7)["peak_bytes_per_device_est"] == 107
 
 
-def _cell(arch, shape, mesh, status="ok"):
-    rf = port_rf.roofline_from_cost({"flops": 1e12, "bytes accessed": 1e9}, {}, 1, 5e11).to_dict()
-    rec = {"arch": arch, "shape": shape, "mesh": mesh, "status": status, "roofline": rf,
-           "collectives": {"all-reduce": {"count": 2, "bytes": 4e9}, "all-gather": {"count": 1, "bytes": 1e9}},
-           "modeled_memory": {"fits_80GB": True, "modeled_total_per_device": 3e9},
-           "memory": {"peak_bytes_per_device_est": 2e9}, "compile_s": 1.5}
+def _cell(arch, shape, mesh, status="ok", modelled=True):
+    colls = {"all-reduce": {"count": 2, "bytes": 4e9}, "all-gather": {"count": 1, "bytes": 1e9}} if modelled else None
+    rf = port_rf.roofline_from_cost({"flops": 1e12, "bytes accessed": 1e9}, colls and {}, 1, 5e11).to_dict()
+    rec = {"arch": arch, "shape": shape, "mesh": mesh, "status": status, "roofline": rf, "collectives": colls,
+           "modeled_memory": {"fits_hbm": True, "modeled_total_per_device": 3e9},
+           "memory": {"peak_live_bytes": 2e9}, "count_s": 1.5}
     if status == "skipped":
         rec["skip_reason"] = "does not fit one card at this shape, by a wide margin"
     return rec
 
 
 def test_report_tables_render_from_a_fixture(tmp_path):
-    for i, rec in enumerate([_cell("lm", "train", "h100x1"), _cell("gnn", "infer", "h100x1", "skipped"),
-                             _cell("lm", "train", "h100x4")]):
+    for i, rec in enumerate([_cell("lm", "train", "pod16x16"), _cell("gnn", "infer", "pod16x16", "skipped"),
+                             _cell("lm", "train", "pod2x16x16"), _cell("gnn", "train", "pod16x16", modelled=False)]):
         (tmp_path / f"cell{i}.json").write_text(json.dumps(rec))
     (tmp_path / "sketch.json").write_text(json.dumps({"cell": "glava-base/ingest_1048576", "mesh": "nccl1x1"}))
     cells = port_report.load_cells(str(tmp_path))
-    assert len(cells) == 3  # the sketch-plane record is skipped
+    assert len(cells) == 4  # the sketch-plane record is skipped
     table = port_report.roofline_table(cells)
     assert "| lm | train | 1.0ms |" in table and "**compute**" in table and "SKIP" in table
-    assert table.count("\n") == 3  # header, rule and the two h100x1 cells
+    assert "| gnn | train | 1.0ms | 299µs | not modelled | **compute** |" in table
+    assert table.count("\n") == 4  # header, rule and the three pod16x16 cells
     dry = port_report.dryrun_table(cells)
-    assert "| lm | train | h100x4 | 1.5s | 3.00GB | 2.00GB | 3 | ok |" in dry
+    assert "| lm | train | pod2x16x16 | 1.5s | 3.00GB | 2.00GB | 3 | ok |" in dry
+    assert "| gnn | train | pod16x16 | 1.5s | 3.00GB | 2.00GB | not modelled | ok |" in dry
     summary = port_report.bottleneck_summary(cells)
     assert "**lm/train**: compute-bound" in summary and "all-reduce 4.0 GB/rank over 2 ops" in summary
+    assert "**gnn/train**: compute-bound (lb 1.0ms); collectives not modelled" in summary
     assert port_report.fmt_s(2.5) == "2.50s" and port_report.fmt_s(2.5e-3) == "2.5ms"
 
 

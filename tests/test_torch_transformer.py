@@ -141,9 +141,11 @@ def test_presets_param_counts_match_reference():
 
 @pytest.mark.parametrize("field,value", [("act_pspec", object())])
 def test_unported_fields_raise(field, value):
+    """``act_pspec`` takes a Placement or None (the layer carry's layout);
+    a foreign object raises."""
     import dataclasses
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         dataclasses.replace(PRESETS["tiny"], **{field: value})
 
 
