@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.api.query import Query, QueryBatch, QueryResult, error_bound_for
 from repro_torch.core.hashing import keys_to_tensor
 from repro_torch.core.query_engine import QueryEngine
@@ -48,7 +49,10 @@ def _scatter(results, items, values, sizes):
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
+    """One family's answers on the host: the host waits here for the device
+    (in a tick, for the closure too), hence the span."""
+    with telemetry.span("tick.results"):
+        return t.cpu().numpy()
 
 
 @dataclasses.dataclass(frozen=True)

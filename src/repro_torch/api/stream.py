@@ -77,12 +77,12 @@ import collections
 import dataclasses
 import hashlib
 import math
-import time
 from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.api.codec import encode_label, encode_labels
 from repro_torch.api.planner import execute
 from repro_torch.api.query import (
@@ -129,7 +129,10 @@ LATE_POLICIES = ("retract", "drop")
 @dataclasses.dataclass
 class StreamStats:
     """Session counters (ingest/query throughput, closure refreshes,
-    subscription ticks).  Times are host wall-clock seconds."""
+    subscription ticks).  Times are host wall-clock seconds
+    (:func:`repro_torch.telemetry.now_ns`).  ``ingest_s`` runs from after
+    the codec to the batch's launch, plus every flush's wait; ``query_s``
+    covers the queries and ticks after their flush."""
 
     edges_ingested: int = 0
     ingest_s: float = 0.0
@@ -141,6 +144,9 @@ class StreamStats:
     auto_advances: int = 0
 
     def summary(self) -> Dict[str, float]:
+        """The counters and two rates.  ``ingest_edges_per_s`` is edges over
+        ``ingest_s``, the host's dispatch time alone: not the codec, not the
+        ticks, not the device's work, so not a rate the session sustains."""
         return {
             "edges_ingested": self.edges_ingested,
             "ingest_edges_per_s": self.edges_ingested / max(self.ingest_s, 1e-9),
@@ -519,8 +525,10 @@ class GraphStream:
         event = torch.cuda.Event()
         event.record()
         self._inflight.append(event)
-        while len(self._inflight) > self._max_inflight:
-            self._inflight.popleft().synchronize()
+        if len(self._inflight) > self._max_inflight:
+            with telemetry.span("ingest.wait"):
+                while len(self._inflight) > self._max_inflight:
+                    self._inflight.popleft().synchronize()
 
     def ingest(self, src, dst, weights=None, *, timestamps=None, source=None) -> IngestReceipt:
         """Fold one edge batch into the summary.  ``src``/``dst`` are label
@@ -536,30 +544,34 @@ class GraphStream:
         into their slice, and drops or retracts too-late edges per
         ``late_policy``.  ``source`` names the emitting stream for the
         per-source low-watermark merge."""
-        s_np = np.atleast_1d(encode_labels(src))
-        d_np = np.atleast_1d(encode_labels(dst))
-        if s_np.shape != d_np.shape:
-            raise ValueError(f"src/dst shape mismatch: {s_np.shape} vs {d_np.shape}")
-        n_edges = int(s_np.shape[0])
-        w_np = (
-            np.ones(n_edges, np.float32)
-            if weights is None
-            else np.atleast_1d(np.asarray(weights, np.float32))
-        )
-        ts_np = None
-        if timestamps is not None:
-            ts_np = np.atleast_1d(np.asarray(timestamps, np.float64))
-            if ts_np.shape != s_np.shape:
-                raise ValueError(f"timestamps/src shape mismatch: {ts_np.shape} vs {s_np.shape}")
-            if ts_np.size and not np.all(np.isfinite(ts_np)):
-                raise ValueError("event timestamps must be finite")
-        elif self._tracker is not None:
-            raise ValueError(
-                "event-time session (opened with slice_width=/max_lateness=) "
-                "requires timestamps= on every ingest"
-            )
-        source_key = DEFAULT_SOURCE if source is None else int(encode_label(source))
-        return self._ingest_encoded(s_np, d_np, w_np, ts_np, source_key)
+        with telemetry.span("ingest") as call:
+            with telemetry.span("ingest.codec"):
+                s_np = np.atleast_1d(encode_labels(src))
+                d_np = np.atleast_1d(encode_labels(dst))
+                if s_np.shape != d_np.shape:
+                    raise ValueError(f"src/dst shape mismatch: {s_np.shape} vs {d_np.shape}")
+                n_edges = int(s_np.shape[0])
+                w_np = (
+                    np.ones(n_edges, np.float32)
+                    if weights is None
+                    else np.atleast_1d(np.asarray(weights, np.float32))
+                )
+                ts_np = None
+                if timestamps is not None:
+                    ts_np = np.atleast_1d(np.asarray(timestamps, np.float64))
+                    if ts_np.shape != s_np.shape:
+                        raise ValueError(f"timestamps/src shape mismatch: {ts_np.shape} vs {s_np.shape}")
+                    if ts_np.size and not np.all(np.isfinite(ts_np)):
+                        raise ValueError("event timestamps must be finite")
+                elif self._tracker is not None:
+                    raise ValueError(
+                        "event-time session (opened with slice_width=/max_lateness=) "
+                        "requires timestamps= on every ingest"
+                    )
+                source_key = DEFAULT_SOURCE if source is None else int(encode_label(source))
+            receipt = self._ingest_encoded(s_np, d_np, w_np, ts_np, source_key)
+            call.tag(self._epoch)
+        return receipt
 
     def _log(self, append: Callable[[], int]) -> int:
         """Append to the WAL (``append()`` returns the commit seq) and return
@@ -612,7 +624,7 @@ class GraphStream:
         already uint32, the source label already hashed).  Appends to the
         WAL FIRST, before any device dispatch, so an acknowledged batch is
         always recoverable."""
-        t0 = time.time()
+        t0 = telemetry.now_ns()
         n_edges = int(s_np.shape[0])
         wal_seq = None
         if self._wal is not None and not self._replaying:
@@ -631,50 +643,57 @@ class GraphStream:
         # weights.
         pre = None
         if resolve_preagg(self._preagg, batch=n_edges):
-            pre = preaggregate_host(s_np, d_np, w_np)
+            with telemetry.span("ingest.preaggregate"):
+                pre = preaggregate_host(s_np, d_np, w_np)
         # Only pay the host-side unique scan while a touched-key delta can
         # still be consumed; the collapsed batch gives the unique sources
         # for free.  Fused sessions skip all of this: their delta is the
         # kernel's device bitmap.
         touched = None
         if self._touched is not None and additive and not self._fused:
-            if pre is not None:
-                if self.config.directed:
-                    touched = pre.src_unique
+            with telemetry.span("ingest.touched"):
+                if pre is not None:
+                    if self.config.directed:
+                        touched = pre.src_unique
+                    else:
+                        touched = np.unique(np.concatenate([pre.src_unique, pre.dst_unique]))
+                    if touched.size > self.config.width_rows:
+                        touched = None
                 else:
-                    touched = np.unique(np.concatenate([pre.src_unique, pre.dst_unique]))
-                if touched.size > self.config.width_rows:
-                    touched = None
-            else:
-                touched = touched_row_keys(
-                    s_np, None if self.config.directed else d_np, cap=self.config.width_rows
-                )
+                    touched = touched_row_keys(
+                        s_np, None if self.config.directed else d_np, cap=self.config.width_rows
+                    )
         touched_rows = None
         if self._mesh is not None:
             self._mesh_ingest(s_np, d_np, w_np, pre)
         elif self._fused:
-            if pre is not None:
-                # Collapsed pairs through the kernel.  The padding slots
-                # (key 0, weight 0) are valid slots: they add nothing but
-                # mark row_hash(0), as in the reference.
-                s, d, w = (self._tensor(pad_bucket(x)) for x in (pre.src, pre.dst, pre.weights))
-            else:
-                s, d, w = self._tensor(s_np), self._tensor(d_np), self._tensor(w_np)
+            with telemetry.span("ingest.copy"):
+                if pre is not None:
+                    # Collapsed pairs through the kernel.  The padding slots
+                    # (key 0, weight 0) are valid slots: they add nothing but
+                    # mark row_hash(0), as in the reference.
+                    s, d, w = (self._tensor(pad_bucket(x)) for x in (pre.src, pre.dst, pre.weights))
+                else:
+                    s, d, w = self._tensor(s_np), self._tensor(d_np), self._tensor(w_np)
             _, touched_rows = self._sketch.update_fused_(s, d, w)
             if not additive:
                 touched_rows = None
         elif pre is not None:
             # Arrays are padded to power-of-two buckets (zero weights are the
             # identity), so batch shapes stay on a short ladder.
-            self._update_pre(*(self._tensor(pad_bucket(x)) for x in (
-                pre.src, pre.dst, pre.weights, pre.src_unique, pre.src_totals, pre.dst_unique, pre.dst_totals,
-            )))
+            with telemetry.span("ingest.copy"):
+                arrays = [self._tensor(pad_bucket(x)) for x in (
+                    pre.src, pre.dst, pre.weights, pre.src_unique, pre.src_totals, pre.dst_unique, pre.dst_totals,
+                )]
+            self._update_pre(*arrays)
         else:
-            self._update(self._tensor(s_np), self._tensor(d_np), self._tensor(w_np))
+            with telemetry.span("ingest.copy"):
+                arrays = [self._tensor(x) for x in (s_np, d_np, w_np)]
+            self._update(*arrays)
         self._ring_written()
         self._mark_inflight()
         self.stats.edges_ingested += n_edges
-        self.stats.ingest_s += time.time() - t0
+        self.stats.ingest_s += (telemetry.now_ns() - t0) / 1e9
         self._epoch += 1
         self._note_touched(touched_rows if self._fused else touched)
         receipt = IngestReceipt(
@@ -727,7 +746,9 @@ class GraphStream:
         through the ingest engine (one ingest-kernel launch on the card, a
         second for an undirected sketch's mirrored edges).  Arrays are
         padded to power-of-two buckets (zero weights are the identity)."""
-        self._update_slot(slot, *(self._tensor(pad_bucket(x)) for x in (s_np, d_np, w_np)))
+        with telemetry.span("ingest.copy"):
+            arrays = [self._tensor(pad_bucket(x)) for x in (s_np, d_np, w_np)]
+        self._update_slot(slot, *arrays)
         self._ring_written()
 
     def _update_slot(self, slot: int, src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor) -> None:
@@ -736,7 +757,7 @@ class GraphStream:
 
     def _ingest_eventtime(
         self,
-        t0: float,
+        t0: int,
         s_np: np.ndarray,
         d_np: np.ndarray,
         w_np: np.ndarray,
@@ -819,7 +840,7 @@ class GraphStream:
         else:
             touched = np.zeros(0, np.uint32) if self._touched is not None else None
         self.stats.edges_ingested += n_edges
-        self.stats.ingest_s += time.time() - t0
+        self.stats.ingest_s += (telemetry.now_ns() - t0) / 1e9
         self._epoch += 1
         self._note_touched(touched if additive else None)
         receipt = IngestReceipt(
@@ -851,10 +872,10 @@ class GraphStream:
         """Block until every launched ingest batch has landed on the device."""
         if not self._inflight:
             return
-        t0 = time.time()
+        t0 = telemetry.now_ns()
         while self._inflight:
             self._inflight.popleft().synchronize()
-        self.stats.ingest_s += time.time() - t0
+        self.stats.ingest_s += (telemetry.now_ns() - t0) / 1e9
 
     # -- queries --------------------------------------------------------------
 
@@ -871,13 +892,13 @@ class GraphStream:
         if len(batch) == 0:
             return []
         self.flush()
-        t0 = time.time()
+        t0 = telemetry.now_ns()
         if any(q.family == "reach" for q in batch):
             # Sync the closure cache from the touched-key delta so one-shot
             # reach pulls ride the same incremental refresh as subscriptions.
             self._ensure_closure()
         results = execute(self.engine, self._live(), batch, epoch=self._epoch)
-        self.stats.query_s += time.time() - t0
+        self.stats.query_s += (telemetry.now_ns() - t0) / 1e9
         self._count_served(results)
         self._sync_engine_stats()
         return results[0] if single else results
@@ -991,31 +1012,33 @@ class GraphStream:
         due = [s for s in list(self._subs.values()) if s.active and s._note_mutation()]
         if not due:
             return
-        self.flush()
-        t0 = time.time()
-        if any(s.plan.has_reach for s in due):
-            self._ensure_closure()
-        sketch = self._live()
-        now = time.time()
-        for sub in due:
-            results = sub.plan.run(self.engine, sketch, epoch=self._epoch)
-            event = SubscriptionEvent(
-                subscription_id=sub.id,
-                name=sub.name,
-                tick=sub.ticks + 1,
-                epoch=self._epoch,
-                timestamp=now,
-                results=tuple(results),
-                alarm=None if sub.alarm is None else bool(sub.alarm(results)),
-            )
-            if sub._deliver(event):
-                # Deduplicated re-emissions (the exactly-once replay floor)
-                # still advance the subscription's progress, but never
-                # re-enter the feeds or callbacks.
-                self._event_log.push(event)
-            self.stats.subscription_ticks += 1
-            self._count_served(results)
-        self.stats.query_s += time.time() - t0
+        with telemetry.span("tick"):
+            with telemetry.span("tick.wait"):
+                self.flush()
+            t0 = telemetry.now_ns()
+            if any(s.plan.has_reach for s in due):
+                self._ensure_closure()
+            sketch = self._live()
+            now = telemetry.now_ns() / 1e9
+            for sub in due:
+                results = sub.plan.run(self.engine, sketch, epoch=self._epoch)
+                event = SubscriptionEvent(
+                    subscription_id=sub.id,
+                    name=sub.name,
+                    tick=sub.ticks + 1,
+                    epoch=self._epoch,
+                    timestamp=now,
+                    results=tuple(results),
+                    alarm=None if sub.alarm is None else bool(sub.alarm(results)),
+                )
+                if sub._deliver(event):
+                    # Deduplicated re-emissions (the exactly-once replay floor)
+                    # still advance the subscription's progress, but never
+                    # re-enter the feeds or callbacks.
+                    self._event_log.push(event)
+                self.stats.subscription_ticks += 1
+                self._count_served(results)
+            self.stats.query_s += (telemetry.now_ns() - t0) / 1e9
         self._sync_engine_stats()
 
     def _count_served(self, results) -> None:
@@ -1054,9 +1077,10 @@ class GraphStream:
         Remark; reference ``GraphStream.pagerank``,
         ``src/repro/api/stream.py:1118``): flushes, then returns the (d, w)
         bucket ranks as numpy."""
-        self.flush()
-        sketch = self._live() if self._mesh is None else dist_mod.gather_rows(self._mesh, self._sketch)
-        return queries_mod.sketch_pagerank(sketch, damping, iters).cpu().numpy()
+        with telemetry.span("analytics.pagerank"):
+            self.flush()
+            sketch = self._live() if self._mesh is None else dist_mod.gather_rows(self._mesh, self._sketch)
+            return queries_mod.sketch_pagerank(sketch, damping, iters).cpu().numpy()
 
     # -- convenience wrappers (vectorized) --------------------------------------
 

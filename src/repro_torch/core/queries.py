@@ -19,6 +19,7 @@ import torch
 
 from typing import Optional, Tuple
 
+from repro_torch import telemetry
 from repro_torch.core import reach as reach_mod
 from repro_torch.core.sketch import GLavaSketch
 from repro_torch.kernels.query.ref import edge_query_min_ref
@@ -230,14 +231,13 @@ def triangle_query(sketch: GLavaSketch, a: torch.Tensor, b: torch.Tensor, c: tor
 
 
 def global_triangle_estimate(sketch: GLavaSketch) -> torch.Tensor:
-    """Global directed-triangle mass, min over sketches of trace(M_i³), the
-    weighted closed 3-walks (reference ``global_triangle_estimate``,
-    ``src/repro/core/queries.py:244``).  Computed as
-    ``min_d Σ_ij (M²)_ij · M_ji``: one batched float32 product and an
+    """Global directed-triangle mass, min over sketches of trace(M_i³), the weighted closed
+    3-walks (reference ``global_triangle_estimate``, ``src/repro/core/queries.py:244``).
+    Computed as ``min_d Σ_ij (M²)_ij · M_ji``: one batched float32 product and an
     elementwise reduction, with no (d, w, w, w) temporary."""
-    m = sketch.counters
-    m2 = torch.bmm(m, m)
-    return (m2 * m.transpose(1, 2)).sum(dim=(1, 2)).amin()
+    with telemetry.span("analytics.triangles"):
+        m = sketch.counters
+        return (torch.bmm(m, m) * m.transpose(1, 2)).sum(dim=(1, 2)).amin()
 
 
 # ---------------------------------------------------------------------------

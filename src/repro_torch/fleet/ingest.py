@@ -23,6 +23,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.fleet.stack import FleetSketch
 
 
@@ -94,8 +95,10 @@ class FleetIngestEngine:
             event = torch.cuda.Event()
             event.record()
             self._inflight.append(event)
-            while len(self._inflight) > self.max_inflight:
-                self._inflight.popleft().synchronize()
+            if len(self._inflight) > self.max_inflight:
+                with telemetry.span("ingest.wait"):
+                    while len(self._inflight) > self.max_inflight:
+                        self._inflight.popleft().synchronize()
         return state
 
     def flush(self) -> bool:

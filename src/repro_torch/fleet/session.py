@@ -44,13 +44,13 @@ import collections
 import dataclasses
 import json
 import shutil
-import time
 from pathlib import Path
 from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.api.codec import encode_labels
 from repro_torch.api.planner import execute
 from repro_torch.api.query import Query, QueryBatch, QueryResult, validate_theta
@@ -78,7 +78,10 @@ def _tenant_dirname(tenant_id) -> str:
 
 @dataclasses.dataclass
 class FleetStats:
-    """Fleet-wide counters (per-tenant counters live on each session)."""
+    """Fleet-wide counters (per-tenant counters live on each session).
+    ``ingest_s`` runs from a mixed batch's entry, codec included, to its
+    launch, plus every flush's wait (host seconds,
+    :func:`repro_torch.telemetry.now_ns`)."""
 
     edges_ingested: int = 0
     batches: int = 0
@@ -88,6 +91,9 @@ class FleetStats:
     fault_ins: int = 0
 
     def summary(self) -> Dict[str, float]:
+        """The counters and ``ingest_edges_per_s``: edges over ``ingest_s``,
+        the host's dispatch time alone (not the ticks, not the device's
+        work), so not a rate the fleet sustains."""
         return {
             "edges_ingested": self.edges_ingested,
             "batches": self.batches,
@@ -244,11 +250,11 @@ class TenantSession:
         self._touch()
         fleet = self._fleet
         fleet.flush()
-        t0 = time.time()
+        t0 = telemetry.now_ns()
         if any(q.family == "reach" for q in batch):
             fleet.engine.refresh_closures(fleet._state, [(self._slot, self._consume_touched(), self._epoch)])
         results = execute(self._view, fleet._state, batch, epoch=self._epoch)
-        self.stats.query_s += time.time() - t0
+        self.stats.query_s += (telemetry.now_ns() - t0) / 1e9
         self._count_served(results)
         return results[0] if single else results
 
@@ -686,33 +692,42 @@ class SketchFleet:
         ``timestamps`` (optional per-edge event times) are recorded in each
         tenant's WAL lane: the fleet plane does not window by event time,
         but replay hands them back."""
-        t0 = time.time()
-        s_np = np.atleast_1d(encode_labels(src))
-        d_np = np.atleast_1d(encode_labels(dst))
-        if s_np.shape != d_np.shape:
-            raise ValueError(f"src/dst shape mismatch: {s_np.shape} vs {d_np.shape}")
-        n_edges = int(s_np.shape[0])
-        w_np = np.ones(n_edges, np.float32) if weights is None else np.atleast_1d(np.asarray(weights, np.float32))
-        if w_np.shape != (n_edges,):
-            raise ValueError(f"weights/src shape mismatch: {w_np.shape} vs {(n_edges,)}")
-        ts_np = None
-        if timestamps is not None:
-            ts_np = np.atleast_1d(np.asarray(timestamps, np.float64))
-            if ts_np.shape != (n_edges,):
-                raise ValueError(f"timestamps/src shape mismatch: {ts_np.shape} vs {(n_edges,)}")
-            if not np.all(np.isfinite(ts_np)):
-                raise ValueError("timestamps must be finite")
-        additive = weights is None or not bool(np.any(w_np < 0))
+        with telemetry.span("ingest") as call:
+            receipts = self._ingest_mixed(tenant_ids, src, dst, weights, timestamps)
+            call.tag(self.stats.batches)
+        return receipts
+
+    def _ingest_mixed(self, tenant_ids, src, dst, weights, timestamps) -> Dict:
+        t0 = telemetry.now_ns()
+        with telemetry.span("ingest.codec"):
+            s_np = np.atleast_1d(encode_labels(src))
+            d_np = np.atleast_1d(encode_labels(dst))
+            if s_np.shape != d_np.shape:
+                raise ValueError(f"src/dst shape mismatch: {s_np.shape} vs {d_np.shape}")
+            n_edges = int(s_np.shape[0])
+            w_np = np.ones(n_edges, np.float32) if weights is None else np.atleast_1d(np.asarray(weights, np.float32))
+            if w_np.shape != (n_edges,):
+                raise ValueError(f"weights/src shape mismatch: {w_np.shape} vs {(n_edges,)}")
+            ts_np = None
+            if timestamps is not None:
+                ts_np = np.atleast_1d(np.asarray(timestamps, np.float64))
+                if ts_np.shape != (n_edges,):
+                    raise ValueError(f"timestamps/src shape mismatch: {ts_np.shape} vs {(n_edges,)}")
+                if not np.all(np.isfinite(ts_np)):
+                    raise ValueError("timestamps must be finite")
+            additive = weights is None or not bool(np.any(w_np < 0))
 
         if isinstance(tenant_ids, (str, bytes, int, np.integer)):
-            sess = self.tenant(tenant_ids)
-            wal_seqs = {id(sess): self._wal_append(sess, s_np, d_np, w_np, ts_np)}
-            slot_np = np.full(n_edges, sess._slot, np.int32)
+            with telemetry.span("ingest.route"):
+                sess = self.tenant(tenant_ids)
+                wal_seqs = {id(sess): self._wal_append(sess, s_np, d_np, w_np, ts_np)}
+                slot_np = np.full(n_edges, sess._slot, np.int32)
             return self._dispatch_group([(sess, 0, n_edges)], slot_np, s_np, d_np, w_np, additive, t0, wal_seqs)
-        ids = np.asarray(tenant_ids)
-        if ids.shape[0] != n_edges:
-            raise ValueError(f"tenant_ids/src shape mismatch: {ids.shape[0]} vs {n_edges}")
-        uniq_ids, inverse = np.unique(ids, return_inverse=True)
+        with telemetry.span("ingest.route"):
+            ids = np.asarray(tenant_ids)
+            if ids.shape[0] != n_edges:
+                raise ValueError(f"tenant_ids/src shape mismatch: {ids.shape[0]} vs {n_edges}")
+            uniq_ids, inverse = np.unique(ids, return_inverse=True)
         if uniq_ids.shape[0] <= self.capacity:
             return self._route_group(uniq_ids, inverse, s_np, d_np, w_np, ts_np, additive, t0)
         # More distinct tenants than slots: admitted one at a time, this
@@ -727,7 +742,7 @@ class SketchFleet:
             receipts.update(
                 self._route_group(
                     uniq_ids[lo:hi], inverse[pick] - lo, s_np[pick], d_np[pick], w_np[pick],
-                    None if ts_np is None else ts_np[pick], additive, time.time(),
+                    None if ts_np is None else ts_np[pick], additive, telemetry.now_ns(),
                 )
             )
         return receipts
@@ -738,20 +753,21 @@ class SketchFleet:
         evict a group member once touched (every touch rewarms the LRU and at
         most ``capacity - k`` evictions remain after the k-th touch), so every
         edge routes to a live slot."""
-        sessions = [self.tenant(t) for t in uniq_ids.tolist()]
-        # Log each tenant's slice in arrival order BEFORE the dispatch (and
-        # before grouping permutes the arrays): the WAL is the authority on
-        # what the device state may contain.
-        wal_seqs: Dict[int, Optional[int]] = {}
-        for k, sess in enumerate(sessions):
-            mask = inverse == k
-            wal_seqs[id(sess)] = self._wal_append(
-                sess, s_np[mask], d_np[mask], w_np[mask], None if ts_np is None else ts_np[mask]
-            )
-        slot_np = np.asarray([s._slot for s in sessions], np.int32)[inverse]
-        slot_np, s_np, d_np, w_np, uniq_slots, starts, counts = group_stream(slot_np, s_np, d_np, w_np)
-        by_slot = {s._slot: s for s in sessions}
-        segments = [(by_slot[int(sl)], int(st), int(ct)) for sl, st, ct in zip(uniq_slots, starts, counts)]
+        with telemetry.span("ingest.route"):
+            sessions = [self.tenant(t) for t in uniq_ids.tolist()]
+            # Log each tenant's slice in arrival order BEFORE the dispatch (and
+            # before grouping permutes the arrays): the WAL is the authority on
+            # what the device state may contain.
+            wal_seqs: Dict[int, Optional[int]] = {}
+            for k, sess in enumerate(sessions):
+                mask = inverse == k
+                wal_seqs[id(sess)] = self._wal_append(
+                    sess, s_np[mask], d_np[mask], w_np[mask], None if ts_np is None else ts_np[mask]
+                )
+            slot_np = np.asarray([s._slot for s in sessions], np.int32)[inverse]
+            slot_np, s_np, d_np, w_np, uniq_slots, starts, counts = group_stream(slot_np, s_np, d_np, w_np)
+            by_slot = {s._slot: s for s in sessions}
+            segments = [(by_slot[int(sl)], int(st), int(ct)) for sl, st, ct in zip(uniq_slots, starts, counts)]
         return self._dispatch_group(segments, slot_np, s_np, d_np, w_np, additive, t0, wal_seqs)
 
     def _dispatch_group(self, segments, slot_np, s_np, d_np, w_np, additive, t0, wal_seqs=None) -> Dict:
@@ -762,28 +778,30 @@ class SketchFleet:
         # Per-tenant touched-key deltas (each tenant's incremental closure
         # refresh), only while that tenant's tracking is live.
         deltas: Dict[int, Optional[np.ndarray]] = {}
-        for sess, st, ct in segments:
-            if not additive:
-                sess._note_touched(None)
-            elif sess._touched is not None:
-                delta = touched_row_keys(
-                    s_np[st : st + ct],
-                    None if self.config.directed else d_np[st : st + ct],
-                    cap=self.config.width_rows,
-                )
-                deltas[id(sess)] = delta
-                sess._note_touched(delta)
+        with telemetry.span("ingest.touched"):
+            for sess, st, ct in segments:
+                if not additive:
+                    sess._note_touched(None)
+                elif sess._touched is not None:
+                    delta = touched_row_keys(
+                        s_np[st : st + ct],
+                        None if self.config.directed else d_np[st : st + ct],
+                        cap=self.config.width_rows,
+                    )
+                    deltas[id(sess)] = delta
+                    sess._note_touched(delta)
 
         dev = self.device
-        self._ingest.dispatch(
-            self._state,
-            torch.from_numpy(slot_np).to(dev, non_blocking=True),
-            keys_to_tensor(s_np, dev),
-            keys_to_tensor(d_np, dev),
-            torch.from_numpy(np.ascontiguousarray(w_np)).to(dev, non_blocking=True),
-        )
+        with telemetry.span("ingest.copy"):
+            lanes = (
+                torch.from_numpy(slot_np).to(dev, non_blocking=True),
+                keys_to_tensor(s_np, dev),
+                keys_to_tensor(d_np, dev),
+                torch.from_numpy(np.ascontiguousarray(w_np)).to(dev, non_blocking=True),
+            )
+        self._ingest.dispatch(self._state, *lanes)
 
-        dt = time.time() - t0
+        dt = (telemetry.now_ns() - t0) / 1e9
         receipts: Dict = {}
         for sess, st, ct in segments:
             sess._epoch += 1
@@ -803,9 +821,9 @@ class SketchFleet:
 
     def flush(self) -> None:
         """Block until every dispatched fleet batch has landed on the device."""
-        t0 = time.time()
+        t0 = telemetry.now_ns()
         if self._ingest.flush():
-            self.stats.ingest_s += time.time() - t0
+            self.stats.ingest_s += (telemetry.now_ns() - t0) / 1e9
 
     # -- subscription ticking --------------------------------------------------
 
@@ -820,40 +838,42 @@ class SketchFleet:
                     due.append((sess, sub))
         if not due:
             return
-        self.flush()
-        t0 = time.time()
-        reach_sessions: Dict[int, TenantSession] = {}
-        for sess, sub in due:
-            if sub.plan.has_reach:
-                reach_sessions.setdefault(id(sess), sess)
-        if reach_sessions:
-            self.engine.refresh_closures(
-                self._state,
-                [(sess._slot, sess._consume_touched(), sess._epoch) for sess in reach_sessions.values()],
-            )
-        # The shared closure sync is charged evenly; each subscription then
-        # pays for its own replay only.
-        sync_s = (time.time() - t0) / len(due)
-        now = time.time()
-        for sess, sub in due:
-            t1 = time.time()
-            results = sub.plan.run(sess._view, self._state, epoch=sess._epoch)
-            event = SubscriptionEvent(
-                subscription_id=sub.id,
-                name=sub.name,
-                tick=sub.ticks + 1,
-                epoch=sess._epoch,
-                timestamp=now,
-                results=tuple(results),
-                alarm=None if sub.alarm is None else bool(sub.alarm(results)),
-            )
-            if sub._deliver(event):
-                sess._event_log.push(event)
-                self._event_log.push(event)
-            sess.stats.subscription_ticks += 1
-            self.stats.subscription_ticks += 1
-            sess._count_served(results)
-            sess.stats.query_s += sync_s + (time.time() - t1)
+        with telemetry.span("tick"):
+            with telemetry.span("tick.wait"):
+                self.flush()
+            t0 = telemetry.now_ns()
+            reach_sessions: Dict[int, TenantSession] = {}
+            for sess, sub in due:
+                if sub.plan.has_reach:
+                    reach_sessions.setdefault(id(sess), sess)
+            if reach_sessions:
+                self.engine.refresh_closures(
+                    self._state,
+                    [(sess._slot, sess._consume_touched(), sess._epoch) for sess in reach_sessions.values()],
+                )
+            # The shared closure sync is charged evenly; each subscription then
+            # pays for its own replay only.
+            sync_s = (telemetry.now_ns() - t0) / 1e9 / len(due)
+            now = telemetry.now_ns() / 1e9
+            for sess, sub in due:
+                t1 = telemetry.now_ns()
+                results = sub.plan.run(sess._view, self._state, epoch=sess._epoch)
+                event = SubscriptionEvent(
+                    subscription_id=sub.id,
+                    name=sub.name,
+                    tick=sub.ticks + 1,
+                    epoch=sess._epoch,
+                    timestamp=now,
+                    results=tuple(results),
+                    alarm=None if sub.alarm is None else bool(sub.alarm(results)),
+                )
+                if sub._deliver(event):
+                    sess._event_log.push(event)
+                    self._event_log.push(event)
+                sess.stats.subscription_ticks += 1
+                self.stats.subscription_ticks += 1
+                sess._count_served(results)
+                sess.stats.query_s += sync_s + (telemetry.now_ns() - t1) / 1e9
 
     # -- introspection ---------------------------------------------------------
 
