@@ -2650,6 +2650,109 @@ def phase_stacked_ingest(torch, gen):
     )
 
 
+def preagg_bound_bytes(n: int, n_pairs: int, depth: int, n_src: int, n_dst: int, wr: int, mirror: bool) -> int:
+    """Bytes the batch collapse must move, whatever its design: the (3, B)
+    batch read once; the distinct pairs written for B1 (two int64 keys, a
+    float32 weight); a 32-byte sector read and written per register add (d a
+    distinct source and destination, twice mirrored); the (d, w_r) bitmap
+    written.  The tables' sweep is the design's and is left out."""
+    adds = depth * (n_src + n_dst) * (2 if mirror else 1)
+    return 12 * n + 20 * n_pairs + adds * 64 + depth * wr
+
+
+def phase_preagg(torch, gen):
+    """The port-only batch collapse of a card session (``kernels/preagg``)
+    on serve BASE's first batch as the session copies it (50,000 raw edges,
+    packed (3, B) int32), directed and mirrored: the distinct pairs, both
+    registers and the bitmap against the plain version, the tables empty
+    after each call; wrapper ms by CUDA events, host us, device ms of both
+    launches beside the bound; the plain version; and the host collapse it
+    replaces, ``preaggregate_host``, on the host clock."""
+    import numpy as np
+
+    from repro_torch.core.ingest import preaggregate_host
+    from repro_torch.kernels.preagg import ops as preagg_ops
+    from repro_torch.kernels.preagg.ref import preagg_collapse_ref
+
+    (src, dst, wts), family, *_ = serve_raw_batch(torch)
+    d, w, n = BASE_DEPTH, BASE_WIDTH, src.shape[0]
+    batch = torch.from_numpy(np.stack([src, dst, wts.view(np.uint32)]).view(np.int32)).cuda()
+    pre = preaggregate_host(src, dst, wts)
+    tables = preagg_ops.CollapseTables()
+    out = {}
+    for mirror in (False, True):
+        state = [torch.zeros((d, w), device="cuda") for _ in range(4)]
+        touched = [torch.empty((d, w), dtype=torch.bool, device="cuda") for _ in range(2)]
+        got = preagg_ops.preagg_collapse(batch, state[0], state[1], touched[0], family, family, mirror, tables)
+        want = preagg_collapse_ref(batch, state[2], state[3], touched[1], family, family, mirror, got[0].shape[0])
+        torch.cuda.synchronize()
+        keys = [((s << 32) | t)[x != 0] for s, t, x in (got, want)]
+        orders = [torch.argsort(k) for k in keys]
+        check(int(keys[0].numel()) == pre.n_pairs and torch.equal(keys[0][orders[0]], keys[1][orders[1]]),
+              f"preagg (mirror={mirror}): the pairs differ from the plain version's")
+        check(torch.equal(got[2][got[2] != 0][orders[0]], want[2][want[2] != 0][orders[1]]),
+              f"preagg (mirror={mirror}): the pair sums differ from the plain version's")
+        for name, g, x in (("row_flows", state[0], state[2]), ("col_flows", state[1], state[3]),
+                           ("touched", *touched)):
+            check(torch.equal(g, x), f"preagg (mirror={mirror}): {name} differs from the plain version's")
+        check(not bool(tables.sums.any()) and bool((tables.pair_keys == -1).all())
+              and bool((tables.node_keys == -1).all()), f"preagg (mirror={mirror}): the tables were left dirty")
+        call = lambda: preagg_ops.preagg_collapse(batch, state[0], state[1], touched[0], family, family,  # noqa: E731
+                                                  mirror, tables)
+        ms, host = time_ms(call, INGEST_REPS), host_us(call)
+        dev = {k: device_ms(call, 20, f"preagg_{k}_kernel") for k in ("collapse", "emit")}
+        both = None if None in dev.values() else sum(dev.values())
+        plain_ms = time_ms(lambda: preagg_collapse_ref(batch, state[2], state[3], touched[1], family, family,
+                                                       mirror, got[0].shape[0]), 5)
+        bound = preagg_bound_bytes(n, pre.n_pairs, d, pre.src_unique.size, pre.dst_unique.size, w,
+                                   mirror) / PEAK_BYTES_PER_S * 1e3
+        out[mirror] = (ms, plain_ms, bound)
+        print(
+            f"[chip_smoke] preagg, serve BASE's first batch ({n} raw edges, {pre.n_pairs} pairs, "
+            f"{pre.src_unique.size} sources, {pre.dst_unique.size} destinations, mirror={mirror}): pairs, registers "
+            f"and bitmap equal to the plain version, the tables empty after; wrapper {ms:.4f} ms, host "
+            f"{host:.3f} us/call, device collapse {_fmt(dev['collapse'])}, emit {_fmt(dev['emit'])}"
+            + (f" ({100 * bound / both:.1f}% of the bound)" if both else "")
+            + f"; bound {bound:.5f} ms; plain {plain_ms:.4f} ms"
+        )
+    # The same raw batch into a BASE summary by the two routes a session on
+    # the card has: the collapse, then B1's key entry (a local session), and
+    # the one-pass kernel B4 on the raw edges with their int64 keys (a fused
+    # session).  Device ms of every kernel a call makes, and of B4 alone.
+    from repro_torch.core.hashing import keys_to_tensor
+    from repro_torch.core.sketch import GLavaSketch, SketchConfig
+
+    keys = [keys_to_tensor(x, "cuda") for x in (src, dst)]
+    w_dev = torch.from_numpy(wts).cuda()
+    for directed in (True, False):
+        sk = GLavaSketch.empty(SketchConfig(d, w, w, directed), 0, torch.device("cuda"))
+        card = lambda: sk.update_collapsed_(batch, tables, True, backend="cuda")  # noqa: E731
+        one_pass = lambda: sk.update_fused_(*keys, w_dev)  # noqa: E731
+        routes = {"collapse + B1": card, "B4": one_pass}
+        dev = {k: device_ms(fn, 20) for k, fn in routes.items()}
+        b4 = device_ms(one_pass, 20, "fused_ingest_kernel")
+        wall = {k: time_ms(fn, INGEST_REPS) for k, fn in routes.items()}
+        print(
+            f"[chip_smoke] preagg: serve BASE's first batch into a BASE summary (directed={directed}), every kernel "
+            "of a call: " + "; ".join(f"{k} device {_fmt(dev[k])}, wrapper {wall[k]:.4f} ms" for k in routes)
+            + f"; B4's kernel alone {_fmt(b4)}"
+        )
+        del sk
+    host_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter_ns()
+        preaggregate_host(src, dst, wts)
+        host_ms.append((time.perf_counter_ns() - t0) / 1e6)
+    print(f"[chip_smoke] preagg: the host collapse it replaces, preaggregate_host, {median(host_ms):.3f} ms "
+          f"(median of 5, host clock)")
+    ms, plain_ms, bound = out[False]
+    return dict(
+        name="preagg_collapse", route="cuda", source="src/repro_torch/csrc/preagg.cu",
+        replaces="src/repro_torch/core/ingest.py::preaggregate_host", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by="bytes", library_ms=None,
+    )
+
+
 def timed_fleet(torch, fn):
     """(fleet, each subscription's events, host wall seconds) of one fleet run."""
     t0 = time.time()
@@ -4976,6 +5079,7 @@ def main() -> int:
     from repro_torch.kernels.ingest_fused import ops as fused_ops
     from repro_torch.kernels.query import ops as query_ops
     from repro_torch.kernels.ingest_stacked import ops as stacked_ops
+    from repro_torch.kernels.preagg import ops as preagg_ops
     from repro_torch.kernels.sequential import ops as seq_ops
     from repro_torch.launch import serve
 
@@ -4994,7 +5098,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
     for phase in (phase_ingest, phase_queries, phase_closure, phase_fused_ingest, phase_flows, phase_countsketch,
-                  phase_sequential, phase_stacked_ingest):
+                  phase_sequential, phase_stacked_ingest, phase_preagg):
         out = phase(torch, gen)
         for row in out if isinstance(out, list) else [out]:
             rows[row["name"]] = row
@@ -5022,6 +5126,7 @@ def main() -> int:
         "countsketch_median": countsketch_ops.countsketch_median,
         "sequential_update": seq_ops.sequential_update,
         "ingest_stacked": stacked_ops.stacked_ingest,
+        "preagg_collapse": preagg_ops.preagg_collapse,
     }
 
     def drive(kernel_names, fn):
@@ -5037,7 +5142,7 @@ def main() -> int:
     # The main path, at BASE, on the kernels (counts read from this run
     # only), then on the plain backends, which launch nothing.
     base, base_ev, base_s = drive(
-        ("ingest_keys", "edge_query_min", "closure_step"),
+        ("ingest_keys", "edge_query_min", "closure_step", "preagg_collapse"),
         lambda: timed_run(torch, lambda: serve.main(SERVE_BASE)),
     )
     check(counted["ingest_scatter"].launches == 0,
@@ -5054,6 +5159,8 @@ def main() -> int:
     n_batches = -(-flag(SERVE_BASE, "--edges") // flag(SERVE_BASE, "--batch"))
     check(rows["ingest_keys"]["launches"] == n_batches,
           f"serve BASE: {rows['ingest_keys']['launches']} ingest_keys launches for {n_batches} batches")
+    check(rows["preagg_collapse"]["launches"] == n_batches,
+          f"serve BASE: {rows['preagg_collapse']['launches']} batches collapsed on the card for {n_batches} batches")
     print(
         f"[chip_smoke] serve BASE: kernels {base_s:.3f} s, plain {plain_s:.3f} s (host wall clock, "
         f"build excluded); {len(base_ev)} ticks; {want_launches} closure launches "

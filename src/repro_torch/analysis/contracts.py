@@ -356,6 +356,14 @@ def _kernel_entry(name: str) -> Callable[[Fixture], TracedEntry]:
             return TracedEntry(ops.stacked_ingest, (
                 st.counters.view(t * k, d, wr, wc), st.row_flows.view(t * k, d, wr),
                 st.col_flows.view(t * k, d, wc), plane, rows, cols, w))
+        if name == "preagg":
+            from repro_torch.kernels.preagg import ops
+
+            batch = torch.stack([src.int(), dst.int(), w.view(torch.int32)])
+            touched = torch.empty(sk.row_flows.shape, dtype=torch.bool, device=sk.device)
+            tables = ops.CollapseTables()
+            return TracedEntry(lambda b: ops.preagg_collapse(b, sk.row_flows, sk.col_flows, touched, sk.row_hash,
+                                                             sk.col_hash, False, tables)[2], (batch,))
         if name == "sequential":
             from repro_torch.kernels.sequential import ops
 
@@ -568,6 +576,7 @@ ENTRY_POINTS: Tuple[EntryPoint, ...] = (
     EntryPoint("kernels.countsketch.ops", HOT, _kernel_entry("countsketch")),
     EntryPoint("kernels.countsketch.median", HOT, _kernel_entry("countsketch.median")),
     EntryPoint("kernels.sequential.ops", HOT, _kernel_entry("sequential")),
+    EntryPoint("kernels.preagg.ops", HOT, _kernel_entry("preagg")),
     # -- the distributed plane (collectives belong here alone) -------------
     EntryPoint("distributed.ingest", HOT + UPDATES, _distributed_ingest_entry),
     EntryPoint("distributed.point_query", HOT, _distributed_point_entry),

@@ -21,7 +21,11 @@ to a caller aliases the live counters.  Query answers come back as numpy.
 ``ingest_backend="fused"`` opens a fused session: each batch goes through
 the one-pass fused ingest (``GLavaSketch.update_fused_``), which updates the
 counters, both registers and a (d, w_r) touched-row bitmap on the device, so
-the incremental closure refresh needs no host pass over the keys.
+the incremental closure refresh needs no host pass over the keys.  A fused
+session on the card hands the kernel its raw batches; a local session on the
+card's kernels collapses a large batch's duplicate pairs on the card
+(``GLavaSketch.update_collapsed_``).  Both keep their touched rows as the
+bitmap.  Other sessions collapse on the host (``preaggregate_host``).
 
 ``window_slices=K`` opens a windowed session over a ring of K slices
 (:class:`~repro_torch.core.window.SlidingWindowSketch`): ingest lands in the
@@ -116,6 +120,7 @@ from repro_torch.core.window import SlidingWindowSketch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.mesh import Mesh
 from repro_torch.distributed.sharding import sketch_plane_shardings
+from repro_torch.kernels.preagg.ops import CollapseTables
 from repro_torch.stream.events import EventFeed
 from repro_torch.stream.wal import AdvanceMutation, EdgeMutation, WriteAheadLog
 from repro_torch.stream.watermark import DEFAULT_SOURCE, WatermarkTracker, slice_of, slices_of
@@ -142,6 +147,8 @@ class StreamStats:
     closure_incremental_refreshes: int = 0
     subscription_ticks: int = 0
     auto_advances: int = 0
+    # Batches collapsed on the card (``GLavaSketch.update_collapsed_``).
+    device_collapses: int = 0
 
     def summary(self) -> Dict[str, float]:
         """The counters and two rates.  ``ingest_edges_per_s`` is edges over
@@ -170,7 +177,10 @@ class IngestReceipt:
     Fused sessions (``ingest_backend="fused"``) report the delta as
     ``touched_rows`` instead: the (d, w_r) bool row-bucket bitmap the
     one-pass kernel wrote, on the session device (``None`` for a batch with
-    negative weights).  ``touched_keys`` is ``None`` for those receipts."""
+    negative weights).  So do local sessions on a CUDA device's kernels,
+    for every batch: the bitmap of the card collapse's second launch, or of
+    the rows a batch too small to collapse wrote.  ``touched_keys`` is
+    ``None`` for those receipts."""
 
     epoch: int
     n_edges: int
@@ -337,6 +347,15 @@ class GraphStream:
             "fused" if self._fused else resolve_backend(ingest_backend, self.device)
         )
         self._preagg = preagg
+        # No session on the card collapses on the host.  A local one on the
+        # card's kernels collapses its batches there (``update_collapsed_``),
+        # in tables it keeps between batches; a fused one sends the raw batch
+        # through the one-pass kernel.  Mesh sessions and the plain backend
+        # collapse on the host.
+        on_card = self.device.type == "cuda" and mesh is None
+        self._device_collapse = on_card and self.ingest_backend == "cuda"
+        self._host_collapse = not (self._device_collapse or (on_card and self._fused))
+        self._collapse_tables = CollapseTables()
         self.engine = QueryEngine(query_backend) if mesh is None else dist_mod.MeshQueryEngine(mesh, query_backend)
         self.stats = StreamStats()
         self._epoch = 0
@@ -344,7 +363,8 @@ class GraphStream:
         # event feed, and the touched-key accumulator feeding the
         # incremental closure refresh (None = "not additions-only since the
         # last closure sync; full rebuild required"): key arrays, or for a
-        # fused session one device bitmap, the OR of its batches' bitmaps.
+        # fused session or one that collapses on the card one device bitmap,
+        # the OR of its batches' bitmaps.
         self._subs: Dict[int, Subscription] = {}
         self._next_sub_id = 0
         self._event_log = EventFeed(EVENT_LOG_MAXLEN, events_policy)
@@ -637,20 +657,26 @@ class GraphStream:
                 t0, s_np, d_np, w_np, ts_np, source_key, ev_min=ev_min, ev_max=ev_max, wal_seq=wal_seq
             )
         additive = not bool(np.any(w_np < 0))
-        # Heavy-tail fast path: collapse duplicate (src, dst) pairs on the
-        # host, so the device scatters one slot per distinct pair and the
-        # flow registers one slot per distinct endpoint.  Exact for signed
-        # weights.
+        # Heavy-tail fast path: collapse duplicate (src, dst) pairs, so the
+        # device scatters one slot per distinct pair and the flow registers
+        # one slot per distinct endpoint.  Exact for signed weights.  A
+        # local session on the card collapses there, a fused one on the card
+        # not at all (its one-pass kernel takes the raw batch), others on
+        # the host.
         pre = None
-        if resolve_preagg(self._preagg, batch=n_edges):
+        collapse = resolve_preagg(self._preagg, batch=n_edges)
+        on_card = collapse and self._device_collapse
+        if collapse and self._host_collapse:
             with telemetry.span("ingest.preaggregate"):
                 pre = preaggregate_host(s_np, d_np, w_np)
         # Only pay the host-side unique scan while a touched-key delta can
         # still be consumed; the collapsed batch gives the unique sources
-        # for free.  Fused sessions skip all of this: their delta is the
-        # kernel's device bitmap.
+        # for free.  Fused sessions and those that collapse on the card skip
+        # all of this: their delta is a device bitmap, for every batch.
+        bitmap = self._fused or self._device_collapse
+        track = self._touched is not None and additive
         touched = None
-        if self._touched is not None and additive and not self._fused:
+        if track and not bitmap:
             with telemetry.span("ingest.touched"):
                 if pre is not None:
                     if self.config.directed:
@@ -678,6 +704,8 @@ class GraphStream:
             _, touched_rows = self._sketch.update_fused_(s, d, w)
             if not additive:
                 touched_rows = None
+        elif on_card:
+            touched_rows = self._collapse_on_card(s_np, d_np, w_np, track)
         elif pre is not None:
             # Arrays are padded to power-of-two buckets (zero weights are the
             # identity), so batch shapes stay on a short ladder.
@@ -690,12 +718,14 @@ class GraphStream:
             with telemetry.span("ingest.copy"):
                 arrays = [self._tensor(x) for x in (s_np, d_np, w_np)]
             self._update(*arrays)
+            if bitmap and track:
+                touched_rows = self._rows_bitmap(arrays[0], arrays[1])
         self._ring_written()
         self._mark_inflight()
         self.stats.edges_ingested += n_edges
         self.stats.ingest_s += (telemetry.now_ns() - t0) / 1e9
         self._epoch += 1
-        self._note_touched(touched_rows if self._fused else touched)
+        self._note_touched(touched_rows if bitmap else touched)
         receipt = IngestReceipt(
             epoch=self._epoch,
             n_edges=n_edges,
@@ -714,6 +744,35 @@ class GraphStream:
         the ring)."""
         live = self._sketch if self._window is None else self._window
         live.update_(src, dst, weights, backend=self.ingest_backend)
+
+    def _collapse_on_card(self, s_np, d_np, w_np, track_rows: bool) -> Optional[torch.Tensor]:
+        """One batch of a local session on the card: the raw columns copied
+        once, as one (3, B) int32 tensor (the keys and the weights' float32
+        bits), then collapsed and folded in there (``update_collapsed_``:
+        registers and bitmap in the ``ingest.preaggregate`` span, then B1 on
+        the pairs), into the summary or the window's active slice.  Returns
+        the batch's touched-row bitmap when ``track_rows``, else ``None``."""
+        with telemetry.span("ingest.copy"):
+            packed = np.empty((3, s_np.shape[0]), np.uint32)
+            packed[0], packed[1], packed[2] = s_np, d_np, w_np.view(np.uint32)
+            batch = self._tensor(packed.view(np.int32))
+        live = self._sketch if self._window is None else self._window
+        _, touched = live.update_collapsed_(
+            batch, self._collapse_tables, track_rows, backend=self.ingest_backend,
+            collapse_scope=lambda: telemetry.span("ingest.preaggregate"),
+        )
+        self.stats.device_collapses += 1
+        return touched
+
+    def _rows_bitmap(self, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+        """The (d, w_r) bool bitmap of the rows a raw batch wrote (its
+        sources', and in an undirected sketch its destinations' too), on the
+        device: the delta form of a session that collapses on the card, for
+        the batches it does not collapse."""
+        family = (self._sketch if self._window is None else self._window.template).row_hash
+        rows = family(src if self.config.directed else torch.cat([src, dst]))
+        bitmap = torch.zeros((rows.shape[0], self.config.width_rows), dtype=torch.bool, device=self.device)
+        return bitmap.scatter_(1, rows, True)
 
     def _update_pre(self, *arrays: torch.Tensor) -> None:
         """The in-place device dispatch of a host-collapsed batch (the seven
@@ -966,7 +1025,7 @@ class GraphStream:
     def _note_touched(self, batch_delta) -> None:
         """Accumulate one batch's touched-row delta for the next closure
         sync: a unique key array (plain sessions) or a (d, w_r) bool device
-        bitmap (fused sessions).  ``None`` (non-additive batch) or
+        bitmap (fused sessions and those that collapse on the card).  ``None`` (non-additive batch) or
         overflowing the row width forces the next sync to rebuild from
         scratch."""
         if self._touched is None:

@@ -22,8 +22,9 @@ tensors, so no result aliases an operand.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional, Union
+from typing import Callable, ContextManager, Optional, Union
 
 import numpy as np
 import torch
@@ -34,6 +35,7 @@ from repro_torch.kernels.countsketch.ref import median_ref
 from repro_torch.kernels.ingest_fused.ops import fused_ingest
 from repro_torch.kernels.ingest_stacked.ops import stacked_ingest
 from repro_torch.kernels.ingest_stacked.ref import stacked_ingest_ref
+from repro_torch.kernels.preagg.ops import CollapseTables, preagg_collapse
 from repro_torch.kernels.sequential.ops import sequential_update
 
 
@@ -286,6 +288,35 @@ class GLavaSketch:
             scatter_register(self.row_flows, self.row_hash(dst_unique), dst_totals)
             scatter_register(self.col_flows, self.col_hash(src_unique), src_totals)
         return self
+
+    def update_collapsed_(
+        self,
+        batch: torch.Tensor,                      # (3, B) int32: src, dst, the weights' float32 bits
+        tables: Optional[CollapseTables] = None,  # the card pass's tables, kept by the caller
+        track_rows: bool = False,
+        backend: str = "auto",
+        collapse_scope: Callable[[], ContextManager] = contextlib.nullcontext,
+    ):
+        """Ingest a RAW batch in place, collapsed on the sketch's device
+        (``repro_torch.kernels.preagg``: on the card two launches that add
+        the distinct sources' and destinations' totals into the registers
+        and mark the rows, inside ``collapse_scope()``), then the distinct
+        pairs as keys (:meth:`IngestEngine.keys`).  The same result as
+        :meth:`update_preaggregated_` of ``preaggregate_host``'s collapse,
+        bit for bit in the counting regime.
+
+        Returns ``(self, touched)``: with ``track_rows`` a new (d, w_r) bool
+        bitmap of the rows the batch wrote (its distinct sources', and
+        mirrored its destinations'), else ``None``."""
+        mirror = not self.config.directed
+        with collapse_scope():
+            touched = (torch.empty((self.depth, self.config.width_rows), dtype=torch.bool, device=self.device)
+                       if track_rows else None)
+            src, dst, w = preagg_collapse(
+                batch, self.row_flows, self.col_flows, touched, self.row_hash, self.col_hash, mirror, tables
+            )
+        IngestEngine(backend).keys(self.counters, src, dst, w, self.row_hash, self.col_hash, mirror=mirror)
+        return self, touched
 
     def update_fused_(
         self,

@@ -137,6 +137,12 @@ class SlidingWindowSketch:
         self.slice_at(self.current).update_preaggregated_(*args, backend=backend)
         return self
 
+    def update_collapsed_(self, *args, **kwargs):
+        """Raw ingest collapsed on the device into the active slice (see
+        :meth:`GLavaSketch.update_collapsed_`); returns ``(self, touched)``."""
+        _, touched = self.slice_at(self.current).update_collapsed_(*args, **kwargs)
+        return self, touched
+
     def advance_(self) -> "SlidingWindowSketch":
         """Move to the next time slice, expiring the oldest: zero the slot
         the ring wraps onto, its counters and its registers."""

@@ -21,6 +21,8 @@ from repro_torch.kernels.ingest_fused import ops as fused_ops
 from repro_torch.kernels.ingest_fused.ref import fused_ingest_ref
 from repro_torch.kernels.ingest_stacked import ops as stacked_ops
 from repro_torch.kernels.ingest_stacked.ref import stacked_ingest_ref
+from repro_torch.kernels.preagg import ops as preagg_ops
+from repro_torch.kernels.preagg.ref import preagg_collapse_ref
 from repro_torch.kernels.query import ops as query_ops
 from repro_torch.kernels.query.ref import edge_query_cells_ref, edge_query_min_ref
 from repro_torch.kernels.sequential import ops as seq_ops
@@ -1327,6 +1329,217 @@ def test_update_preaggregated_on_card_one_key_launch_equals_cpu(cuda, directed):
     cpu.update_preaggregated_(*(keys_to_tensor(x) if x.dtype == np.uint32 else torch.from_numpy(x) for x in host))
     for name in ("counters", "row_flows", "col_flows"):
         assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name))
+
+
+def _collapse_batch(rng, n, nodes, extreme=False):
+    """A zipf batch of uint32 keys and integer weights, packed (3, B) int32
+    as a session copies it; ``extreme`` plants the keys 0 and 2^32 - 1."""
+    src = ((rng.zipf(1.2, n) - 1) % nodes).astype(np.uint32)
+    dst = ((rng.zipf(1.2, n) - 1) % nodes).astype(np.uint32)
+    if extreme:
+        src[::5], dst[::7], dst[1::11] = 0xFFFFFFFF, 0, 0xFFFFFFFF
+    w = rng.integers(1, 9, n).astype(np.float32)
+    return torch.from_numpy(np.stack([src, dst, w.view(np.uint32)]).view(np.int32))
+
+
+def _pairs(src, dst, w):
+    """The weighted pairs of collapsed pair arrays, sorted."""
+    keep = w != 0
+    key = (src[keep] << 32) | dst[keep]
+    order = torch.argsort(key)
+    return key[order], w[keep][order]
+
+
+@pytest.mark.parametrize("directed", [True, False], ids=["directed", "undirected"])
+def test_preagg_collapse_kernel_equals_plain_version_over_successive_batches(cuda, directed):
+    """The card's batch collapse against its plain version over three
+    successive batches of one session's tables (the last one larger, so the
+    tables grow): the same pairs, registers and bitmap, the pairs compacted
+    first, and the tables left empty after every batch (the next batch
+    needs no fill)."""
+    from repro_torch.core.sketch import GLavaSketch, SketchConfig
+
+    cfg = SketchConfig(depth=5, width_rows=8192, width_cols=8192, directed=directed)
+    card = GLavaSketch.empty(cfg, 7, "cuda")
+    plain = card.clone()
+    tables = preagg_ops.CollapseTables()
+    rng = np.random.default_rng(5)
+    before = preagg_ops.preagg_collapse.launches
+    for n, extreme in ((50_000, False), (20_000, True), (70_000, True)):
+        batch = _collapse_batch(rng, n, 100_000, extreme).cuda()
+        touched = torch.empty((5, 8192), dtype=torch.bool, device="cuda")
+        want_touched = torch.empty_like(touched)
+        got = preagg_ops.preagg_collapse(batch, card.row_flows, card.col_flows, touched, card.row_hash,
+                                         card.col_hash, not directed, tables)
+        want = preagg_collapse_ref(batch, plain.row_flows, plain.col_flows, want_touched, plain.row_hash,
+                                   plain.col_hash, not directed, got[0].shape[0])
+        torch.cuda.synchronize()
+        n_pairs = int((want[2] != 0).sum())
+        assert int((got[2][:n_pairs] != 0).sum()) == n_pairs and not bool(got[2][n_pairs:].any())
+        for g, e in zip(_pairs(*got), _pairs(*want), strict=True):
+            assert torch.equal(g, e)
+        assert torch.equal(card.row_flows, plain.row_flows) and torch.equal(card.col_flows, plain.col_flows)
+        assert torch.equal(touched, want_touched)
+        assert bool((tables.pair_keys == -1).all()) and bool((tables.node_keys == -1).all())
+        assert not bool(tables.sums.any()) and not bool(tables.marker_sums.any()) and not bool(tables.counts[:3].any())
+    assert preagg_ops.preagg_collapse.launches == before + 3
+
+
+def _standing_sessions(directed, devices, **kw):
+    from repro_torch.api import GraphStream, Query
+    from repro_torch.core.sketch import SketchConfig
+
+    cfg = SketchConfig(depth=4, width_rows=2048, width_cols=2048, directed=directed)
+    rng = np.random.default_rng(11)
+    qs = ((rng.zipf(1.2, 256) - 1) % 400).astype(np.uint32)
+    qd = ((rng.zipf(1.2, 256) - 1) % 400).astype(np.uint32)
+    out = []
+    for device in devices:
+        gs = GraphStream.open(cfg, seed=2, device=device, **kw)
+        gs.subscribe(Query.edge(qs, qd), Query.in_flow(qs), Query.heavy(qs, theta=0.01), Query.reach(qs[:64], qd[:64]),
+                     every=1)
+        out.append(gs)
+    return out
+
+
+@pytest.mark.parametrize("nodes", [400, 100_000], ids=["incremental", "full"])
+@pytest.mark.parametrize("directed", [True, False], ids=["directed", "undirected"])
+def test_card_session_collapsing_on_the_card_equals_cpu_session(cuda, directed, nodes):
+    """A session on the card (its batches collapsed there, touched rows as a
+    bitmap) against the same session on the CPU (the host collapse, touched
+    keys) over 20 zipf batches under standing edge, in-flow, heavy and reach
+    queries: equal answers, equal summaries and equal closures."""
+    gpu, cpu = _standing_sessions(directed, ("cuda", "cpu"))
+    rng = np.random.default_rng(12)
+    for _ in range(20):
+        src = ((rng.zipf(1.2, 5_000) - 1) % nodes).astype(np.uint32)
+        dst = ((rng.zipf(1.2, 5_000) - 1) % nodes).astype(np.uint32)
+        w = rng.integers(1, 9, 5_000).astype(np.float32)
+        a, b = gpu.ingest(src, dst, w), cpu.ingest(src, dst, w)
+        assert a.touched_keys is None and a.touched_rows is not None and a.touched_rows.is_cuda
+    assert gpu.stats.device_collapses == 20 and cpu.stats.device_collapses == 0
+    for name in ("counters", "row_flows", "col_flows"):
+        assert torch.equal(getattr(gpu._live(), name).cpu(), getattr(cpu._live(), name)), name
+    for ea, eb in zip(gpu.events(), cpu.events(), strict=True):
+        assert (ea.tick, ea.epoch) == (eb.tick, eb.epoch)
+        for ra, rb in zip(ea.results, eb.results, strict=True):
+            va = ra.value if isinstance(ra.value, tuple) else (ra.value,)
+            vb = rb.value if isinstance(rb.value, tuple) else (rb.value,)
+            assert all(np.array_equal(x, y) for x, y in zip(va, vb, strict=True))
+    assert torch.equal(gpu.engine.closure_for(gpu._live(), gpu.epoch).cpu(),
+                       cpu.engine.closure_for(cpu._live(), cpu.epoch))
+    if nodes == 400:
+        assert gpu.engine.closure_incremental_refreshes > 0
+
+
+@pytest.mark.parametrize("directed", [True, False], ids=["directed", "undirected"])
+def test_card_session_mixing_batch_sizes_equals_cpu_session(cuda, directed):
+    """Batches of 2,000 (collapsed on the card) and 500 (below
+    ``PREAGG_MIN_BATCH``, raw) in each order between closure syncs, under
+    a reach query every two batches: every receipt a row bitmap, and the
+    answers, incremental refreshes and closures of a CPU session."""
+    from repro_torch.api import GraphStream, Query
+    from repro_torch.core.sketch import SketchConfig
+
+    cfg = SketchConfig(depth=3, width_rows=2048, width_cols=2048, directed=directed)
+    gpu, cpu = (GraphStream.open(cfg, seed=5, device=d) for d in ("cuda", "cpu"))
+    rng = np.random.default_rng(6)
+    qs, qd = (((rng.zipf(1.2, 64) - 1) % 300).astype(np.uint32) for _ in range(2))
+    for gs in (gpu, cpu):
+        gs.subscribe(Query.edge(qs, qd), Query.reach(qs, qd), every=2)
+    for n in (2_000, 500, 500, 2_000, 2_000, 500, 500, 500):
+        src, dst = (((rng.zipf(1.2, n) - 1) % 300).astype(np.uint32) for _ in range(2))
+        w = rng.integers(1, 9, n).astype(np.float32)
+        receipt = gpu.ingest(src, dst, w)
+        cpu.ingest(src, dst, w)
+        assert receipt.touched_keys is None and receipt.touched_rows.is_cuda
+    assert gpu.stats.device_collapses == 3
+    assert gpu.engine.closure_incremental_refreshes == cpu.engine.closure_incremental_refreshes > 0
+    for ea, eb in zip(gpu.events(), cpu.events(), strict=True):
+        for ra, rb in zip(ea.results, eb.results, strict=True):
+            assert np.array_equal(ra.value, rb.value)
+    assert torch.equal(gpu.engine.closure_for(gpu._live(), gpu.epoch).cpu(),
+                       cpu.engine.closure_for(cpu._live(), cpu.epoch))
+
+
+def test_card_sessions_never_collapse_on_the_host(cuda, monkeypatch):
+    """Neither a local nor a fused session on the card calls
+    ``preaggregate_host``: the local one collapses on the card, the fused one
+    hands the one-pass kernel its raw batch (once a batch); both equal a CPU
+    session."""
+    import repro_torch.api.stream as stream_mod
+    from repro_torch.api import GraphStream
+    from repro_torch.core.sketch import SketchConfig
+
+    calls = []
+    real = stream_mod.preaggregate_host
+    monkeypatch.setattr(stream_mod, "preaggregate_host", lambda *a: calls.append(1) or real(*a))
+    cfg = SketchConfig(depth=3, width_rows=1024, width_cols=1024)
+    rng = np.random.default_rng(9)
+    batches = [(((rng.zipf(1.2, 5_000) - 1) % 2_000).astype(np.uint32),
+                ((rng.zipf(1.2, 5_000) - 1) % 2_000).astype(np.uint32),
+                rng.integers(1, 9, 5_000).astype(np.float32)) for _ in range(3)]
+    local, fused = (GraphStream.open(cfg, device="cuda", ingest_backend=b) for b in ("auto", "fused"))
+    before = fused_ops.fused_ingest.launches
+    for gs in (local, fused):
+        for batch in batches:
+            gs.ingest(*batch)
+    assert not calls and local.stats.device_collapses == 3 and fused.stats.device_collapses == 0
+    assert fused_ops.fused_ingest.launches - before == 3
+    cpu = GraphStream.open(cfg, device="cpu")
+    for batch in batches:
+        cpu.ingest(*batch)
+    assert len(calls) == 3
+    for gs in (local, fused):
+        for name in ("counters", "row_flows", "col_flows"):
+            assert torch.equal(getattr(gs._live(), name).cpu(), getattr(cpu._live(), name)), name
+
+
+def test_card_session_ingest_makes_no_host_sync(cuda):
+    """``ingest`` of a card session, its batch collapsed on the card, under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host sync (the first
+    batch builds the kernels and the tables; the flush empties the in-flight
+    queue, so the two batches after it wait for nothing)."""
+    from repro_torch.api import GraphStream
+    from repro_torch.core.sketch import SketchConfig
+
+    gs = GraphStream.open(SketchConfig(depth=5, width_rows=8192, width_cols=8192), device="cuda")
+    rng = np.random.default_rng(3)
+    batches = [(((rng.zipf(1.2, 50_000) - 1) % 100_000).astype(np.uint32),
+                ((rng.zipf(1.2, 50_000) - 1) % 100_000).astype(np.uint32),
+                rng.integers(1, 9, 50_000).astype(np.float32)) for _ in range(3)]
+    gs.ingest(*batches[0])
+    gs.flush()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for batch in batches[1:]:
+            gs.ingest(*batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert gs.stats.device_collapses == 3
+
+
+def test_device_collapses_count_the_batches_collapsed_on_the_card(cuda):
+    """One a batch collapsed on the card; none below ``PREAGG_MIN_BATCH``,
+    with ``preagg="off"`` or on the CPU."""
+    from repro_torch.api import GraphStream
+    from repro_torch.core.ingest import PREAGG_MIN_BATCH
+    from repro_torch.core.sketch import SketchConfig
+
+    cfg = SketchConfig(depth=2, width_rows=512, width_cols=512)
+    rng = np.random.default_rng(4)
+    batches = [rng.integers(0, 1000, (2, n)).astype(np.uint32)
+               for n in (PREAGG_MIN_BATCH, PREAGG_MIN_BATCH - 1, 3 * PREAGG_MIN_BATCH)]
+    card, off, cpu = (GraphStream.open(cfg, device=d, preagg=p) for d, p in (("cuda", "auto"), ("cuda", "off"),
+                                                                               ("cpu", "auto")))
+    for gs in (card, off, cpu):
+        for src, dst in batches:
+            gs.ingest(src, dst)
+    assert (card.stats.device_collapses, off.stats.device_collapses, cpu.stats.device_collapses) == (2, 0, 0)
+    assert torch.equal(card._live().counters.cpu(), cpu._live().counters)
+    assert torch.equal(off._live().counters.cpu(), cpu._live().counters)
 
 
 # ---------------------------------------------------------------------------
