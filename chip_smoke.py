@@ -40,7 +40,11 @@ tenants, grouped by slot, into the (80, 5, 8192, 8192) stack of 16 BASE
 tenants, past 2^31 cells: counters and both registers bit-equal plane by
 plane, with the three ``index_put_`` on precomputed offsets beside it; then
 four batches that stress its warp aggregation: one row, one cell, two
-tenants alternating lane by lane, weights that cancel).  Each is
+tenants alternating lane by lane, weights that cancel); and the port-only
+incremental closure refresh (``kernels/boolmm``) at the fleet cell's shape,
+two BASE tenants and 2,048 touched rows each: bit-equal to the float32 path
+and to a full rebuild, its product kernel's device ms beside the int8
+bound.  Each is
 timed with CUDA events and the profiler beside its plain version and one
 PyTorch library call where there is one.
 
@@ -70,8 +74,10 @@ before and read just after:
   against the session's registers, and ``kernels/query/ops.py::
   edge_query_cells`` against the fused multi-query;
 - serve incremental, plain and fused: small batches, so the closure refreshes
-  incrementally (from touched keys, and from the fused kernel's bitmap);
-  each must equal the plain-backend run;
+  incrementally (from touched keys, and from the fused kernel's bitmap, on
+  the card's byte refresh); each must equal the plain-backend run, and
+  launch 3 + ceil(log2 T) boolean products and the byte transposes of
+  whole-tile operands a refresh of T touched rows;
 - analytics BASE: one serve BASE session on the kernels, then on its
   summary (TF32 checked off) the wildcard queries (four forms, 1,024 keys),
   ``bound_wildcard_path2`` (1,024 pairs) and ``global_triangle_estimate``
@@ -2753,6 +2759,115 @@ def phase_preagg(torch, gen):
     )
 
 
+REFRESH_S, REFRESH_T = 2, 2048  # the fleet cell's refresh: two tenants, a quarter of the rows touched
+
+
+def refresh_bound_ops(n: int, t: int, w: int) -> int:
+    """Operations of a touched-row refresh of n matrices at T touched rows:
+    Δ·B and B OR G·W (2·T·w² each), S*·U (2·T²·w) and ceil(log2 T)
+    squarings of S (2·T³ each)."""
+    from repro_torch.kernels.closure.ops import closure_steps
+
+    return 2 * n * (2 * t * w * w + t * t * w + closure_steps(t) * t ** 3)
+
+
+def device_ops_ms(torch, fn) -> list:
+    """(kernel, device ms) of one call of ``fn``, most time first (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trace_preroll(torch)
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total / 1e3) for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0.0) and "spin_kernel" not in e.key]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def phase_refresh(torch, gen):
+    """The port-only incremental closure refresh on the card (``kernels/
+    boolmm``) at the fleet cell's shape: S = 2 BASE tenants (d = 5, w =
+    8,192) folded into 10 matrices, T = 2,048 distinct touched rows each,
+    the closures built by B3 before additions in those rows.  The card
+    refresh bit-equal to the parent's float32 path and to a full rebuild;
+    its launches; wrapper ms; device ms of the new kernel and of the whole
+    call, each kernel named, beside the int8 operation bound; the plain
+    version (the same refresh, its products in float32); and the parent's
+    float32 path (``fleet_closure_refresh``) as the library column."""
+    from repro_torch.fleet import query as fleet_query
+    from repro_torch.kernels.boolmm import ops as boolmm_ops
+    from repro_torch.kernels.boolmm.ref import bool_product_ref
+    from repro_torch.kernels.closure.ops import transitive_closure
+
+    s, d, w, t = REFRESH_S, BASE_DEPTH, BASE_WIDTH, REFRESH_T
+    n = s * d
+    before = (torch.rand((s, 1, d, w, w), generator=gen, device="cuda") < 1.0 / w).float()
+    closures = transitive_closure(before[:, 0])
+    rows = torch.rand((s, d, w), generator=gen, device="cuda").argsort(dim=2)[..., :t]
+    counters = before.clone()
+    grown = counters[:, 0].view(n, w, w)
+    cols = torch.randint(0, w, (n, t), generator=gen, device="cuda")
+    grown[torch.arange(n, device="cuda")[:, None], rows.view(n, t), cols] += 2.0
+    del before
+    sel = list(range(s))
+    card = lambda: fleet_query.cuda_fleet_closure_refresh(closures, counters, sel, rows)  # noqa: E731
+    library = lambda: fleet_query.fleet_closure_refresh(closures, counters, sel, rows)  # noqa: E731
+    launches, transposes = boolmm_ops.bool_product.launches, boolmm_ops.byte_transpose.launches
+    got = card()
+    launches = boolmm_ops.bool_product.launches - launches
+    transposes = boolmm_ops.byte_transpose.launches - transposes
+    want = library()
+    full = transitive_closure(counters[:, 0])
+    torch.cuda.synchronize()
+    check(launches == 3 + boolmm_ops.closure_steps(t) and transposes == 2,
+          f"refresh: {launches} products and {transposes} transposes, not 3 + ceil(log2 {t}) and 2")
+    check(torch.equal(got, want), "refresh: the card refresh differs from the float32 path")
+    check(torch.equal(got, full), "refresh: the card refresh differs from a full rebuild")
+    ones = float(got.float().mean())
+    del got, want, full
+
+    def plain_product(a, b_t, c0=None, out=None, out_t=None):
+        res = bool_product_ref(a, b_t, c0)
+        if out_t is not None:
+            out_t.copy_(res.transpose(1, 2))
+        return res if out is None else out.copy_(res)
+
+    ms = time_ms(card, 5)
+    kernel_ms = device_ms(card, 3, "bool_product_wgmma_kernel")
+    transpose_ms = device_ms(card, 3, "byte_transpose_kernel")
+    all_ms = device_ms(card, 3)
+    by_kernel = device_ops_ms(torch, card)
+    check(not any("gemm" in k.lower() for k, _ in by_kernel), f"refresh: a library product on the card: {by_kernel}")
+    library_ms = time_ms(library, 3)
+    library_dev = device_ms(library, 2)
+    real = boolmm_ops.bool_product
+    boolmm_ops.bool_product = plain_product
+    try:
+        plain_ms = time_ms(card, 2)
+    finally:
+        boolmm_ops.bool_product = real
+    ops = refresh_bound_ops(n, t, w)
+    bound_ms = ops / PEAK_INT8_OPS * 1e3
+    print(
+        f"[chip_smoke] refresh S={s} d={d} w={w} T={t} ({n} matrices): bit-equal to the float32 path and to a "
+        f"full rebuild ({ones:.3f} ones), {launches} product and {transposes} transpose launches; wrapper "
+        f"{ms:.4f} ms; device: the product kernel {_fmt(kernel_ms)}"
+        + (f" ({100 * bound_ms / kernel_ms:.1f}% of the bound)" if kernel_ms else "")
+        + f", the transpose {_fmt(transpose_ms)}, every op {_fmt(all_ms)}; bound {bound_ms:.4f} ms ({ops:.3e} int8 operations); plain {plain_ms:.3f} "
+        f"ms; the float32 path {library_ms:.3f} ms (device {_fmt(library_dev)})"
+    )
+    print("[chip_smoke] refresh device ms by kernel: "
+          + "; ".join(f"{k[:60]} {v:.4f}" for k, v in by_kernel[:12]))
+    del closures, counters, grown
+    return dict(
+        name="bool_product", route="cuda", source="src/repro_torch/csrc/boolmm.cu",
+        replaces="src/repro/core/reach.py::closure_refresh (XLA einsums, no Pallas kernel)", max_abs_err=0.0,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="operations", library_ms=library_ms,
+    )
+
+
 def timed_fleet(torch, fn):
     """(fleet, each subscription's events, host wall seconds) of one fleet run."""
     t0 = time.time()
@@ -5080,6 +5195,7 @@ def main() -> int:
     from repro_torch.kernels.query import ops as query_ops
     from repro_torch.kernels.ingest_stacked import ops as stacked_ops
     from repro_torch.kernels.preagg import ops as preagg_ops
+    from repro_torch.kernels.boolmm import ops as boolmm_ops
     from repro_torch.kernels.sequential import ops as seq_ops
     from repro_torch.launch import serve
 
@@ -5098,7 +5214,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
     for phase in (phase_ingest, phase_queries, phase_closure, phase_fused_ingest, phase_flows, phase_countsketch,
-                  phase_sequential, phase_stacked_ingest, phase_preagg):
+                  phase_sequential, phase_stacked_ingest, phase_preagg, phase_refresh):
         out = phase(torch, gen)
         for row in out if isinstance(out, list) else [out]:
             rows[row["name"]] = row
@@ -5127,6 +5243,8 @@ def main() -> int:
         "sequential_update": seq_ops.sequential_update,
         "ingest_stacked": stacked_ops.stacked_ingest,
         "preagg_collapse": preagg_ops.preagg_collapse,
+        "bool_product": boolmm_ops.bool_product,
+        "byte_transpose": boolmm_ops.byte_transpose,
     }
 
     def drive(kernel_names, fn):
@@ -5218,18 +5336,50 @@ def main() -> int:
     profile_serve(torch, serve, SERVE_BASE, "serve BASE")
     torch.cuda.empty_cache()
 
-    inc, inc_ev, inc_s = timed_run(torch, lambda: serve.main(SERVE_INCREMENTAL))
+    def refresh_launches(fn, label):
+        """Run ``fn`` (a serve run, every count at 0) with the shape of each
+        card refresh recorded; check the product and transpose launches
+        against them: 3 + ceil(log2 T) products a refresh, and a transpose
+        of the closure and of the touched-row graph where each is whole
+        tiles."""
+        shapes = []
+        real = boolmm_ops.closure_refresh
+
+        def recording(closure, delta, rows):
+            shapes.append((closure.shape[-1], rows.shape[-1]))
+            return real(closure, delta, rows)
+
+        boolmm_ops.closure_refresh = recording
+        try:
+            stream, events, secs = timed_run(torch, fn)
+        finally:
+            boolmm_ops.closure_refresh = real
+        products = sum(3 + boolmm_ops.closure_steps(t) for _, t in shapes)
+        transposes = sum((w % boolmm_ops.TILE == 0) + (t % boolmm_ops.TILE == 0) for w, t in shapes)
+        got = (counted["bool_product"].launches, counted["byte_transpose"].launches)
+        check(len(shapes) == stream.engine.closure_incremental_refreshes,
+              f"{label}: {len(shapes)} card refreshes for {stream.engine.closure_incremental_refreshes} incremental")
+        check(got == (products, transposes),
+              f"{label}: {got[0]} product and {got[1]} transpose launches for refreshes (w, T) {shapes}, not "
+              f"{products} and {transposes}")
+        return stream, events, secs, f"{got[0]} product and {got[1]} transpose launches for T {[t for _, t in shapes]}"
+
+    inc, inc_ev, inc_s, inc_launches = drive(
+        ("bool_product",), lambda: refresh_launches(lambda: serve.main(SERVE_INCREMENTAL), "serve incremental")
+    )
     plain, plain_ev, plain_s = timed_run(torch, lambda: serve.main(SERVE_INCREMENTAL + PLAIN_BACKENDS))
     check_same(torch, inc, inc_ev, plain, plain_ev, "serve incremental vs plain")
     check(inc.engine.closure_incremental_refreshes > 0, "no incremental closure refresh")
-    finc, finc_ev, finc_s = timed_run(torch, lambda: run_fused(serve, SERVE_INCREMENTAL))
+    finc, finc_ev, finc_s, finc_launches = drive(
+        (), lambda: refresh_launches(lambda: run_fused(serve, SERVE_INCREMENTAL), "fused serve incremental")
+    )
     check_same(torch, finc, finc_ev, plain, plain_ev, "fused serve incremental vs plain")
     check(finc.engine.closure_incremental_refreshes > 0, "fused: no bitmap-driven incremental refresh")
     print(
         f"[chip_smoke] serve incremental: kernels {inc_s:.2f} s, fused {finc_s:.2f} s, plain {plain_s:.2f} s; "
-        f"closure full={inc.engine.closure_refreshes} incremental={inc.engine.closure_incremental_refreshes}, "
-        f"fused full={finc.engine.closure_refreshes} incremental={finc.engine.closure_incremental_refreshes}; "
-        f"identical to the plain run"
+        f"closure full={inc.engine.closure_refreshes} incremental={inc.engine.closure_incremental_refreshes} "
+        f"({inc_launches}), fused full={finc.engine.closure_refreshes} "
+        f"incremental={finc.engine.closure_incremental_refreshes} ({finc_launches}); identical to the plain run"
     )
 
     # The analytics path: a serve BASE session, then the query plane beyond

@@ -338,6 +338,14 @@ def _kernel_entry(name: str) -> Callable[[Fixture], TracedEntry]:
             from repro_torch.kernels.closure import ops
 
             return TracedEntry(ops.transitive_closure, (sk.counters,))
+        if name == "boolmm":
+            from repro_torch.kernels.boolmm import ops
+            from repro_torch.kernels.closure.ops import transitive_closure
+
+            # The card's touched-row refresh on the fixture's batch of rows.
+            plan = ops.pad_rows(rows)
+            delta = sk.counters[torch.arange(fx.depth, device=sk.device)[:, None], plan] > 0
+            return TracedEntry(ops.closure_refresh, (transitive_closure(sk.counters), delta, plan))
         if name == "flow":
             from repro_torch.kernels.flow import ops
 
@@ -494,7 +502,8 @@ def _fleet_query_entry(family: str) -> Callable[[Fixture], TracedEntry]:
             return TracedEntry(build_fn, (st.counters, sel), shape)
         if family == "closure_refresh":
             rows = st.row_hash(src[:4])[None].expand(4, -1, -1).contiguous()
-            return TracedEntry(fq.fleet_closure_refresh, (build_fn(st.counters, sel), st.counters, sel, rows), shape)
+            return TracedEntry(eng._fn("closure_refresh", st.device), (build_fn(st.counters, sel), st.counters, sel, rows),
+                               shape)
         raise ValueError(f"no fixture for fleet query family {family!r}")
 
     return build
@@ -572,6 +581,7 @@ ENTRY_POINTS: Tuple[EntryPoint, ...] = (
     EntryPoint("kernels.ingest_stacked.ops", HOT, _kernel_entry("ingest_stacked")),
     EntryPoint("kernels.query.ops", HOT, _kernel_entry("query")),
     EntryPoint("kernels.closure.ops", HOT, _kernel_entry("closure")),
+    EntryPoint("kernels.boolmm.ops", HOT, _kernel_entry("boolmm")),
     EntryPoint("kernels.flow.ops", HOT, _kernel_entry("flow")),
     EntryPoint("kernels.countsketch.ops", HOT, _kernel_entry("countsketch")),
     EntryPoint("kernels.countsketch.median", HOT, _kernel_entry("countsketch.median")),

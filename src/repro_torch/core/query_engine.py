@@ -14,8 +14,9 @@ family (edge, point/flow, heavy-hitter, subgraph, reachability) and owns
   device sync), and refreshes it incrementally from touched rows (given as
   node keys or as the fused ingest's touched-row bitmap);
 - the **backend convention**: ``torch`` (plain PyTorch) or ``cuda`` (the
-  hand-written multi-query kernel, ``repro_torch.kernels.query``, and the
-  closure squaring kernel, ``repro_torch.kernels.closure``).  ``auto``
+  hand-written multi-query kernel, ``repro_torch.kernels.query``, the
+  closure squaring kernel, ``repro_torch.kernels.closure``, and the
+  refresh's boolean product, ``repro_torch.kernels.boolmm``).  ``auto``
   means ``cuda`` for a sketch on a CUDA device and ``torch`` on the CPU;
   there is no environment override.
 """
@@ -28,9 +29,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import telemetry
 from repro_torch.core import queries, reach
 from repro_torch.core.hashing import keys_to_tensor
 from repro_torch.core.sketch import GLavaSketch, SketchConfig
+from repro_torch.kernels.boolmm import ops as boolmm
 from repro_torch.kernels.closure.ops import transitive_closure as cuda_transitive_closure
 from repro_torch.kernels.query.ops import edge_query as cuda_edge_query
 
@@ -64,9 +67,17 @@ def _cuda_edge_query(sketch: GLavaSketch, src, dst):
     return est
 
 
+def _cuda_closure_refresh(closure: torch.Tensor, counters: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``reach.closure_refresh`` on the 8-bit tensor cores
+    (``kernels/boolmm``): only the T touched rows of the counters are read,
+    as bytes; no float copy of the closure."""
+    rows = boolmm.pad_rows(rows)
+    d_idx = torch.arange(closure.shape[0], device=closure.device)[:, None]
+    return boolmm.closure_refresh(closure, counters[d_idx, rows, :] > 0, rows)
+
+
 # family -> (torch fn, cuda fn); point/flow families are O(d·Q) register
-# gathers either way, so both backends share the torch path, and the
-# touched-row refresh's small products stay torch calls on both.
+# gathers either way, so both backends share the torch path.
 _FAMILIES: Dict[str, Tuple[Callable, Callable]] = {
     "edge": (queries.edge_query, _cuda_edge_query),
     "in_flow": (queries.node_in_flow, queries.node_in_flow),
@@ -80,7 +91,7 @@ _FAMILIES: Dict[str, Tuple[Callable, Callable]] = {
     "subgraph_batch": (queries.subgraph_query_batch, queries.subgraph_query_batch),
     "reach_pre": (reach.reach_query_precomputed, reach.reach_query_precomputed),
     "closure": (reach.transitive_closure, cuda_transitive_closure),
-    "closure_refresh": (reach.closure_refresh, reach.closure_refresh),
+    "closure_refresh": (reach.closure_refresh, _cuda_closure_refresh),
 }
 
 
@@ -286,25 +297,26 @@ class QueryEngine:
             # Nothing touched: the counters are unchanged, only retag.
             self._closure_epoch = epoch
             return self._closure
-        if is_bitmap:
-            # Per-depth touched row indices, right-padded with row 0 to a
-            # shared T (idempotent under the union).
-            t_pad = touched_size + (-touched_size) % CLOSURE_REFRESH_PAD_T
-            rows_np = np.zeros((touched_keys.shape[0], t_pad), np.int64)
-            for i, row_bits in enumerate(touched_keys):
-                idx = np.flatnonzero(row_bits)
-                rows_np[i, : idx.size] = idx
-            rows = torch.from_numpy(rows_np).to(sketch.device)
-        else:
-            rows = sketch.row_hash(keys_to_tensor(touched_keys, sketch.device))  # (d, U)
-            pad = (-rows.shape[1]) % CLOSURE_REFRESH_PAD_T
-            if pad:
-                # Padding with row 0 is exact: an untouched row only restates
-                # paths the cached closure already contains.
-                rows = F.pad(rows, (0, pad))
-        self._closure = self._fn("closure_refresh", sketch.device)(
-            self._closure, sketch.counters, rows
-        )
+        with telemetry.span("tick.refresh"):
+            if is_bitmap:
+                # Per-depth touched row indices, right-padded with row 0 to a
+                # shared T (idempotent under the union).
+                t_pad = touched_size + (-touched_size) % CLOSURE_REFRESH_PAD_T
+                rows_np = np.zeros((touched_keys.shape[0], t_pad), np.int64)
+                for i, row_bits in enumerate(touched_keys):
+                    idx = np.flatnonzero(row_bits)
+                    rows_np[i, : idx.size] = idx
+                rows = torch.from_numpy(rows_np).to(sketch.device)
+            else:
+                rows = sketch.row_hash(keys_to_tensor(touched_keys, sketch.device))  # (d, U)
+                pad = (-rows.shape[1]) % CLOSURE_REFRESH_PAD_T
+                if pad:
+                    # Padding with row 0 is exact: an untouched row only restates
+                    # paths the cached closure already contains.
+                    rows = F.pad(rows, (0, pad))
+            self._closure = self._fn("closure_refresh", sketch.device)(
+                self._closure, sketch.counters, rows
+            )
         self._closure_epoch = epoch
         self.closure_incremental_refreshes += 1
         self._incremental_since_full += 1

@@ -7,10 +7,10 @@ matrix squaring, ``A <- A OR (A @ A > 0)``, ``ceil(log2 w)`` times.  One
 closure answers all-pairs reachability, so its cost amortizes over query
 batches (DESIGN.md Section 2).
 
-The functions here are the plain PyTorch path; the hand-written CUDA
-squaring step lives in ``repro_torch.kernels.closure``.  The small products
-of :func:`closure_refresh` stay ``torch`` calls on every backend, as the
-reference leaves them to XLA.
+The functions here are the plain PyTorch path; the card's squaring step
+lives in ``repro_torch.kernels.closure``, and its :func:`closure_refresh`,
+every product on the 8-bit tensor cores, in ``repro_torch.kernels.boolmm``
+(the reference leaves the refresh's products to XLA).
 """
 from __future__ import annotations
 

@@ -16,7 +16,9 @@ through one ``transitive_closure`` call over ``(S, d, w, w)`` — on the card
 the CUDA closure kernel (``kernels/closure``, ``ceil(log2 w)`` launches a
 build whatever S is), on the CPU the plain version, as ``QueryEngine``'s
 backend table routes ``"closure"`` — or one ``closure_refresh`` with S folded
-into the sketch axis (each plane is independent, so no loop over S).  The
+into the sketch axis (each plane is independent, so no loop over S): on the
+card the byte refresh of ``kernels/boolmm``, which reads only the touched
+rows of the counters, on the CPU ``reach.closure_refresh``.  The
 reference pads S to a power of two for its jit cache; the port builds S
 planes, and ``closure_builds`` / ``closure_incremental_refreshes`` count the
 tenants as the reference's do.  The cache is keyed by SLOT, and per-tenant
@@ -33,6 +35,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import reach
 from repro_torch.core.hashing import affine_hash_np
 from repro_torch.core.queries import undirected_selfloop_correction
@@ -47,6 +50,7 @@ from repro_torch.core.query_engine import (
     run_padded,
 )
 from repro_torch.fleet.stack import FleetSketch
+from repro_torch.kernels.boolmm import ops as boolmm
 from repro_torch.kernels.closure.ops import transitive_closure as cuda_transitive_closure
 
 
@@ -158,7 +162,25 @@ def fleet_closure_refresh(closures, counters, sel: List[int], rows):
     return out.reshape(s, d, w, w)
 
 
-# family -> (torch fn, cuda fn): only the closure build has a kernel.
+def cuda_fleet_closure_refresh(closures, counters, sel: List[int], rows):
+    """:func:`fleet_closure_refresh` on the 8-bit tensor cores
+    (``kernels/boolmm``), S folded into the sketch axis: only the T touched
+    rows of each selected slot's slices are read and window-summed (never
+    the (S, d, w, w) window sum), as bytes; no float copy of a closure."""
+    s, d, w, _ = closures.shape
+    rows = boolmm.pad_rows(rows)
+    t = rows.shape[2]
+    sel_t = torch.tensor(sel).to(counters.device, non_blocking=True)[:, None, None]
+    d_idx = torch.arange(d, device=counters.device)[None, :, None]
+    if counters.shape[1] == 1:
+        delta = counters[sel_t, 0, d_idx, rows] > 0                    # (S, d, T, w)
+    else:
+        delta = counters[sel_t, :, d_idx, rows].sum(dim=3) > 0         # (S, d, T, K, w) summed over K
+    out = boolmm.closure_refresh(closures.reshape(s * d, w, w), delta.reshape(s * d, t, w), rows.reshape(s * d, t))
+    return out.reshape(s, d, w, w)
+
+
+# family -> (torch fn, cuda fn): the closure build and refresh have kernels.
 _FLEET_FAMILIES: Dict[str, Tuple[Callable, Callable]] = {
     "edge": (fleet_edge_query, fleet_edge_query),
     "in_flow": (fleet_in_flow, fleet_in_flow),
@@ -168,7 +190,7 @@ _FLEET_FAMILIES: Dict[str, Tuple[Callable, Callable]] = {
     "subgraph_batch": (fleet_subgraph_batch, fleet_subgraph_batch),
     "reach_pre": (fleet_reach_pre, fleet_reach_pre),
     "closure": (_closure_build(reach.transitive_closure), _closure_build(cuda_transitive_closure)),
-    "closure_refresh": (fleet_closure_refresh, fleet_closure_refresh),
+    "closure_refresh": (fleet_closure_refresh, cuda_fleet_closure_refresh),
 }
 
 
@@ -327,21 +349,22 @@ class FleetQueryEngine:
             self.closure_builds += 1
 
     def _refresh(self, state: FleetSketch, items) -> None:
-        a, b = state.row_hash.a_host, state.row_hash.b_host
-        w_r = state.config.width_rows
-        t_max = max(delta.size for _, delta, _ in items)
-        t_pad = t_max + (-t_max) % CLOSURE_REFRESH_PAD_T
-        # Row plans on the host by the exact hash twin; padding with row 0 is
-        # exact (an untouched row restates paths the closure already holds).
-        rows_np = np.zeros((len(items), a.shape[0], t_pad), np.int64)
-        for i, (_, delta, _) in enumerate(items):
-            rows_np[i, :, : delta.size] = affine_hash_np(
-                delta.astype(np.uint32, copy=False)[None, :], a[:, None], b[:, None], w_r
-            )
-        slots = [slot for slot, _, _ in items]
-        closures = torch.stack([self._closures[s][0] for s in slots])
-        rows = torch.from_numpy(rows_np).to(state.device)
-        out = self._fn("closure_refresh", state.device)(closures, state.counters, slots, rows)
+        with telemetry.span("tick.refresh"):
+            a, b = state.row_hash.a_host, state.row_hash.b_host
+            w_r = state.config.width_rows
+            t_max = max(delta.size for _, delta, _ in items)
+            t_pad = t_max + (-t_max) % CLOSURE_REFRESH_PAD_T
+            # Row plans on the host by the exact hash twin; padding with row 0 is
+            # exact (an untouched row restates paths the closure already holds).
+            rows_np = np.zeros((len(items), a.shape[0], t_pad), np.int64)
+            for i, (_, delta, _) in enumerate(items):
+                rows_np[i, :, : delta.size] = affine_hash_np(
+                    delta.astype(np.uint32, copy=False)[None, :], a[:, None], b[:, None], w_r
+                )
+            slots = [slot for slot, _, _ in items]
+            closures = torch.stack([self._closures[s][0] for s in slots])
+            rows = torch.from_numpy(rows_np).to(state.device, non_blocking=True)
+            out = self._fn("closure_refresh", state.device)(closures, state.counters, slots, rows)
         self.dispatches["closure_refresh"] += 1
         for i, (slot, _, epoch) in enumerate(items):
             self._closures[slot] = (out[i], epoch)

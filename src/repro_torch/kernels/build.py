@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 
 # Every CUDA source of the port (``csrc/<name>.cu``).
 SOURCES = ("ingest", "query", "closure", "ingest_fused", "flow", "countsketch", "sequential", "ingest_stacked",
-           "preagg")
+           "preagg", "boolmm")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # Loads of each library in this process (each should be loaded once).

@@ -45,6 +45,14 @@ import torch.autograd.profiler as _profiler
 
 RING_SIZE = 65536
 
+# Every name the program gives a span: a reader of a name not here reads
+# nothing, since the program it runs on does not record it.
+NAMES = frozenset({
+    "ingest", "ingest.codec", "ingest.preaggregate", "ingest.touched", "ingest.route", "ingest.copy",
+    "ingest.wait", "tick", "tick.wait", "tick.results", "tick.refresh", "analytics.pagerank",
+    "analytics.triangles",
+})
+
 # The program's one clock: its counters' seconds and the spans' times.
 now_ns = time.time_ns
 _clock = time.time_ns  # what a span reads; a name of its own so a test can watch it

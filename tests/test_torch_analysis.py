@@ -358,7 +358,8 @@ def test_kernel_wrappers_are_found():
 
     assert {"ingest_scatter", "ingest_keys", "closure_step", "transitive_closure", "edge_query_min",
             "edge_query_cells", "flows", "fused_ingest", "stacked_ingest", "countsketch", "countsketch_family",
-            "countsketch_median", "sequential_update", "preagg_collapse"} == kernel_wrappers(SRC_PORT)
+            "countsketch_median", "sequential_update", "preagg_collapse", "bool_product",
+            "byte_transpose"} == kernel_wrappers(SRC_PORT)
 
 
 # ---------------------------------------------------------------------------
@@ -488,7 +489,7 @@ def test_port_tree_passes_with_committed_baseline_and_budgets(tmp_path):
 # backends are the CUDA ones, and five kernel entries are the port's own.
 REMOVED = {"ingest.onehot", "ingest.pallas", "query.edge.pallas"}
 ADDED = {"ingest.cuda", "query.edge.cuda", "kernels.ingest.keys", "kernels.ingest_stacked.ops",
-         "kernels.sequential.ops", "kernels.countsketch.median", "kernels.preagg.ops",
+         "kernels.sequential.ops", "kernels.countsketch.median", "kernels.preagg.ops", "kernels.boolmm.ops",
          # the step builder's steps (launch/steps.py), which the reference does not register
          *(f"steps.{name}" for name, _, _ in STEP_CELLS)}
 RENAMED = {"ingest.pallas": "ingest.cuda", "query.edge.pallas": "query.edge.cuda"}

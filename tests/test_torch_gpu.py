@@ -8,6 +8,8 @@ import pytest
 import torch
 
 from repro_torch.core import reach
+from repro_torch.kernels.boolmm import ops as boolmm_ops
+from repro_torch.kernels.boolmm.ref import bool_product_ref
 from repro_torch.kernels.closure import ops as closure_ops
 from repro_torch.kernels.closure.ref import closure_step_ref
 from repro_torch.kernels.countsketch import ops as cs_ops
@@ -389,6 +391,156 @@ def test_closure_loop_matches_plain_closure(cuda, w):
     assert got.dtype == torch.bool and torch.equal(got, reach.transitive_closure(adj))
 
 
+def _bits(gen, shape, density):
+    return (torch.rand(shape, generator=gen, device="cuda") < density).to(torch.uint8)
+
+
+@pytest.mark.parametrize("w,t", [(8192, 64), (8192, 1000), (8192, 2048), (200, 64), (384, 130)])
+def test_bool_product_bit_equals_plain_version(cuda, w, t):
+    """The refresh's four products at (w, T), two matrices: Δ·B with its
+    transpose (sums far past 255), a squaring S OR S·S, S*·U, and B OR G·W
+    with no transpose; T and w = 200 off the tile (the wrapper pads)."""
+    n = 2
+    delta, b, s = _bits(cuda, (n, t, w), 0.002), _bits(cuda, (n, w, w), 0.3), _bits(cuda, (n, t, t), 0.01)
+    b_t = b.transpose(1, 2).contiguous()
+    u_t = torch.empty((n, w, t), dtype=torch.uint8, device="cuda")
+    s2_t = torch.empty((n, t, t), dtype=torch.uint8, device="cuda")
+    cases = [
+        ((delta, b_t), {"out_t": u_t}),
+        ((s, s.transpose(1, 2).contiguous()), {"c0": s, "out_t": s2_t}),
+        ((s, None), {}),
+        ((None, None), {"c0": b}),
+    ]
+    for (a, bt), kw in cases:
+        if a is None:  # B OR G·W: G is B's first T columns, W^T the last product's
+            a, bt = b[:, :, :t].contiguous(), w_t
+        if bt is None:  # S*·U, written as W^T
+            bt, w_t = u_t.clone(), torch.empty((n, w, t), dtype=torch.uint8, device="cuda")
+            kw = {"out_t": w_t}
+        before = boolmm_ops.bool_product.launches
+        got = boolmm_ops.bool_product(a, bt, **kw)
+        assert boolmm_ops.bool_product.launches == before + 1
+        want = bool_product_ref(a, bt, kw.get("c0"))
+        assert got.dtype == torch.uint8 and torch.equal(got, want), (w, t, a.shape, bt.shape)
+        if "out_t" in kw:
+            assert torch.equal(kw["out_t"], want.transpose(1, 2))
+
+
+@pytest.mark.parametrize("shape,launched", [((3, 256, 384), 1), ((1, 128, 8192), 1), ((2, 200, 128), 0)])
+def test_byte_transpose_equals_torch(cuda, shape, launched):
+    """The refresh's byte transpose: the kernel at tile multiples, a strided
+    copy elsewhere."""
+    a = _bits(cuda, shape, 0.5)
+    before = boolmm_ops.byte_transpose.launches
+    got = boolmm_ops.byte_transpose(a)
+    assert boolmm_ops.byte_transpose.launches - before == launched
+    assert torch.equal(got, a.transpose(1, 2))
+
+
+def test_card_refresh_launches_and_equals_plain_refresh(cuda):
+    """The session's card refresh at w = 256, T = 130 (padded to the tile,
+    256): 3 + ceil(log2 256) products and 2 transposes, equal to the plain
+    float refresh on the card and to a full rebuild."""
+    from repro_torch.core.query_engine import _FAMILIES
+
+    d, w = 3, 256
+    before = (torch.rand((d, w, w), generator=cuda, device="cuda") < 1.5 / w).float()
+    rows = torch.randint(1, w, (d, 130), generator=cuda, device="cuda")
+    after = before.clone()
+    after[torch.arange(d, device="cuda")[:, None], rows, torch.randint(0, w, (d, 130), generator=cuda,
+                                                                         device="cuda")] += 3.0
+    closure = closure_ops.transitive_closure(before)
+    plain, card = _FAMILIES["closure_refresh"]
+    launches = boolmm_ops.bool_product.launches, boolmm_ops.byte_transpose.launches
+    got = card(closure, after, rows)
+    assert boolmm_ops.bool_product.launches - launches[0] == 3 + closure_ops.closure_steps(256)
+    assert boolmm_ops.byte_transpose.launches - launches[1] == 2  # the closure and S
+    assert got.dtype == torch.bool and torch.equal(got, plain(closure, after, rows))
+    assert torch.equal(got, reach.transitive_closure(after))
+
+
+def test_card_refresh_syncs_nothing(cuda):
+    """The session's and the fleet's card refreshes, inputs on the card,
+    under ``set_sync_debug_mode("error")``."""
+    from repro_torch.core.query_engine import _FAMILIES
+    from repro_torch.fleet import query as fleet_query
+
+    d, w, t = 2, 256, 64
+    counters = (torch.rand((3, 2, d, w, w), generator=cuda, device="cuda") < 1.0 / w).float()
+    rows = torch.randint(0, w, (2, d, t), generator=cuda, device="cuda")
+    closures = closure_ops.transitive_closure(counters[[0, 2]].sum(dim=1))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        one = _FAMILIES["closure_refresh"][1](closures[0], counters[0, 0], rows[0])
+        two = fleet_query.cuda_fleet_closure_refresh(closures, counters, [0, 2], rows)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(one, reach.closure_refresh(closures[0], counters[0, 0], rows[0]))
+    assert torch.equal(two, fleet_query.fleet_closure_refresh(closures, counters, [0, 2], rows))
+
+
+def _zipf_batch(rng, n, nodes=3000):
+    src = (rng.zipf(1.2, n) % nodes).astype(np.uint32)
+    dst = (rng.zipf(1.2, n) % nodes).astype(np.uint32)
+    return src, dst, rng.integers(1, 9, n).astype(np.float32)
+
+
+def test_session_card_refresh_equals_cpu(cuda):
+    """A session with a standing reach on the card and on the CPU, over
+    small batches that refresh incrementally: the same closure after every
+    batch, through the card refresh's launches."""
+    from repro_torch.api import GraphStream, Query
+    from repro_torch.core.sketch import SketchConfig
+
+    cfg = SketchConfig(depth=3, width_rows=256, width_cols=256)
+    rng = np.random.default_rng(1)
+    q = np.arange(16, dtype=np.uint32)
+    sessions = {dev: GraphStream(cfg, seed=3, device=dev) for dev in ("cuda", "cpu")}
+    for gs in sessions.values():
+        gs.subscribe(Query.reach(q, q[::-1]), every=1)
+    launches = boolmm_ops.bool_product.launches
+    for _ in range(10):
+        batch = _zipf_batch(rng, 40)
+        for gs in sessions.values():
+            gs.ingest(*batch)
+        gpu, cpu = (sessions[dev].engine._closure for dev in ("cuda", "cpu"))
+        assert torch.equal(gpu.cpu(), cpu)
+    engines = [sessions[dev].engine for dev in ("cuda", "cpu")]
+    assert engines[0].closure_incremental_refreshes == engines[1].closure_incremental_refreshes >= 5
+    assert boolmm_ops.bool_product.launches > launches
+
+
+def test_fleet_card_refresh_equals_cpu(cuda):
+    """A 3-tenant fleet with standing reaches on the card and on the CPU over
+    20 zipf batches (zipf tenant ids): the same closures, slot by slot,
+    after every batch, through the card refresh's launches."""
+    from repro_torch.api import Query
+    from repro_torch.core.sketch import SketchConfig
+    from repro_torch.fleet import SketchFleet
+
+    cfg = SketchConfig(depth=3, width_rows=256, width_cols=256)
+    rng = np.random.default_rng(2)
+    q = np.arange(16, dtype=np.uint32)
+    fleets = {dev: SketchFleet(cfg, capacity=4, seed=5, device=dev) for dev in ("cuda", "cpu")}
+    for fleet in fleets.values():
+        for tenant in ("a", "b", "c"):
+            fleet.tenant(tenant).subscribe(Query.reach(q, q[::-1]), every=1)
+    launches = boolmm_ops.bool_product.launches
+    for _ in range(20):
+        ids = np.array(["a", "b", "c"])[(rng.zipf(1.3, 90) - 1) % 3]
+        batch = _zipf_batch(rng, 90)
+        for fleet in fleets.values():
+            fleet.ingest_mixed(ids, *batch)
+        gpu, cpu = (fleets[dev].engine._closures for dev in ("cuda", "cpu"))
+        assert gpu.keys() == cpu.keys()
+        for slot, (closure, epoch) in cpu.items():
+            assert gpu[slot][1] == epoch and torch.equal(gpu[slot][0].cpu(), closure)
+    engines = [fleets[dev].engine for dev in ("cuda", "cpu")]
+    assert engines[0].closure_incremental_refreshes == engines[1].closure_incremental_refreshes >= 20
+    assert boolmm_ops.bool_product.launches > launches
+
+
 def test_wrappers_refuse_bad_operands(cuda):
     a = torch.zeros(1, 128, 128, device="cuda")
     a8 = a.to(torch.uint8)
@@ -402,6 +554,10 @@ def test_wrappers_refuse_bad_operands(cuda):
         closure_ops.closure_step(odd, odd.clone())
     with pytest.raises(ValueError):
         closure_ops.closure_step(a, a.clone())  # bytes only
+    with pytest.raises(ValueError):
+        boolmm_ops.bool_product(a8, a8_t, out=a8)  # the output must not alias an input
+    with pytest.raises(ValueError):
+        boolmm_ops.bool_product(a, a.clone())  # bytes only
     idx = torch.zeros(1, 4, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="float32"):
         query_ops.edge_query_min(a.double(), idx, idx)

@@ -128,6 +128,48 @@ def test_every_span_nests_in_its_call(path):
     assert sum(r.name == "tick" for r in records) == len(traces)
 
 
+@pytest.mark.parametrize("path", ["session", "fleet"])
+def test_refresh_span_names_each_incremental_refresh(path):
+    """Small batches refresh the closure incrementally after the first
+    tick's full build: one ``tick.refresh`` a refresh dispatch, a child of
+    its ``tick``; none around the full build."""
+    small = _batches(2, n=4, edges=6)
+    if path == "session":
+        def run():
+            gs = GraphStream.open(CONFIG, seed=3, device="cpu")
+            gs.subscribe(STANDING, every=1)
+            for b in small:
+                gs.ingest(*b)
+            return gs.engine.closure_incremental_refreshes, gs.engine.closure_refreshes
+    else:
+        def run():
+            fleet = SketchFleet.open(CONFIG, capacity=4, seed=3, device="cpu")
+            for tenant in (0, 1):
+                fleet.tenant(tenant).subscribe(STANDING, every=1)
+            for b in small:
+                fleet.ingest_mixed(np.arange(6) % 2, *b)
+            return fleet.engine.dispatches["closure_refresh"], fleet.engine.dispatches["closure"]
+
+    (refreshes, builds), records = _profiled(run)
+    by_id = {r.id: r for r in records}
+    spans = [r for r in records if r.name == "tick.refresh"]
+    assert refreshes == len(small) - 1 and builds == 1
+    assert len(spans) == refreshes and all(by_id[r.parent].name == "tick" for r in spans)
+
+
+def test_span_names_are_declared():
+    """Every name the port gives ``telemetry.span`` is in
+    ``telemetry.NAMES``, which the benchmark's readers consult."""
+    import pathlib
+    import re
+
+    import repro_torch
+
+    root = pathlib.Path(repro_torch.__file__).parent
+    used = {m for f in root.rglob("*.py") for m in re.findall(r'telemetry\.span\("([^"]+)"\)', f.read_text())}
+    assert used == telemetry.NAMES
+
+
 def test_kineto_events_lie_inside_their_span():
     """A CPU op run inside a span lies inside the span's ``[start_ns,
     end_ns]``: spans and the profiler's events share one clock."""
