@@ -826,25 +826,44 @@ def phase_closure(torch, gen):
 
 
 def closure_sass() -> str:
-    """The count of warpgroup MMA instructions (IGMMA, HGMMA, QGMMA) in the
-    built closure library's SASS, and ptxas's resource line for each of its
-    kernels."""
+    """Each kernel of the built closure library (B3's step, the refresh's
+    product, the byte transpose: one source, ``csrc/closure.cu``) with its
+    count of warpgroup MMA instructions (IGMMA, HGMMA, QGMMA) in the SASS,
+    split on cuobjdump's ``Function :`` headers, and ptxas's registers and
+    spills for it; every instantiation of both products must hold IGMMA."""
     import re
 
     from repro_torch.kernels import build
+
+    def short(mangled):
+        m = re.search(r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", mangled)
+        return mangled if m is None else m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
 
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run(
         [str(cuobjdump), "-sass", str(build.library_path("closure"))], capture_output=True, text=True, check=True
     ).stdout
-    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("IGMMA", "HGMMA", "QGMMA")}
-    check(counts["IGMMA"] > 0, f"no IGMMA instruction in the closure kernel's SASS: {counts}")
-    usage = [
-        line.split("ptxas info    : ", 1)[-1].strip()
-        for line in build.build_log("closure").splitlines()
-        if "registers" in line or "spill" in line
-    ]
-    return f"{counts}; ptxas: {' | '.join(usage)}"
+    kernels = {}
+    for block in sass.split("Function : ")[1:]:
+        counts = {op: len(re.findall(rf"\b{op}\b", block)) for op in ("IGMMA", "HGMMA", "QGMMA")}
+        kernels[short(block.split("\n", 1)[0].strip())] = {op: n for op, n in counts.items() if n}
+    name = None
+    for line in build.build_log("closure").splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([^'\s]+)", line)
+        if m:
+            name = short(m.group(1))
+            continue
+        usage = kernels.setdefault(name, {}) if name else {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            usage["spill stores"], usage["spill loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage["registers"] = int(m.group(1))
+    products = [k for k in kernels if k.startswith(("closure_step_wgmma_kernel", "bool_product_wgmma_kernel"))]
+    check(len(products) == 4 and all(kernels[k].get("IGMMA") for k in products),
+          f"the closure library's products without IGMMA: {kernels}")
+    return "; ".join(f"{k}: {v}" for k, v in sorted(kernels.items()))
 
 
 def phase_fused_ingest(torch, gen):
@@ -2862,7 +2881,7 @@ def phase_refresh(torch, gen):
           + "; ".join(f"{k[:60]} {v:.4f}" for k, v in by_kernel[:12]))
     del closures, counters, grown
     return dict(
-        name="bool_product", route="cuda", source="src/repro_torch/csrc/boolmm.cu",
+        name="bool_product", route="cuda", source="src/repro_torch/csrc/closure.cu",
         replaces="src/repro/core/reach.py::closure_refresh (XLA einsums, no Pallas kernel)", max_abs_err=0.0,
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="operations", library_ms=library_ms,
     )

@@ -1,25 +1,43 @@
-// One boolean squaring step of transitive closure, out = A OR (A @ A > 0),
-// for n stacked (w, w) 0/1 matrices (the d sketches) stored as bytes,
-// w % 128 == 0.  The step also writes out's transpose: the next step needs it.
+// The port's boolean product on the 8-bit tensor cores, out = C0 OR (A @ B > 0),
+// over n stacked 0/1 byte matrices: A (n, M, K), B (n, K, N) given as B^T
+// (n, N, K), C0 (n, M, N) optional, and out^T (n, N, M) written beside out when
+// asked for; M, N and K multiples of 128.  One device body behind two kernel
+// names, each the name the profiler and the benchmark read:
+// - closure_step_wgmma_kernel (glava_closure_step): one boolean squaring step
+//   of transitive closure, out = A OR (A @ A > 0), for n stacked (w, w)
+//   matrices (the d sketches), with out's transpose, which the next step
+//   needs: the product with B^T = A^T, C0 = A and M = N = K = w.  Replaces
+//   the TPU kernel src/repro/kernels/closure/kernel.py::closure_step_pallas
+//   (body _closure_kernel), which accumulated float32 blocks across a
+//   sequential contraction grid axis.
+// - bool_product_wgmma_kernel (glava_bool_product), port-only: the products
+//   of the incremental closure refresh (src/repro/core/reach.py::
+//   closure_refresh, float32 einsums in the reference, no Pallas kernel).
+//   The refresh on the card (kernels/boolmm/ops.py::closure_refresh) runs
+//   every product here: U = Delta . B, the touched-row closure's squarings,
+//   W = S* . U and the new closure B OR G . W.
+// Beside them, a byte transpose (byte_transpose_kernel, glava_byte_transpose)
+// for the refresh's closure, which a generic strided copy moves at a tenth of
+// the bandwidth.
 //
-// Replaces the TPU kernel src/repro/kernels/closure/kernel.py::closure_step_pallas
-// (body _closure_kernel), which accumulated float32 blocks across a
-// sequential contraction grid axis.  Here each block owns one 128 x BN output
-// tile of one matrix (BN = 256 when w % 256 == 0, else 128) and runs the
-// whole contraction itself; blocks run in any order, so the step reads A and
-// writes separate buffers (the caller ping-pongs two pairs across steps).
+// Each block owns one 128 x BN output tile of one matrix (BN = 256 when
+// N % 256 == 0, else 128) and runs the whole contraction itself; blocks run
+// in any order, so out is a buffer apart from the operands (B3's loop
+// ping-pongs two pairs across steps).
 //
-// Bound on an H100: 2*w^3 operations per matrix on the tensor cores at the
-// 8-bit rate (1,979 TOPS dense); at d=5, w=8,192 that is 5.5e12 operations,
+// Bound on an H100: 2*M*N*K operations a matrix on the tensor cores at the
+// 8-bit rate (1,979 TOPS dense).  B3 at d=5, w=8,192 is 5.5e12 operations,
 // 2.78 ms a step, against 1.34 GB of reads and writes (A, A^T, out, out^T at
-// one byte an entry: 0.40 ms at 3.35 TB/s).  So the step is bound by
-// operations, and the design feeds the tensor cores at that rate:
+// one byte an entry: 0.40 ms at 3.35 TB/s); the refresh at d = 5, w = 8,192
+// and T = 2,048 touched rows, two tenants, is 8.0e12 operations (4.05 ms)
+// against 2.0 GB (0.6 ms).  So both are bound by operations, and the design
+// feeds the tensor cores at that rate:
 // - 8-bit operands.  0/1 is exact in u8 and the int32 sums are at most
-//   w < 2^31, so `wgmma ... .s32.u8.u8` computes A @ A exactly.  8-bit wgmma
-//   takes both operands K-major only: A's rows are, and the B operand (A read
-//   down its columns) comes from A^T's rows.  Hence the transposed copy.
+//   K < 2^31, so `wgmma ... .s32.u8.u8` computes A @ B exactly.  8-bit wgmma
+//   takes both operands K-major only: A's rows are, and the B operand comes
+//   from B^T's rows.  Hence B3's transposed copy.
 // - A TMA pipeline.  One producer thread keeps STAGES stages of (128 rows of
-//   A, BN rows of A^T) x 128 bytes of the contraction in flight, each loaded
+//   A, BN rows of B^T) x 128 bytes of the contraction in flight, each loaded
 //   by TMA with the 128-byte swizzle wgmma reads, and signalled on an
 //   mbarrier; two consumer warpgroups each issue m64nBNk32 wgmma on their 64
 //   rows, keep one stage's wgmma in flight while they issue the next, and
@@ -27,11 +45,11 @@
 //   setmaxnreg moves the producer's registers to the consumers' BN/2 int32
 //   accumulators.
 // - A grouped raster: blocks walk 16 row tiles per column tile, so the tiles
-//   in flight share A and A^T panels in the 50 MB L2.
+//   in flight share A and B^T panels in the 50 MB L2.
 // - The epilogue saturates (> 0 -> 1) into a byte tile in shared memory (the
-//   pipeline's, free by then), ORs in A's own entries with 16-byte loads and
-//   stores the tile row-major into out and, transposed through shared memory
-//   with byte permutes, into out^T: 32 contiguous bytes a store.
+//   pipeline's, free by then), ORs in C0's entries with 16-byte loads and
+//   stores the tile row-major into out and, when asked, transposed through
+//   shared memory with byte permutes into out^T: 32 contiguous bytes a store.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -206,12 +224,12 @@ __device__ __forceinline__ void wgmma(uint32_t (&d)[BN / 2], uint64_t da, uint64
   else wgmma_n128(d, da, db);
 }
 
+// The product of one block: its 128 x BN tile of out = C0 OR (A @ B > 0)
+// and, when out_t is not null, of out^T; c0 may be null.
 template <int BN>
-__global__ void __launch_bounds__(THREADS, 1)
-closure_step_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
-                          const __grid_constant__ CUtensorMap map_at,
-                          const uint8_t* __restrict__ a, uint8_t* __restrict__ out,
-                          uint8_t* __restrict__ out_t, int w) {
+__device__ __forceinline__ void bool_product_block(const CUtensorMap* map_a, const CUtensorMap* map_bt,
+                                                   const uint8_t* __restrict__ c0, uint8_t* __restrict__ out,
+                                                   uint8_t* __restrict__ out_t, int m, int n, int k) {
   using C = Cfg<BN>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -219,7 +237,7 @@ closure_step_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   uint64_t* empty = full + STAGES;
 
   // Grouped raster over (matrix, row tile, column tile).
-  const int tiles_i = w / BM, tiles_j = w / BN;
+  const int tiles_i = m / BM, tiles_j = n / BN;
   const int per_matrix = tiles_i * tiles_j;
   const int z = blockIdx.x / per_matrix;
   const int r = blockIdx.x % per_matrix;
@@ -228,7 +246,7 @@ closure_step_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   const int group_rows = min(tiles_i - first_i, GROUP_I);
   const int i0 = (first_i + (r % group) % group_rows) * BM;
   const int j0 = ((r % group) / group_rows) * BN;
-  const int nk = w / BK;
+  const int nk = k / BK;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -249,8 +267,8 @@ closure_step_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
         mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
         uint8_t* stage = smem + s * C::STAGE_BYTES;
         mbar_expect_tx(&full[s], C::STAGE_BYTES);
-        tma_load_3d(stage, &map_a, &full[s], kt * BK, i0, z);
-        tma_load_3d(stage + C::A_BYTES, &map_at, &full[s], kt * BK, j0, z);
+        tma_load_3d(stage, map_a, &full[s], kt * BK, i0, z);
+        tma_load_3d(stage + C::A_BYTES, map_bt, &full[s], kt * BK, j0, z);
       }
     }
   } else {
@@ -295,32 +313,34 @@ closure_step_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     }
     asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
 
-    const size_t plane = static_cast<size_t>(w) * w;
-    const uint8_t* A = a + z * plane;
+    const size_t plane = static_cast<size_t>(m) * n;
     uint8_t* O = out + z * plane;
-    uint8_t* OT = out_t + z * plane;
-    // Row-major: out = tile | A, 16 bytes a thread, kept in the tile too.
+    // Row-major: out = tile | C0, 16 bytes a thread, kept in the tile too.
     for (int q = t; q < BM * BN / 16; q += CONSUMERS) {
       const int rr = q / (BN / 16), cc = (q % (BN / 16)) * 16;
-      const size_t g = static_cast<size_t>(i0 + rr) * w + j0 + cc;
+      const size_t g = static_cast<size_t>(i0 + rr) * n + j0 + cc;
       uint4 v = *reinterpret_cast<const uint4*>(tile + rr * C::C_LD + cc);
-      const uint4 x = __ldg(reinterpret_cast<const uint4*>(A + g));
-      v.x |= x.x;
-      v.y |= x.y;
-      v.z |= x.z;
-      v.w |= x.w;
+      if (c0 != nullptr) {
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(c0 + z * plane + g));
+        v.x |= x.x;
+        v.y |= x.y;
+        v.z |= x.z;
+        v.w |= x.w;
+        *reinterpret_cast<uint4*>(tile + rr * C::C_LD + cc) = v;
+      }
       *reinterpret_cast<uint4*>(O + g) = v;
-      *reinterpret_cast<uint4*>(tile + rr * C::C_LD + cc) = v;
     }
+    if (out_t == nullptr) return;
     asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
+    uint8_t* OT = out_t + z * plane;
     // Transposed: an item is 4 columns x 32 rows of the tile, read as 32
     // words and written as 4 rows of 32 bytes of out^T.
     for (int q = t; q < (BN / 4) * (BM / 32); q += CONSUMERS) {
-      const int p = q % (BN / 4), m = q / (BN / 4);
+      const int p = q % (BN / 4), band = q / (BN / 4);
       uint32_t v[32];
 #pragma unroll
-      for (int k = 0; k < 32; ++k)
-        v[k] = *reinterpret_cast<const uint32_t*>(tile + (32 * m + k) * C::C_LD + 4 * p);
+      for (int kk = 0; kk < 32; ++kk)
+        v[kk] = *reinterpret_cast<const uint32_t*>(tile + (32 * band + kk) * C::C_LD + 4 * p);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const uint32_t sel = c | ((c + 4) << 4);  // byte c of each of two words
@@ -331,10 +351,75 @@ closure_step_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
           const uint32_t hi = __byte_perm(v[4 * g + 2], v[4 * g + 3], sel);
           o[g] = __byte_perm(lo, hi, 0x5410);
         }
-        uint4* dst = reinterpret_cast<uint4*>(OT + static_cast<size_t>(j0 + 4 * p + c) * w + i0 + 32 * m);
+        uint4* dst = reinterpret_cast<uint4*>(OT + static_cast<size_t>(j0 + 4 * p + c) * m + i0 + 32 * band);
         dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
         dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
       }
+    }
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+closure_step_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                          const __grid_constant__ CUtensorMap map_at,
+                          const uint8_t* __restrict__ a, uint8_t* __restrict__ out,
+                          uint8_t* __restrict__ out_t, int w) {
+  bool_product_block<BN>(&map_a, &map_at, a, out, out_t, w, w, w);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+bool_product_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                          const __grid_constant__ CUtensorMap map_bt,
+                          const uint8_t* __restrict__ c0, uint8_t* __restrict__ out,
+                          uint8_t* __restrict__ out_t, int m, int n, int k) {
+  bool_product_block<BN>(&map_a, &map_bt, c0, out, out_t, m, n, k);
+}
+
+// out[z] = a[z]^T for (n, rows, cols) bytes, rows and cols multiples of 128:
+// the refresh transposes the closure once (its B operand).  A block moves a
+// 128 x 128 tile through shared memory: 16-byte loads along the rows, then
+// the epilogue's transposed store above (32 words of 32 source rows read
+// across the banks, byte permutes, 32 contiguous bytes a store).
+constexpr int TT = 128;
+constexpr int TT_THREADS = 128;
+
+__global__ void __launch_bounds__(TT_THREADS)
+byte_transpose_kernel(const uint8_t* __restrict__ a, uint8_t* __restrict__ out, int rows, int cols) {
+  __shared__ uint32_t tile[TT][TT / 4 + 1];  // a word column of padding: the reads below cross the banks
+  const int i0 = blockIdx.y * TT, j0 = blockIdx.x * TT, t = threadIdx.x;
+  const size_t plane = static_cast<size_t>(rows) * cols;
+  const uint8_t* A = a + blockIdx.z * plane;
+  for (int q = t; q < TT * TT / 16; q += TT_THREADS) {
+    const int r = q / (TT / 16), c = q % (TT / 16);
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(A + static_cast<size_t>(i0 + r) * cols + j0 + 16 * c));
+    uint32_t* dst = &tile[r][4 * c];
+    dst[0] = v.x;
+    dst[1] = v.y;
+    dst[2] = v.z;
+    dst[3] = v.w;
+  }
+  __syncthreads();
+  uint8_t* O = out + blockIdx.z * plane;
+  for (int q = t; q < (TT / 4) * (TT / 32); q += TT_THREADS) {
+    const int p = q % (TT / 4), band = q / (TT / 4);
+    uint32_t v[32];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) v[k] = tile[32 * band + k][p];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint32_t sel = c | ((c + 4) << 4);
+      uint32_t o[8];
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const uint32_t lo = __byte_perm(v[4 * g], v[4 * g + 1], sel);
+        const uint32_t hi = __byte_perm(v[4 * g + 2], v[4 * g + 3], sel);
+        o[g] = __byte_perm(lo, hi, 0x5410);
+      }
+      uint4* dst = reinterpret_cast<uint4*>(O + static_cast<size_t>(j0 + 4 * p + c) * rows + i0 + 32 * band);
+      dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
+      dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
     }
   }
 }
@@ -362,61 +447,64 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor maps cached per (pointer, n, w, box rows): a closure's steps cycle
-// through four buffers, so the host path of a step encodes nothing.
+// Tensor maps cached per (pointer, n, rows, k, box rows): a closure's steps
+// cycle through four buffers and a refresh's products reuse the caching
+// allocator's blocks call after call, so their host paths mostly encode
+// nothing.  The slots hold a fleet tick's B3 build and refresh together.
+constexpr int MAP_SLOTS = 48;
 struct MapEntry {
   const void* ptr;
-  int64_t n, w;
-  uint32_t rows;
+  int64_t n, rows, k;
+  uint32_t box_rows;
   CUtensorMap map;
 };
 std::mutex map_mutex;
-MapEntry map_cache[16];
+MapEntry map_cache[MAP_SLOTS];
 int map_count = 0, map_next = 0;
 
-// The map of an (n, w, w) byte tensor read as boxes of `rows` rows x BK
-// bytes, 128-byte swizzled.  False if the encoding is refused.
-bool tensor_map(const void* ptr, int64_t n, int64_t w, uint32_t rows, CUtensorMap* map) {
+// The map of an (n, rows, k) byte tensor read as boxes of `box_rows` rows x
+// BK bytes, 128-byte swizzled.  False if the encoding is refused.
+bool tensor_map(const void* ptr, int64_t n, int64_t rows, int64_t k, uint32_t box_rows, CUtensorMap* map) {
   std::lock_guard<std::mutex> lock(map_mutex);
   for (int i = 0; i < map_count; ++i) {
     const MapEntry& e = map_cache[i];
-    if (e.ptr == ptr && e.n == n && e.w == w && e.rows == rows) {
+    if (e.ptr == ptr && e.n == n && e.rows == rows && e.k == k && e.box_rows == box_rows) {
       *map = e.map;
       return true;
     }
   }
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(w), static_cast<cuuint64_t>(w),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(n)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(w), static_cast<cuuint64_t>(w * w)};
-  const cuuint32_t box[3] = {BK, rows, 1};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(rows * k)};
+  const cuuint32_t box[3] = {BK, box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr), dims, strides,
                               box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (res != CUDA_SUCCESS) return false;
   MapEntry& slot = map_cache[map_next];
-  slot = MapEntry{ptr, n, w, rows, *map};
-  map_next = (map_next + 1) % 16;
-  if (map_count < 16) ++map_count;
+  slot = MapEntry{ptr, n, rows, k, box_rows, *map};
+  map_next = (map_next + 1) % MAP_SLOTS;
+  if (map_count < MAP_SLOTS) ++map_count;
   return true;
 }
 
-template <int BN>
-int launch(const uint8_t* a, const uint8_t* a_t, uint8_t* out, uint8_t* out_t, int64_t n, int64_t w,
-           cudaStream_t stream) {
+// Launch `kernel` at BN over n matrices of (m / BM) x (nc / BN) tiles, A read
+// as (n, m, k) and B^T as (n, nc, k); `args` follow the two maps.
+template <int BN, typename Kernel, typename... Args>
+int launch(Kernel kernel, const uint8_t* a, const uint8_t* b_t, int64_t n, int64_t m, int64_t nc, int64_t k,
+           cudaStream_t stream, Args... args) {
   using C = Cfg<BN>;
-  CUtensorMap map_a, map_at;
-  if (!tensor_map(a, n, w, BM, &map_a) || !tensor_map(a_t, n, w, BN, &map_at))
+  CUtensorMap map_a, map_bt;
+  if (!tensor_map(a, n, m, k, BM, &map_a) || !tensor_map(b_t, n, nc, k, BN, &map_bt))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks = n * (w / BM) * (w / BN);
+  const int64_t blocks = n * (m / BM) * (nc / BN);
   if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(closure_step_wgmma_kernel<BN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  closure_step_wgmma_kernel<BN><<<static_cast<unsigned>(blocks), THREADS, C::SMEM_BYTES, stream>>>(
-      map_a, map_at, a, out, out_t, static_cast<int>(w));
+  kernel<<<static_cast<unsigned>(blocks), THREADS, C::SMEM_BYTES, stream>>>(map_a, map_bt, args...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -430,5 +518,37 @@ extern "C" int glava_closure_step(const uint8_t* a, const uint8_t* a_t, uint8_t*
   if (n == 0 || w == 0) return 0;
   if (w % BM != 0 || w > (1 << 24)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return w % 256 == 0 ? launch<256>(a, a_t, out, out_t, n, w, s) : launch<128>(a, a_t, out, out_t, n, w, s);
+  const int wi = static_cast<int>(w);
+  return w % 256 == 0 ? launch<256>(closure_step_wgmma_kernel<256>, a, a_t, n, w, w, w, s, a, out, out_t, wi)
+                      : launch<128>(closure_step_wgmma_kernel<128>, a, a_t, n, w, w, w, s, a, out, out_t, wi);
+}
+
+// a: (n, m, k) bytes in {0, 1}; b_t: (n, nc, k), each matrix of B
+// transposed; c0: (n, m, nc) or null; out receives (n, m, nc) and out_t, if
+// not null, its transpose (n, nc, m).  All 16-byte aligned; out and out_t
+// distinct from the inputs and each other; m, nc, k multiples of 128.
+extern "C" int glava_bool_product(const uint8_t* a, const uint8_t* b_t, const uint8_t* c0, uint8_t* out,
+                                  uint8_t* out_t, int64_t n, int64_t m, int64_t nc, int64_t k, void* stream) {
+  if (n == 0 || m == 0 || nc == 0) return 0;
+  if (m % BM != 0 || nc % 128 != 0 || k % BK != 0 || k == 0 || m > (1 << 24) || nc > (1 << 24) ||
+      k > (1 << 24))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int mi = static_cast<int>(m), ni = static_cast<int>(nc), ki = static_cast<int>(k);
+  return nc % 256 == 0
+             ? launch<256>(bool_product_wgmma_kernel<256>, a, b_t, n, m, nc, k, s, c0, out, out_t, mi, ni, ki)
+             : launch<128>(bool_product_wgmma_kernel<128>, a, b_t, n, m, nc, k, s, c0, out, out_t, mi, ni, ki);
+}
+
+// a: (n, rows, cols) bytes; out receives (n, cols, rows), each matrix
+// transposed.  Both 16-byte aligned and distinct; rows, cols multiples of 128.
+extern "C" int glava_byte_transpose(const uint8_t* a, uint8_t* out, int64_t n, int64_t rows, int64_t cols,
+                                    void* stream) {
+  if (n == 0 || rows == 0 || cols == 0) return 0;
+  if (rows % TT != 0 || cols % TT != 0 || n > 65535 || rows / TT > 65535 || rows > (1 << 24) || cols > (1 << 24))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(cols / TT), static_cast<unsigned>(rows / TT), static_cast<unsigned>(n));
+  byte_transpose_kernel<<<grid, TT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, out, static_cast<int>(rows), static_cast<int>(cols));
+  return static_cast<int>(cudaGetLastError());
 }

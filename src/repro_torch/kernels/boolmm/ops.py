@@ -1,6 +1,7 @@
-"""Wrapper of the boolean product on the 8-bit tensor cores
-(``csrc/boolmm.cu``), a port-only kernel, and the incremental closure refresh
-built on it.
+"""Wrapper of the boolean product on the 8-bit tensor cores, a port-only
+kernel, and the incremental closure refresh built on it.  The product is the
+kernel ``bool_product_wgmma_kernel`` of ``csrc/closure.cu``: B3's device body
+(``kernels/closure``) under its own name, beside ``byte_transpose_kernel``.
 
 :func:`bool_product` computes ``c0 OR (a @ b > 0)`` over n stacked 0/1 byte
 matrices, with b given as ``b_t``, each matrix transposed (8-bit ``wgmma``
@@ -25,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.boolmm.ref import bool_product_ref
-from repro_torch.kernels.closure.ops import closure_steps
+from repro_torch.kernels.closure.ops import check_bytes, closure_steps
 
 TILE = 128  # the kernel's tile along M, N and K
 
@@ -51,7 +52,7 @@ def byte_transpose(a: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, c, r), dtype=torch.uint8, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        launch = build.function("boolmm", "glava_byte_transpose", _TRANSPOSE_ARGTYPES)
+        launch = build.function("closure", "glava_byte_transpose", _TRANSPOSE_ARGTYPES)
         status = launch(a.data_ptr(), out.data_ptr(), n, r, c, stream)
     build.check(status, "byte_transpose")
     byte_transpose.launches += 1
@@ -65,19 +66,11 @@ def _up(x: int) -> int:
     return max(TILE, -(-x // TILE) * TILE)
 
 
-def _check(t: torch.Tensor, shape, name: str, device: torch.device) -> None:
-    if (
-        tuple(t.shape) != tuple(shape) or t.dtype != torch.uint8 or t.device != device
-        or not t.is_contiguous() or t.data_ptr() % 16
-    ):
-        raise ValueError(f"{name} must be a contiguous, 16-byte aligned {tuple(shape)} uint8 tensor on {device}")
-
-
 def _launch(a, b_t, c0, out, out_t) -> None:
     n, m, k = a.shape
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        launch = build.function("boolmm", "glava_bool_product", _ARGTYPES)
+        launch = build.function("closure", "glava_bool_product", _ARGTYPES)
         status = launch(a.data_ptr(), b_t.data_ptr(), None if c0 is None else c0.data_ptr(), out.data_ptr(),
                         None if out_t is None else out_t.data_ptr(), n, m, b_t.shape[1], k, stream)
     build.check(status, "bool_product")
@@ -111,11 +104,11 @@ def bool_product(
     n, m, k = a.shape
     nc = b_t.shape[1]
     dev = a.device
-    _check(a, a.shape, "a", dev)
-    _check(b_t, b_t.shape, "b_t", dev)
+    check_bytes(a, a.shape, "a", dev)
+    check_bytes(b_t, b_t.shape, "b_t", dev)
     for t, shape, name in ((c0, (n, m, nc), "c0"), (out, (n, m, nc), "out"), (out_t, (n, nc, m), "out_t")):
         if t is not None:
-            _check(t, shape, name, dev)
+            check_bytes(t, shape, name, dev)
     outs = [t.data_ptr() for t in (out, out_t) if t is not None]
     if len(set(outs)) != len(outs) or set(outs) & {t.data_ptr() for t in (a, b_t, c0) if t is not None}:
         raise ValueError("out and out_t must be separate from the inputs and each other")

@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the boolean product (``csrc/boolmm.cu``)."""
+"""Plain PyTorch version of the boolean product (``bool_product_wgmma_kernel``
+of ``csrc/closure.cu``)."""
 from __future__ import annotations
 
 from typing import Optional

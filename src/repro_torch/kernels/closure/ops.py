@@ -1,6 +1,10 @@
-"""Wrapper of the CUDA closure squaring step (``csrc/closure.cu``), the port
-of ``src/repro/kernels/closure/kernel.py::closure_step_pallas``, and the
-full-closure loop of ``src/repro/kernels/closure/ops.py``.
+"""Wrapper of the CUDA closure squaring step, the port of
+``src/repro/kernels/closure/kernel.py::closure_step_pallas``, and the
+full-closure loop of ``src/repro/kernels/closure/ops.py``.  The step is the
+kernel ``closure_step_wgmma_kernel`` of ``csrc/closure.cu``, the port's one
+source of the 8-bit boolean product: the same device body runs the
+refresh's ``bool_product_wgmma_kernel`` (``kernels/boolmm``) under its own
+name.
 
 The closure is kept one byte an entry from the first step to the last, with
 each matrix's transpose beside it: the kernel's 8-bit tensor-core product
@@ -30,12 +34,14 @@ def _transpose(a: torch.Tensor) -> torch.Tensor:
     return a.transpose(-1, -2).contiguous()
 
 
-def _check_buffer(t: torch.Tensor, like: torch.Tensor, name: str) -> None:
+def check_bytes(t: torch.Tensor, shape, name: str, device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous, 16-byte aligned uint8 tensor of
+    ``shape`` on ``device``: an operand of the kernels of ``csrc/closure.cu``."""
     if (
-        t.shape != like.shape or t.dtype != torch.uint8 or t.device != like.device
+        tuple(t.shape) != tuple(shape) or t.dtype != torch.uint8 or t.device != device
         or not t.is_contiguous() or t.data_ptr() % 16
     ):
-        raise ValueError(f"{name} must be a contiguous, 16-byte aligned (n, w, w) uint8 tensor like a")
+        raise ValueError(f"{name} must be a contiguous, 16-byte aligned {tuple(shape)} uint8 tensor on {device}")
 
 
 def _step_cost(a, a_t, out=None, out_t=None):
@@ -69,14 +75,14 @@ def closure_step(
         raise ValueError(f"closure_step runs on CUDA or CPU, got {a.device}")
     if a.dim() != 3:
         raise ValueError(f"a must be (n, w, w), got {tuple(a.shape)}")
-    _check_buffer(a, a, "a")
+    check_bytes(a, a.shape, "a", a.device)
     n, w, w2 = a.shape
     if w != w2 or w % TILE:
         raise ValueError(f"a must be square with w % {TILE} == 0, got {tuple(a.shape)}")
     out = torch.empty_like(a) if out is None else out
     out_t = torch.empty_like(a) if out_t is None else out_t
     for t, name in ((a_t, "a_t"), (out, "out"), (out_t, "out_t")):
-        _check_buffer(t, a, name)
+        check_bytes(t, a.shape, name, a.device)
     if len({t.data_ptr() for t in (a, a_t, out, out_t)}) != 4:
         raise ValueError("a, a_t, out and out_t must be four separate buffers")
     with torch.cuda.device(a.device):

@@ -459,6 +459,56 @@ def test_card_refresh_launches_and_equals_plain_refresh(cuda):
     assert torch.equal(got, reach.transitive_closure(after))
 
 
+def _kernel_counts(fn):
+    """{kernel name: launches} of one call of ``fn`` on the card, from the
+    profiler; a warm call first, and spin kernels ahead of the traced call,
+    since a trace may come back without the records of its first kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            torch.cuda._sleep(250_000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0.0) and "spin_kernel" not in e.key}
+
+
+def test_closure_and_refresh_keep_their_kernel_names(cuda):
+    """B3 and the refresh's product share one device body under two kernel
+    names, and the benchmark tells them apart by name (``closure_roofline``
+    counts every kernel matching ``closure_step`` as B3): a closure at
+    w = 256 launches ``closure_step_wgmma_kernel`` ``closure_steps(256)``
+    times and no ``bool_product_wgmma_kernel``; a card refresh launches
+    ``bool_product_wgmma_kernel`` 3 + ``closure_steps(256)`` times (T = 130
+    padded to 256), ``byte_transpose_kernel`` twice, and nothing named
+    ``closure_step``."""
+    from repro_torch.core.query_engine import _FAMILIES
+
+    def launched(counts, name):
+        return sum(n for key, n in counts.items() if name in key)
+
+    d, w = 3, 256
+    before = (torch.rand((d, w, w), generator=cuda, device="cuda") < 1.5 / w).float()
+    closure = closure_ops.transitive_closure(before)
+    counts = _kernel_counts(lambda: closure_ops.transitive_closure(before))
+    assert launched(counts, "closure_step_wgmma_kernel") == closure_ops.closure_steps(w), counts
+    assert launched(counts, "bool_product_wgmma_kernel") == 0, counts
+
+    rows = torch.randint(1, w, (d, 130), generator=cuda, device="cuda")
+    after = before.clone()
+    after[torch.arange(d, device="cuda")[:, None], rows, torch.randint(0, w, (d, 130), generator=cuda,
+                                                                         device="cuda")] += 3.0
+    card = _FAMILIES["closure_refresh"][1]
+    counts = _kernel_counts(lambda: card(closure, after, rows))
+    assert launched(counts, "closure_step") == 0, counts
+    assert launched(counts, "bool_product_wgmma_kernel") == 3 + closure_ops.closure_steps(w), counts
+    assert launched(counts, "byte_transpose_kernel") == 2, counts
+
+
 def test_card_refresh_syncs_nothing(cuda):
     """The session's and the fleet's card refreshes, inputs on the card,
     under ``set_sync_debug_mode("error")``."""
